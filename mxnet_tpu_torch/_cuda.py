@@ -1,0 +1,156 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface and loaded with
+``ctypes`` — no PyTorch headers, so a build takes seconds, not minutes.
+All sources compile in parallel at first use, into
+``build/mxnet_tpu_torch/<hash>/`` at the repo root, keyed by a hash of
+every file in ``csrc/`` and of the compiler flags; a later process with
+the same sources reuses the libraries.
+
+Every C entry launches on the stream it is handed (PyTorch's current
+stream), allocates nothing, and returns ``cudaGetLastError()``;
+:func:`launch` raises :class:`MXNetError` on a non-zero code.  The
+Python wrappers in ``ops/`` check device, dtype, shape and contiguity,
+allocate the outputs, and add one to :data:`launches` per kernel launch
+— the count that shows a run really went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+from .base import MXNetError
+
+__all__ = ["KERNELS", "launches", "reset_launches", "build", "launch",
+           "build_seconds", "stream_of"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "build", "mxnet_tpu_torch")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# kernel name -> (source stem, C entry, argtypes)
+KERNELS = {
+    "flash_attention": (
+        "flash_attention", "mxt_flash_attention_forward",
+        (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
+    "paged_attention": (
+        "paged_attention", "mxt_paged_attention",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
+    "mi_linear": (
+        "linear", "mxt_linear",
+        (_P, _P, _P, _P, _I, _I, _I, _P)),
+}
+
+# launches per kernel since the last reset_launches()
+launches = dict.fromkeys(KERNELS, 0)
+
+_lock = threading.Lock()
+_entries = {}
+build_seconds = None  # wall time of the build in this process (0: cached)
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc():
+    cands = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            cands.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise MXNetError("nvcc not found (set CUDA_HOME); the CUDA kernels are "
+                     "built from mxnet_tpu_torch/csrc at first use")
+
+
+def _source_key():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile (or reuse) every kernel library and bind its C entries.
+    Idempotent; returns the build directory."""
+    global build_seconds
+    with _lock:
+        out_dir = os.path.join(BUILD_ROOT, _source_key())
+        if _entries:
+            return out_dir
+        t0 = time.perf_counter()
+        os.makedirs(out_dir, exist_ok=True)
+        stems = sorted({stem for stem, _, _ in KERNELS.values()})
+        libs = {s: os.path.join(out_dir, "lib%s.so" % s) for s in stems}
+        todo = [s for s in stems if not os.path.exists(libs[s])]
+        if todo:
+            nvcc = _nvcc()
+            procs = {}
+            for s in todo:  # one nvcc per source, all at once
+                tmp = "%s.%d.tmp" % (libs[s], os.getpid())
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                       os.path.join(CSRC, s + ".cu")]
+                procs[s] = (tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            errors = []
+            for s, (tmp, proc) in procs.items():
+                log, _ = proc.communicate()
+                if proc.returncode:
+                    errors.append("%s.cu (nvcc rc %d):\n%s"
+                                  % (s, proc.returncode, log))
+                else:
+                    os.replace(tmp, libs[s])
+            if errors:
+                raise MXNetError("CUDA kernel build failed:\n"
+                                 + "\n".join(errors))
+        for name, (stem, entry, argtypes) in KERNELS.items():
+            lib = ctypes.CDLL(libs[stem])
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            err = lib.mxt_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _entries[name] = (fn, err)
+        build_seconds = time.perf_counter() - t0 if todo else 0.0
+        return out_dir
+
+
+def stream_of(tensor):
+    """PyTorch's current stream on ``tensor``'s device, as a pointer."""
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def launch(name, *args):
+    """Call kernel ``name``'s C entry (building at first use), raise on a
+    CUDA error, and count the launch."""
+    if name not in _entries:
+        build()
+    fn, err = _entries[name]
+    rc = fn(*args)
+    if rc:
+        raise MXNetError("%s: CUDA error %d (%s)"
+                         % (name, rc, err(rc).decode()))
+    launches[name] += 1

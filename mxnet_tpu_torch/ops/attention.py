@@ -1,0 +1,329 @@
+"""Blockwise (flash-style) attention and paged decode attention.
+
+Counterpart of ``mxnet_tpu/ops/attention.py``.  Each function that the
+JAX package runs as a TPU kernel or as a lax kernel on the serving path
+is a hand-written CUDA kernel here (``csrc/``), with its plain PyTorch
+version beside it:
+
+* :func:`flash_attention` — kernel K1 (``csrc/flash_attention.cu``), the
+  forward of the TPU flash kernel ``_pallas_attention``; plain version
+  :func:`flash_attention_plain`, the blockwise loop of
+  ``_flash_forward``.
+* :func:`paged_attention` — kernel K2 (``csrc/paged_attention.cu``),
+  ``decode_attention`` fused with the page-table gather that feeds it;
+  plain version :func:`paged_attention_plain`, the gather followed by
+  :func:`decode_attention`.
+
+A wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises.  Both versions share the
+online-softmax step of :func:`online_block_merge` (the kernels through
+``csrc/online_softmax.cuh``), so a paged decode row reproduces the
+matching row of a full-context forward bit for bit — the serving
+contract.  Sliding windows, quantized KV pages and the backward are
+ported in later slices and raise here.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _cuda
+from ..base import MXNetError, get_env
+
+__all__ = ["attention_block_size", "reference_attention", "flash_attention",
+           "flash_attention_plain", "online_block_merge",
+           "finalize_attention", "decode_attention", "gather_pages",
+           "paged_attention", "paged_attention_plain"]
+
+_MAX_HEAD_DIM = 256   # csrc/online_softmax.cuh: kMaxHeadDim
+_MAX_BLOCK = 128      # csrc/online_softmax.cuh: kMaxBlock
+
+
+def attention_block_size():
+    """K/V block length for the blockwise kernel (``MXNET_ATTN_BLOCK``)."""
+    block = get_env("MXNET_ATTN_BLOCK", 128)
+    if block < 1:
+        raise MXNetError("MXNET_ATTN_BLOCK must be >= 1, got %d" % block)
+    return block
+
+
+def _no_window(window, who):
+    if window:
+        raise MXNetError("%s: window=%d — sliding-window attention is "
+                         "ported in a later slice" % (who, window))
+
+
+# ---------------------------------------------------------------------------
+# shared online-softmax step (plain versions)
+# ---------------------------------------------------------------------------
+
+def _qk_scores(q32, kb, mi):
+    """(..., Tq, D) x (..., Tk, D) -> (..., Tq, Tk); ``mi`` selects the
+    broadcast-multiply-reduce form whose per-element order over D does
+    not depend on Tq."""
+    if mi:
+        return (q32[..., :, None, :] * kb[..., None, :, :]).sum(-1)
+    return q32 @ kb.transpose(-1, -2)
+
+
+def _pv_accum(p, vb, mi):
+    if mi:
+        return (p[..., :, :, None] * vb[..., None, :, :]).sum(-2)
+    return p @ vb
+
+
+def online_block_merge(acc, m, l, scores, v, mi=False):
+    """One flash-attention accumulation step (masked scores at -inf).
+    Returns updated ``(acc, m, l)``; a fully masked block is an exact
+    no-op."""
+    block_max = scores.amax(-1, keepdim=True)
+    new_m = torch.maximum(m, block_max)
+    new_m_safe = torch.where(torch.isfinite(new_m), new_m,
+                             torch.zeros_like(new_m))
+    correction = torch.exp(m - new_m_safe)
+    correction = torch.where(torch.isfinite(m), correction,
+                             torch.zeros_like(correction))
+    p = torch.exp(scores - new_m_safe)
+    p = torch.where(torch.isfinite(scores), p, torch.zeros_like(p))
+    new_l = l * correction + p.sum(-1, keepdim=True)
+    new_acc = acc * correction + _pv_accum(p, v, mi)
+    return new_acc, new_m, new_l
+
+
+def _attend_block(q32, kb, vb, acc, m, l, mask, mi):
+    scores = _qk_scores(q32, kb.float(), mi)
+    scores = torch.where(mask, scores, torch.full_like(scores, -torch.inf))
+    return online_block_merge(acc, m, l, scores, vb.float(), mi=mi)
+
+
+def finalize_attention(acc, l):
+    """Normalize the accumulator by the running denominator."""
+    return acc / torch.clamp(l, min=1e-20)
+
+
+def _init_state(q, dv):
+    shape = q.shape[:-1]
+    return (torch.zeros(shape + (dv,), dtype=torch.float32, device=q.device),
+            torch.full(shape + (1,), -torch.inf, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros(shape + (1,), dtype=torch.float32, device=q.device))
+
+
+# ---------------------------------------------------------------------------
+# reference (materialized) path
+# ---------------------------------------------------------------------------
+
+def reference_attention(q, k, v, causal=True, scale=None):
+    """Exact softmax attention over the full (..., Tq, Tk) score matrix:
+    the numeric ground truth, scores in fp32, O(T^2) memory."""
+    t, d = q.shape[-2], q.shape[-1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    scores = (q @ k.transpose(-1, -2)).float() * scale
+    if causal:
+        mask = torch.ones((t, k.shape[-2]), dtype=torch.bool,
+                          device=q.device).tril()
+        scores = torch.where(mask, scores,
+                             torch.full_like(scores, -torch.inf))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return probs @ v
+
+
+# ---------------------------------------------------------------------------
+# K1: blockwise flash forward
+# ---------------------------------------------------------------------------
+
+def flash_attention_plain(q, k, v, causal, scale, block, mi=False):
+    """The blockwise loop of the JAX package's ``_flash_forward``: visit
+    K/V blocks of ``block`` rows from position 0 in order, carrying
+    (acc, m, l) in fp32; padded keys of a ragged last block mask out."""
+    t = q.shape[-2]
+    q32 = q.float() * scale
+    q_pos = torch.arange(t, device=q.device)
+    acc, m, l = _init_state(q, v.shape[-1])
+    for start in range(0, t, block):
+        kb = k[..., start:start + block, :]
+        vb = v[..., start:start + block, :]
+        k_pos = torch.arange(start, start + block, device=q.device)
+        if kb.shape[-2] < block:  # ragged last block: pad and mask
+            pad = block - kb.shape[-2]
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+        mask = (k_pos < t)[None, :]
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        acc, m, l = _attend_block(q32, kb, vb, acc, m, l, mask, mi)
+    return finalize_attention(acc, l).to(q.dtype)
+
+
+def _flash_attention_cuda(q, k, v, causal, scale, block):
+    t, d = q.shape[-2], q.shape[-1]
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.float32:
+            raise MXNetError("flash_attention: %s is %s; the CUDA kernel "
+                             "takes float32" % (name, x.dtype))
+        if x.device != q.device:
+            raise MXNetError("flash_attention: q, k, v on different devices")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise MXNetError("flash_attention: q %r, k %r, v %r must share one "
+                         "(..., T, D) shape" % (tuple(q.shape),
+                                                tuple(k.shape),
+                                                tuple(v.shape)))
+    if d > _MAX_HEAD_DIM or not 1 <= block <= _MAX_BLOCK:
+        raise MXNetError("flash_attention: head_dim %d (max %d) or block %d "
+                         "(max %d) out of the kernel's range"
+                         % (d, _MAX_HEAD_DIM, block, _MAX_BLOCK))
+    q3, k3, v3 = (x.reshape(-1, t, d).contiguous() for x in (q, k, v))
+    out = torch.empty_like(q3)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            _cuda.launch("flash_attention", q3.data_ptr(), k3.data_ptr(),
+                         v3.data_ptr(), out.data_ptr(), q3.shape[0], t, d,
+                         float(scale), int(bool(causal)), int(block),
+                         _cuda.stream_of(q))
+    return out.reshape(q.shape)
+
+
+def flash_attention(q, k, v, causal=True, scale=None, block=None, mi=False,
+                    window=0):
+    """Blockwise online-softmax attention forward over (..., T, D).
+
+    On CUDA tensors this is kernel K1, whose per-row arithmetic is fixed
+    (M-invariant whatever ``mi`` says); on CPU tensors the plain version,
+    where ``mi`` selects the M-invariant matmul form as in the JAX
+    package.  An explicit ``block`` is honoured verbatim (serving
+    bit-exactness needs the accumulation width fixed across T)."""
+    _no_window(window, "flash_attention")
+    d = q.shape[-1]
+    t = k.shape[-2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if block is None:
+        block = min(attention_block_size(), max(t, 1))
+    if q.is_cuda:
+        return _flash_attention_cuda(q, k, v, causal, scale, int(block))
+    return flash_attention_plain(q, k, v, causal, scale, int(block), mi=mi)
+
+
+# ---------------------------------------------------------------------------
+# K2: paged attention (decode and prefill)
+# ---------------------------------------------------------------------------
+
+def _valid_len(lengths, q):
+    """(S,) or (S, Q) horizons -> a mask-ready (S, 1, Q|1, 1) tensor."""
+    if lengths.dim() == 2:
+        if tuple(lengths.shape) != (q.shape[0], q.shape[-2]):
+            raise MXNetError(
+                "decode_attention: per-row lengths %r do not match query "
+                "rows %r" % (tuple(lengths.shape), (q.shape[0], q.shape[-2])))
+        return lengths[:, None, :, None]
+    return lengths.reshape(lengths.shape + (1,) * (q.dim() - 1))
+
+
+def decode_attention(q, k_ctx, v_ctx, lengths, scale=None, block=None,
+                     mi=False):
+    """Attention of (S, H, Q, D) queries over a gathered (S, H, Tcap, D)
+    context, the JAX package's ``decode_attention``: ``lengths`` (S,) or
+    per-row (S, Q) counts the keys each query sees; all ``Tcap/block``
+    blocks are visited in order with the validity mask, and a slot with
+    length 0 gives 0."""
+    d = q.shape[-1]
+    t_cap = k_ctx.shape[-2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if block is None:
+        block = attention_block_size()
+    block = min(block, max(t_cap, 1))
+    if t_cap % block:
+        raise MXNetError("decode_attention: context capacity %d not a "
+                         "multiple of block %d" % (t_cap, block))
+    valid_len = _valid_len(lengths, q)
+    q32 = q.float() * scale
+    acc, m, l = _init_state(q, v_ctx.shape[-1])
+    for start in range(0, t_cap, block):
+        k_pos = torch.arange(start, start + block, device=q.device)
+        mask = k_pos < valid_len
+        acc, m, l = _attend_block(q32, k_ctx[..., start:start + block, :],
+                                  v_ctx[..., start:start + block, :],
+                                  acc, m, l, mask, mi)
+    return finalize_attention(acc, l).to(q.dtype)
+
+
+def gather_pages(pool, tables):
+    """One layer's (pages + 1, page, H, D) pool read through (S, max_pages)
+    page tables -> the (S, H, max_pages * page, D) context."""
+    s, max_pages = tables.shape
+    _, page, h, d = pool.shape
+    return pool[tables.long()].reshape(s, max_pages * page, h, d) \
+        .transpose(1, 2)
+
+
+def paged_attention_plain(q, k_pool, v_pool, tables, lengths, scale=None,
+                          mi=True):
+    """Plain version of kernel K2: gather the slots' pages, then
+    :func:`decode_attention` with ``block = page_size``."""
+    return decode_attention(q, gather_pages(k_pool, tables),
+                            gather_pages(v_pool, tables), lengths,
+                            scale=scale, block=k_pool.shape[1], mi=mi)
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale):
+    s, h, nq, d = q.shape
+    _, page, ph, pd = k_pool.shape
+    if (ph, pd) != (h, d) or v_pool.shape != k_pool.shape:
+        raise MXNetError("paged_attention: pool %r does not match queries "
+                         "%r" % (tuple(k_pool.shape), tuple(q.shape)))
+    if q.dtype != torch.float32 or k_pool.dtype != torch.float32 \
+            or v_pool.dtype != torch.float32:
+        raise MXNetError("paged_attention: the CUDA kernel takes float32 "
+                         "queries and pools")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise MXNetError("paged_attention: tables and lengths must be int32")
+    if tables.dim() != 2 or tables.shape[0] != s:
+        raise MXNetError("paged_attention: tables %r do not match %d slots"
+                         % (tuple(tables.shape), s))
+    per_row = lengths.dim() == 2
+    if tuple(lengths.shape) != ((s, nq) if per_row else (s,)):
+        raise MXNetError("paged_attention: lengths %r do not match queries "
+                         "%r" % (tuple(lengths.shape), tuple(q.shape)))
+    for x in (k_pool, v_pool, tables, lengths):
+        if x.device != q.device:
+            raise MXNetError("paged_attention: inputs on different devices")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise MXNetError("paged_attention: pools must be contiguous")
+    if d > _MAX_HEAD_DIM or page > _MAX_BLOCK:
+        raise MXNetError("paged_attention: head_dim %d (max %d) or page %d "
+                         "(max %d) out of the kernel's range"
+                         % (d, _MAX_HEAD_DIM, page, _MAX_BLOCK))
+    q = q.contiguous()
+    tables = tables.contiguous()
+    lengths = lengths.contiguous()
+    out = torch.empty_like(q)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            _cuda.launch("paged_attention", q.data_ptr(), k_pool.data_ptr(),
+                         v_pool.data_ptr(), tables.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(), s, h, nq, d,
+                         page, tables.shape[1], int(per_row), float(scale),
+                         _cuda.stream_of(q))
+    return out
+
+
+def paged_attention(q, k_pool, v_pool, tables, lengths, scale=None,
+                    mi=True):
+    """Attention of (S, H, Q, D) queries over one layer's paged KV pool.
+
+    ``k_pool``/``v_pool``: (pages + 1, page, H, D); ``tables``: (S,
+    max_pages) int32 page ids; ``lengths``: (S,) or per-row (S, Q) int32
+    horizons (keys at positions < horizon are visible).  Block size is the
+    page size.  Decode is S = slots, Q = 1; prefill is S = 1, Q = bucket
+    with horizons ``offset + j + 1``.  On CUDA tensors this is kernel K2,
+    which reads pages through the table and never builds the gathered
+    context (its order is fixed whatever ``mi`` says); on CPU tensors the
+    plain gather + :func:`decode_attention`."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.is_cuda:
+        return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
+                                     scale)
+    return paged_attention_plain(q, k_pool, v_pool, tables, lengths,
+                                 scale=scale, mi=mi)

@@ -1,0 +1,328 @@
+"""Functional transformer decoder for the serving runtime.
+
+Counterpart of ``mxnet_tpu/serve/model.py``: the same network as plain
+functions over one parameter dict under the training graph's names
+(``tok_embed_weight``, ``blk{i}_attn_in_weight`` ...), specialised three
+ways — the full-context reference forward, the bucketed prefill (full
+forward plus KV page writes) and the single-token decode step over every
+slot.  Op semantics follow the training kernels: ``FullyConnected``'s
+``(out, in)`` weight layout, ``LayerNorm`` at eps 1e-5, the head split
+``(n, t, h, d) -> (n, h, t, d)`` and the tanh-approximate GELU.
+
+Bit-exactness contract: with ``exact=True`` every projection runs the
+M-invariant kernel K3 (:func:`..ops.linear.mi_linear`) and attention
+runs K1/K2, which share one online-softmax step, so a token decoded
+through the paged KV cache is bit-identical to the same position of a
+full-context forward.  The oracle is :func:`reference_last_logits`, the
+full forward padded to the next ``page_size`` multiple with
+``block = page_size`` — the attention-block geometry of the paged path.
+
+Where the JAX functions return donated copies of the KV pools, these
+update the pools in place and return only tokens and logits.  Hybrid
+window/SSM layers, KV quantization, weight quantization, the
+speculative verify and draft steps are ported in later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError, get_env, later_slice, resolve_device
+from ..ops.attention import flash_attention, paged_attention
+from ..ops.linear import mi_linear
+
+__all__ = ["ModelConfig", "exact_mode", "init_params", "params_from_numpy",
+           "config_from_params", "full_forward", "prefill_forward",
+           "decode_step", "reference_last_logits"]
+
+
+def exact_mode():
+    """Default for the ``exact`` knob (``MXNET_SERVE_EXACT``, default 1):
+    bit-exact M-invariant projections vs plain products."""
+    return get_env("MXNET_SERVE_EXACT", True, bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static decoder geometry.  ``window``/``layer_kinds`` exist for
+    parity with the JAX package; anything but the classic all-full stack
+    is a later slice and raises in :meth:`validate`."""
+    vocab_size: int
+    num_layers: int
+    d_model: int
+    num_heads: int
+    max_len: int          # pos_embed rows == the context ceiling
+    window: int = 0
+    layer_kinds: tuple = ()
+
+    @property
+    def head_dim(self):
+        return self.d_model // self.num_heads
+
+    def validate(self):
+        if self.d_model % self.num_heads:
+            raise MXNetError("d_model %d not divisible by num_heads %d"
+                             % (self.d_model, self.num_heads))
+        if self.window:
+            raise later_slice("ModelConfig.window", self.window)
+        if set(self.layer_kinds) - {"full"}:
+            raise later_slice("ModelConfig.layer_kinds", self.layer_kinds)
+        return self
+
+
+def _layer_norm(x, gamma, beta):
+    """Training ``LayerNorm`` semantics: last axis, eps 1e-5.  One row per
+    reduction, so it is M-invariant as-is (``chip_smoke.py`` checks that
+    on the card)."""
+    return F.layer_norm(x, (x.shape[-1],), gamma, beta, eps=1e-5)
+
+
+def init_params(cfg, seed=0, scale=0.02, device=None):
+    """Fresh float32 parameters under the training graph's names, drawn
+    from a ``torch.Generator`` on ``device`` (default: the card).  The
+    JAX package draws from ``jax.random``, so the two give different
+    weights from one seed; tests carry weights across with
+    :func:`params_from_numpy`."""
+    cfg.validate()
+    device = resolve_device(device, "init_params")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    c, v = cfg.d_model, cfg.vocab_size
+
+    def normal(*shape):
+        return scale * torch.randn(shape, generator=gen, device=device,
+                                   dtype=torch.float32)
+
+    def const(fill, *shape):
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+    params = {
+        "tok_embed_weight": normal(v, c),
+        "pos_embed": normal(1, cfg.max_len, c),
+        "final_ln_gamma": const(1.0, c),
+        "final_ln_beta": const(0.0, c),
+        "lm_head_weight": normal(v, c),
+        "lm_head_bias": const(0.0, v),
+    }
+    for i in range(cfg.num_layers):
+        params.update({
+            "blk%d_ln1_gamma" % i: const(1.0, c),
+            "blk%d_ln1_beta" % i: const(0.0, c),
+            "blk%d_attn_in_weight" % i: normal(3 * c, c),
+            "blk%d_attn_in_bias" % i: const(0.0, 3 * c),
+            "blk%d_attn_out_weight" % i: normal(c, c),
+            "blk%d_attn_out_bias" % i: const(0.0, c),
+            "blk%d_ln2_gamma" % i: const(1.0, c),
+            "blk%d_ln2_beta" % i: const(0.0, c),
+            "blk%d_ffn1_weight" % i: normal(4 * c, c),
+            "blk%d_ffn1_bias" % i: const(0.0, 4 * c),
+            "blk%d_ffn2_weight" % i: normal(c, 4 * c),
+            "blk%d_ffn2_bias" % i: const(0.0, c),
+        })
+    return params
+
+
+def params_from_numpy(np_params, device=None):
+    """The JAX package's flat parameter dict (numpy arrays, or tensors,
+    under the training names) as the port's float32 tensors on
+    ``device`` (default: the card).  ``data``/``softmax_label`` are
+    dropped as the JAX session drops them; quantized ``{"q", "s"}``
+    records are a later slice and raise."""
+    device = resolve_device(device, "params_from_numpy")
+    out = {}
+    for name, val in np_params.items():
+        if name in ("data", "softmax_label"):
+            continue
+        if isinstance(val, dict):
+            raise later_slice("quantized parameter %r" % name, sorted(val))
+        if not torch.is_tensor(val):
+            val = torch.from_numpy(np.array(val, dtype=np.float32))
+        out[name] = val.to(device=device, dtype=torch.float32).contiguous()
+    return out
+
+
+def config_from_params(params, num_heads):
+    """Derive the :class:`ModelConfig` from parameter shapes (everything
+    except ``num_heads``, which appears in no shape)."""
+    if "tok_embed_weight" not in params or "pos_embed" not in params:
+        raise MXNetError(
+            "not a transformer LM parameter dict (expected "
+            "tok_embed_weight / pos_embed; got %s)" % sorted(params)[:8])
+    vocab, d_model = params["tok_embed_weight"].shape
+    max_len = params["pos_embed"].shape[1]
+    n = 0
+    while "blk%d_attn_in_weight" % n in params:
+        n += 1
+    if n == 0:
+        raise MXNetError("no blk0_attn_in_weight — zero decoder layers?")
+    return ModelConfig(vocab_size=int(vocab), num_layers=n,
+                       d_model=int(d_model), num_heads=int(num_heads),
+                       max_len=int(max_len)).validate()
+
+
+def _heads(x, n, t, h, d):
+    """(n, t, h*d) -> (n, h, t, d), contiguous."""
+    return x.reshape(n, t, h, d).transpose(1, 2).contiguous()
+
+
+def _qkv(params, i, x, exact):
+    hdn = _layer_norm(x, params["blk%d_ln1_gamma" % i],
+                      params["blk%d_ln1_beta" % i])
+    qkv = mi_linear(hdn, params["blk%d_attn_in_weight" % i],
+                    params["blk%d_attn_in_bias" % i], exact)
+    return qkv.chunk(3, dim=-1)
+
+
+def _attn_out(params, i, x, att, exact):
+    """Merge heads of (n, h, t, d) attention output, project, add."""
+    n, h, t, d = att.shape
+    ctx = att.transpose(1, 2).reshape(n, t, h * d)
+    return x + mi_linear(ctx, params["blk%d_attn_out_weight" % i],
+                         params["blk%d_attn_out_bias" % i], exact)
+
+
+def _block_mlp(params, i, x, exact):
+    hdn = _layer_norm(x, params["blk%d_ln2_gamma" % i],
+                      params["blk%d_ln2_beta" % i])
+    hdn = mi_linear(hdn, params["blk%d_ffn1_weight" % i],
+                    params["blk%d_ffn1_bias" % i], exact)
+    hdn = F.gelu(hdn, approximate="tanh")  # jax.nn.gelu's default
+    hdn = mi_linear(hdn, params["blk%d_ffn2_weight" % i],
+                    params["blk%d_ffn2_bias" % i], exact)
+    return x + hdn
+
+
+def _lm_head(params, x, exact):
+    x = _layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"])
+    return mi_linear(x, params["lm_head_weight"], params["lm_head_bias"],
+                     exact)
+
+
+def _kv_append(pool, i, pages, offsets, rows):
+    """Write (N, H, D) KV rows into layer ``i`` of the page pool at
+    (page, offset), in place.  Only trash-page rows can collide, and
+    nothing reads the trash page."""
+    pool[i, pages, offsets] = rows
+
+
+def full_forward(params, tokens, cfg, exact=None, block=None):
+    """Full-context forward: (n, T) int tokens -> (n, T, V) logits."""
+    if exact is None:
+        exact = exact_mode()
+    n, t = tokens.shape
+    if t > cfg.max_len:
+        raise MXNetError("sequence length %d > model max_len %d"
+                         % (t, cfg.max_len))
+    h, d = cfg.num_heads, cfg.head_dim
+    x = params["tok_embed_weight"][tokens.long()] + params["pos_embed"][:, :t]
+    for i in range(cfg.num_layers):
+        q, k, v = (_heads(z, n, t, h, d) for z in _qkv(params, i, x, exact))
+        att = flash_attention(q, k, v, causal=True, block=block, mi=exact)
+        x = _attn_out(params, i, x, att, exact)
+        x = _block_mlp(params, i, x, exact)
+    return _lm_head(params, x, exact)
+
+
+def prefill_forward(params, tokens, length, offset, table_row, k_pool,
+                    v_pool, cfg, page_size, exact=None):
+    """Bucketed prefill over one page-aligned chunk of a prompt.
+
+    tokens: (1, Tb) chunk padded to the bucket length (a multiple of
+    ``page_size``); ``length``: real tokens in this chunk; ``offset``:
+    absolute position of its first token; table_row: (max_pages,) int32
+    page ids, entries past the slot's pages pointing at the trash page.
+    Writes the chunk's K/V into ``k_pool``/``v_pool`` **in place** and
+    attends row ``j`` over every key at or before its absolute position
+    (horizon ``offset + j + 1``), cached prefix pages included.  Rows
+    whose page index runs past the table go to the trash page (a clipped
+    index would alias the slot's last real page).  Returns
+    ``(first_token, last_logits)`` at chunk row ``length - 1``; the LM
+    head runs on that row alone, which M-invariance makes the same bits
+    as taking the row of the whole chunk's logits."""
+    if exact is None:
+        exact = exact_mode()
+    _, t_b = tokens.shape
+    if t_b % page_size:
+        raise MXNetError("bucket length %d not a multiple of page size %d"
+                         % (t_b, page_size))
+    h, d = cfg.num_heads, cfg.head_dim
+    dev = tokens.device
+    max_pages = table_row.shape[0]
+    trash = k_pool.shape[1] - 1
+    abs_pos = offset + torch.arange(t_b, device=dev)
+    pos = abs_pos.clamp(0, cfg.max_len - 1)
+    x = params["tok_embed_weight"][tokens.long()] \
+        + params["pos_embed"][0][pos]
+    horizons = (abs_pos + 1).to(torch.int32).reshape(1, t_b)
+    idx = abs_pos // page_size
+    pages = torch.where(idx < max_pages,
+                        table_row.long()[idx.clamp(0, max_pages - 1)],
+                        torch.full_like(idx, trash))
+    offsets = abs_pos % page_size
+    tables = table_row.reshape(1, max_pages)
+    for i in range(cfg.num_layers):
+        q, k, v = _qkv(params, i, x, exact)
+        _kv_append(k_pool, i, pages, offsets, k.reshape(t_b, h, d))
+        _kv_append(v_pool, i, pages, offsets, v.reshape(t_b, h, d))
+        att = paged_attention(_heads(q, 1, t_b, h, d), k_pool[i], v_pool[i],
+                              tables, horizons, mi=exact)
+        x = _attn_out(params, i, x, att, exact)
+        x = _block_mlp(params, i, x, exact)
+    last = _lm_head(params, x[0, length - 1], exact)
+    return last.argmax(-1).to(torch.int32), last
+
+
+def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
+                page_size, exact=None):
+    """One continuous-batching decode step for every slot at once.
+
+    tokens: (S,) int — each slot's previous output token; lengths: (S,)
+    int32 KV rows already cached per slot (the new token's position);
+    tables: (S, max_pages) int32 (inactive slots: all-trash rows, length
+    0).  Appends each slot's new K/V at ``lengths`` **in place** in the
+    pools, attends over the slot's pages, and returns
+    ``(next_tokens (S,), logits (S, V))``."""
+    if exact is None:
+        exact = exact_mode()
+    s = tokens.shape[0]
+    h, d = cfg.num_heads, cfg.head_dim
+    max_pages = tables.shape[1]
+    lengths = lengths.to(torch.int32)
+    pos = lengths.long().clamp(0, cfg.max_len - 1)
+    x = params["tok_embed_weight"][tokens.long()] \
+        + params["pos_embed"][0][pos]
+    x = x[:, None, :]                                     # (S, 1, C)
+    page_slot = (lengths.long() // page_size).clamp(0, max_pages - 1)
+    page = tables.long().gather(1, page_slot[:, None])[:, 0]
+    offset = lengths.long() % page_size
+    horizons = lengths + 1
+    for i in range(cfg.num_layers):
+        q, k, v = _qkv(params, i, x, exact)
+        _kv_append(k_pool, i, page, offset, k.reshape(s, h, d))
+        _kv_append(v_pool, i, page, offset, v.reshape(s, h, d))
+        att = paged_attention(q.reshape(s, h, 1, d), k_pool[i], v_pool[i],
+                              tables, horizons, mi=exact)
+        x = _attn_out(params, i, x, att, exact)
+        x = _block_mlp(params, i, x, exact)
+    logits = _lm_head(params, x[:, 0], exact)
+    return logits.argmax(-1).to(torch.int32), logits
+
+
+def reference_last_logits(params, seq, cfg, page_size, exact=None):
+    """Bit-exactness oracle for the serving path: the full-context
+    forward over ``seq`` padded to the next ``page_size`` multiple, with
+    ``block = page_size`` (the attention-block geometry of the paged
+    path), logits at the last real position."""
+    exact = exact_mode() if exact is None else bool(exact)
+    seq = [int(t) for t in seq]
+    if not seq:
+        raise MXNetError("reference_last_logits: empty sequence")
+    pad = (-len(seq)) % int(page_size)
+    device = params["tok_embed_weight"].device
+    toks = torch.tensor([seq + [0] * pad], dtype=torch.int64, device=device)
+    logits = full_forward(params, toks, cfg, exact=exact,
+                          block=int(page_size))
+    return logits[0, len(seq) - 1]

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA card and skips without one.  This file
+imports neither JAX nor the JAX package, so it also runs on a machine
+that has only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerance: atol 1e-5 between an attention kernel and its plain version
+(fp32, unit-normal inputs, the reductions run in other orders); for the
+projection, the worst-case bound of two fp32 summation orders; and
+bit-equality where the serving contract demands it (row-count
+invariance, decode == reference).
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch import _cuda, serve
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import attention as A
+from mxnet_tpu_torch.ops import linear as L
+
+pytestmark = pytest.mark.cuda
+
+ATOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("t,d,causal,block", [(37, 40, True, 8),
+                                              (37, 40, False, 8),
+                                              (64, 128, True, 16),
+                                              (5, 16, True, 128)])
+def test_flash_attention_kernel_matches_plain(dev, t, d, causal, block):
+    q, k, v = (_randn(dev, 2, 3, t, d, seed=s) for s in range(3))
+    before = _cuda.launches["flash_attention"]
+    got = A.flash_attention(q, k, v, causal=causal, block=block)
+    assert _cuda.launches["flash_attention"] == before + 1
+    want = A.flash_attention_plain(q, k, v, causal, 1.0 / d ** 0.5, block,
+                                   mi=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("nq,per_row", [(1, False), (24, True)])
+def test_paged_attention_kernel_matches_plain(dev, nq, per_row):
+    page, max_pages, h, d, s = 8, 5, 4, 64, 3
+    k_pool = _randn(dev, s * max_pages + 1, page, h, d, seed=1)
+    v_pool = _randn(dev, s * max_pages + 1, page, h, d, seed=2)
+    rs = np.random.RandomState(0)
+    tables = torch.from_numpy(rs.permutation(s * max_pages).reshape(
+        s, max_pages).astype(np.int32)).to(dev)
+    if per_row:
+        lengths = np.array([[8 + j for j in range(nq)],
+                            [1 + j for j in range(nq)], [0] * nq], np.int32)
+    else:
+        lengths = np.array([17, 0, max_pages * page], np.int32)
+    lengths = torch.from_numpy(lengths).to(dev)
+    q = _randn(dev, s, h, nq, d, seed=3)
+    got = A.paged_attention(q, k_pool, v_pool, tables, lengths)
+    want = A.paged_attention_plain(q, k_pool, v_pool, tables, lengths)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    idle = 2 if per_row else 1
+    assert torch.count_nonzero(got[idle]) == 0
+
+
+def test_paged_row_equals_flash_row_bitwise(dev):
+    page, h, d, t = 16, 2, 128, 45
+    q, k, v = (_randn(dev, 1, h, t, d, seed=s) for s in range(3))
+    full = A.flash_attention(q, k, v, causal=True, block=page)
+    k_pool = torch.zeros(4, page, h, d, device=dev)
+    v_pool = torch.zeros_like(k_pool)
+    tables = torch.tensor([[3, 1, 0]], dtype=torch.int32, device=dev)
+    for pos in range(t):
+        pg, off = int(tables[0, pos // page]), pos % page
+        k_pool[pg, off] = k[0, :, pos]
+        v_pool[pg, off] = v[0, :, pos]
+    row = A.paged_attention(q[:, :, t - 1:t].contiguous(), k_pool, v_pool,
+                            tables, torch.tensor([t], dtype=torch.int32,
+                                                 device=dev))
+    assert torch.equal(row[0, :, 0], full[0, :, t - 1])
+
+
+@pytest.mark.parametrize("m,f,c", [(1, 70, 33), (8, 96, 64),
+                                   (40, 130, 200)])
+def test_mi_linear_kernel_matches_plain_and_is_row_invariant(dev, m, f, c):
+    x, w = _randn(dev, m, c, seed=1), _randn(dev, f, c, seed=2)
+    b = _randn(dev, f, seed=3)
+    for bias in (b, None):
+        got = L.mi_linear(x, w, bias)
+        # two fp32 summation orders over C terms differ by at most
+        # 2 C 2^-24 (|x| |w|^T + |b|)
+        mag = x.abs() @ w.abs().t() + (bias.abs() if bias is not None else 0)
+        diff = (got - L.mi_linear_plain(x, w, bias)).abs()
+        assert bool((diff <= 2 * c * 2.0 ** -24 * mag).all())
+        for r in range(m):
+            assert torch.equal(L.mi_linear(x[r:r + 1], w, bias),
+                               got[r:r + 1])
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+    x = _randn(dev, 4, 8).double()
+    with pytest.raises(MXNetError, match="float32"):
+        L.mi_linear(x, x)
+    q = _randn(dev, 1, 1, 8, 8)
+    with pytest.raises(MXNetError, match="window"):
+        A.flash_attention(q, q, q, window=2)
+
+
+def test_serve_decode_bitexact_on_the_card(dev):
+    cfg = serve.ModelConfig(vocab_size=61, num_layers=2, d_model=64,
+                            num_heads=2, max_len=64)
+    sess = serve.InferenceSession(
+        serve.init_params(cfg, seed=3, device=dev), num_heads=2,
+        config=serve.ServeConfig(slots=3, page_size=8, buckets=(8, 16),
+                                 max_new=8))
+    rs = np.random.RandomState(11)
+    seqs = {}
+    for n in (5, 13):
+        p = rs.randint(1, cfg.vocab_size, size=n).tolist()
+        slot = sess.try_alloc(n, 8)
+        first, logits = sess.prefill(slot, p)
+        ref = serve.reference_last_logits(sess.params, p, sess.model, 8)
+        np.testing.assert_array_equal(logits, ref.cpu().numpy())
+        seqs[slot] = p + [first]
+    for _ in range(6):
+        toks, logits = sess.step()
+        for slot, seq in seqs.items():
+            ref = serve.reference_last_logits(sess.params, seq, sess.model,
+                                              8)
+            np.testing.assert_array_equal(logits[slot], ref.cpu().numpy())
+            seq.append(toks[slot])
