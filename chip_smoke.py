@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -10,12 +11,14 @@ a checkout that holds ``mxnet_tpu_torch/``):
 1. card — the card's name and power limit from ``nvidia-smi``, then the
    build of every kernel from ``mxnet_tpu_torch/csrc`` (build seconds).
 2. kernels — each hand-written kernel against its plain PyTorch version
-   at the serving path's shapes, with a stated tolerance: max error,
-   ``kernel_ms``, ``plain_ms``, ``library_ms`` (one PyTorch call that
-   computes the same function, timed as a yardstick and used nowhere in
-   the port) and ``bound_ms`` (the larger of bytes over 3.35 TB/s and
-   operations over the fp32 peak of 67 TFLOP/s, from the H100 SXM data
-   sheet).  Timings are CUDA-event means over launches on a cold L2.
+   at the serving and training paths' shapes, with a stated tolerance:
+   max error, ``kernel_ms``, ``plain_ms``, ``library_ms`` (one PyTorch
+   call that computes the same function, timed as a yardstick and used
+   nowhere in the port) and ``bound_ms`` (the larger of bytes over 3.35
+   TB/s and operations over the peak for the inputs' type: 67 TFLOP/s
+   fp32 outside the tensor cores, 989 TFLOP/s bf16 dense, from the H100
+   SXM data sheet).  Timings are CUDA-event means over launches on a
+   cold L2.
 3. invariance — rows of the exact projection (K3) and of LayerNorm at
    M = 256 are bit-identical to the same rows computed alone.
 4. serve — the transformer LM at the width of ``bench_transformer.py``'s
@@ -25,7 +28,21 @@ a checkout that holds ``mxnet_tpu_torch/``):
    and every token's logits of two whole streams, must equal the port's
    ``reference_last_logits`` bit for bit.  Launch counts are reset just
    before this phase and read just after; every kernel must have run.
-5. a ``{"kernels": [...]}`` line, then the last line
+5. train — the same LM trains through ``models.transformer.get_symbol``
+   -> ``fused.TrainStep(optimizer="sgd", compute_dtype="bfloat16")`` ->
+   ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
+   batch 8; SGD lr 1e-3, momentum 0.9, rescale_grad 1/8): one warm-up
+   and five timed steps.  The cross-entropy at the labels and every
+   parameter must be finite, and attention must have run through K1 and
+   K4 exactly once per layer per step.  Then one profiled step.
+6. train-parity — one step of the kernel path against one step under
+   ``MXNET_ATTN_IMPL=reference`` from one state, by the per-tensor
+   relative L2 error of the parameter update: fp32 at full width with 2
+   layers and batch 2 (bound 1e-3), and bf16 with all 8 layers and batch
+   8, where both bf16 steps are also held against the fp32 reference
+   step and the kernel path must be no less accurate than the
+   reference.
+7. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -38,10 +55,34 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 dense tensor cores
 ATTN_ATOL = 1e-5
 ATTN_NOTE = ("atol 1e-5: fp32 on both sides; the D = 128 score dots and "
              "the per-block sums run in other orders, ~100 units of "
              "roundoff at these magnitudes")
+BF16_NOTE = ("|diff| <= 2^-7 |want| + 1e-4 max|want|: both sides round an "
+             "fp32 result to bf16 once, and the fp32 values differ by "
+             "reduction order, so results may sit one bf16 step apart; the "
+             "second term covers entries that cancel toward zero in fp32")
+LSE_ATOL = 5e-5
+BWD_ATOL = 2e-5
+BWD_NOTE = ("atol 2e-5: fp32 on both sides, sums over up to 37 terms of "
+            "order 1 in other orders")
+# train-parity bounds on the per-tensor relative L2 error of the update
+PARITY_FP32 = 1e-3
+PARITY_FP32_NOTE = ("fp32 everywhere; only the attention's summation order "
+                    "differs between K1/K4 and the materialized reference")
+# bf16: the kernel path keeps scores and probabilities in fp32 where the
+# materialized reference rounds both to bf16, so against the fp32 step
+# (the truth) it must be no less accurate: its mean error over tensors at
+# most the reference's, and no tensor's error above 1.5 times the
+# reference's (one step's noise on single tensors: the plain versions on
+# the CPU at d_model 64 with 2 and 4 layers give at most 1.25)
+PARITY_BF16_RATIO = 1.5
+PARITY_BF16_NOTE = ("against the fp32 reference step on the same token "
+                    "ids: mean kernel error <= mean reference error, and "
+                    "every tensor's kernel error <= 1.5 x its reference "
+                    "error")
 LINEAR_SLACK = 2.0
 LINEAR_NOTE = ("|diff| <= 2 C 2^-24 (|x| |w|^T + |b|): the worst-case "
                "fp32 error of two summation orders over C terms")
@@ -129,16 +170,47 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
                 bitexact_logits_checked=checked)
 
 
+def profiled_window(fn, groups):
+    """Run ``fn`` under ``torch.profiler``; the device time of its kernels
+    by group (``groups``: (name, substrings of the kernel's name)), the
+    rest as ``other``, and the device's idle share of the wall time.
+    Only device-side events count: a CPU op's device time repeats the
+    time of the kernels it launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = next((g for g, keys in groups
+                     if any(k in ev.key for k in keys)), "other")
+        by[name] += ev.self_device_time_total / 1e3
+        key = ev.key[:60]
+        kernels[key] = kernels.get(key, 0.0) + ev.self_device_time_total / 1e3
+    busy = sum(by.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall_ms),
+                device_ms_by_group=by, top_kernels_ms=dict(top))
+
+
 def profile_phase(sess, steps=4):
     """Device time by kernel over ``steps`` decode steps of a full batch
     (every slot at a 250-token prompt) and over one 256-row prefill, with
-    the device's busy share of each window (``torch.profiler``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    groups = (("mi_linear", "linear_kernel"),
-              ("paged_attention", "paged_attention_kernel"),
-              ("flash_attention", "flash_forward_kernel"))
+    the device's idle share of each window."""
+    groups = (("mi_linear", ("linear_kernel",)),
+              ("paged_attention", ("paged_attention_kernel",)),
+              ("flash_attention", ("flash_forward_kernel",)))
     rs = np.random.RandomState(1)
     prompts = [rs.randint(1, sess.model.vocab_size, size=250).tolist()
                for _ in range(sess.config.slots + 1)]
@@ -148,36 +220,179 @@ def profile_phase(sess, steps=4):
         sess.prefill(slot, prompt)
     sess.step()  # warm
 
-    def window(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
-        for ev in prof.key_averages():
-            us = ev.self_device_time_total
-            if us <= 0:
-                continue
-            name = next((g for g, key in groups if key in ev.key), "other")
-            by[name] += us / 1e3
-        busy = sum(by.values())
-        return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                    idle_share=max(0.0, 1.0 - busy / wall_ms),
-                    device_ms_by_kernel=by)
-
     def decode():
         for _ in range(steps):
             sess.step()
 
-    out = {"decode_steps": steps, "decode": window(decode)}
+    out = {"decode_steps": steps, "decode": profiled_window(decode, groups)}
     sess.release(slots[-1])
     slot = sess.try_alloc(250, sess.config.max_new)
-    out["prefill_256"] = window(lambda: sess.prefill(slot, prompts[-1]))
+    out["prefill_256"] = profiled_window(
+        lambda: sess.prefill(slot, prompts[-1]), groups)
     for slot in sess.active_slots():
         sess.release(slot)
+    return out
+
+
+def train_config(num_layers=8):
+    """bench_transformer.py's default model (:57-58)."""
+    return dict(vocab_size=32768, num_layers=num_layers, d_model=2048,
+                num_heads=16, seq_len=1024)
+
+
+def train_tokens(cfg, batch, seed=0, bf16_exact=False):
+    """Numpy-seeded token ids, used as data and labels.  Drawn from
+    [0, 32640): the bf16 step casts the float ids to bf16 (as the JAX
+    package's does), and every id below 32640 rounds to at most 32640,
+    inside the vocabulary; ids from 32704 would round to 32768 and look
+    up a NaN row.  ``bf16_exact`` rounds the ids through bf16 here, so an
+    fp32 step trains on the same tokens as a bf16 one."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    toks = torch.from_numpy(
+        rs.randint(0, 32640, (batch, cfg["seq_len"])).astype(np.float32))
+    return toks.bfloat16().float() if bf16_exact else toks
+
+
+def train_step(dev, cfg, batch, compute_dtype, lr=1e-3, bf16_exact=False):
+    """A TrainStep at ``cfg``, its state from ``init_state(seed=0)`` and
+    one batch of :func:`train_tokens` on ``dev``."""
+    from mxnet_tpu_torch import fused
+    from mxnet_tpu_torch.models import transformer
+
+    step = fused.TrainStep(
+        transformer.get_symbol(**cfg), optimizer="sgd",
+        optimizer_params={"learning_rate": lr, "momentum": 0.9,
+                          "rescale_grad": 1.0 / batch},
+        compute_dtype=compute_dtype, device=dev)
+    shapes = {"data": (batch, cfg["seq_len"]),
+              "softmax_label": (batch, cfg["seq_len"])}
+    state = step.init_state(shapes, seed=0)
+    toks = train_tokens(cfg, batch, bf16_exact=bf16_exact).to(dev)
+    return step, state, {"data": toks, "softmax_label": toks}
+
+
+def cross_entropy(probs, labels, dtype):
+    """Mean -log p[label] over the rows of the LM head's output, at the
+    labels the step trained on (cast to ``dtype`` like the batch)."""
+    import torch
+
+    lab = labels.to(dtype).long().reshape(-1, 1)
+    return float(-torch.log(probs.float().gather(1, lab)).mean())
+
+
+def train_phase(dev, cfg, batch, steps=5):
+    """One warm-up and ``steps`` timed bf16 TrainSteps; returns the
+    phase's numbers and the kernel launches counted over all steps."""
+    import torch
+
+    from mxnet_tpu_torch import _cuda
+    from mxnet_tpu_torch.models import transformer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step, (params, aux, states), data = train_step(dev, cfg, batch,
+                                                   "bfloat16")
+    _cuda.reset_launches()
+    params, aux, states, outs = step(params, aux, states, data, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, aux, states, outs = step(params, aux, states, data, None)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = dict(_cuda.launches)
+    per_step = {k: launches[k] / (steps + 1)
+                for k in ("flash_attention", "flash_attention_backward")}
+    if any(n != cfg["num_layers"] for n in per_step.values()):
+        raise AssertionError("attention kernels per step %r, want %d each"
+                             % (per_step, cfg["num_layers"]))
+    ce = cross_entropy(outs[0], data["softmax_label"], torch.bfloat16)
+    if not np.isfinite(ce):
+        raise AssertionError("cross-entropy %r is not finite" % ce)
+    bad = [n for n, p in params.items() if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError("non-finite parameters after training: %r"
+                             % bad[:5])
+    tokens = batch * cfg["seq_len"]
+    # bench_transformer.py:120-123: 6 P tokens + 12 L B T^2 d_model
+    flops = (6.0 * transformer.count_params(**cfg) * tokens
+             + 12.0 * cfg["num_layers"] * batch * cfg["seq_len"] ** 2
+             * cfg["d_model"])
+    stats = dict(model="%dL-d%d-h%d-V%d-T%d" % (
+                     cfg["num_layers"], cfg["d_model"], cfg["num_heads"],
+                     cfg["vocab_size"], cfg["seq_len"]),
+                 batch=batch, steps_timed=steps, step_ms=step_s * 1e3,
+                 tokens_per_s=tokens / step_s,
+                 achieved_tflops=flops / step_s / 1e12,
+                 share_of_bf16_dense_peak_989=flops / step_s
+                 / BF16_FLOP_PER_S,
+                 cross_entropy=ce,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2.0 ** 30,
+                 launches_per_step=per_step)
+    # one profiled step: K1, K4, cuBLAS GEMMs and the rest
+    stats["profile"] = profiled_window(
+        lambda: step(params, aux, states, data, None),
+        (("flash_attention", ("flash_forward_kernel",)),
+         ("flash_attention_backward", ("flash_bwd_",)),
+         ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))))
+    return stats, launches
+
+
+def step_update(dev, cfg, batch, compute_dtype, impl, bf16_exact=False):
+    """The parameter update (new - old, in fp32) of one step from
+    ``init_state(seed=0)`` under ``MXNET_ATTN_IMPL=impl``."""
+    import torch
+
+    saved = os.environ.get("MXNET_ATTN_IMPL")
+    os.environ["MXNET_ATTN_IMPL"] = impl
+    try:
+        step, (params, aux, states), data = train_step(
+            dev, cfg, batch, compute_dtype, bf16_exact=bf16_exact)
+        new, _, _, outs = step(params, aux, states, data, None)
+        if not bool(torch.isfinite(outs[0]).all()):
+            raise AssertionError("%s: non-finite outputs" % impl)
+        return {n: (new[n] - params[n]).float() for n in new}
+    finally:
+        if saved is None:
+            os.environ.pop("MXNET_ATTN_IMPL", None)
+        else:
+            os.environ["MXNET_ATTN_IMPL"] = saved
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def rel_l2(got, want):
+    """Per-tensor relative L2 error of ``got`` against ``want``."""
+    return {n: float((got[n] - w).norm() / w.norm().clamp_min(1e-30))
+            for n, w in want.items()}
+
+
+def spread(rel):
+    worst = max(rel, key=rel.get)
+    return dict(max=rel[worst], worst_tensor=worst,
+                mean=float(np.mean(list(rel.values()))),
+                median=float(np.median(list(rel.values()))))
+
+
+def parity_phase(dev, cfg, batch, compute_dtype):
+    """One step through K1/K4 against one under MXNET_ATTN_IMPL=reference
+    from the same ``init_state(seed=0)``: the per-tensor relative L2
+    error of the parameter update.  In bf16 both are also held against
+    the fp32 reference step on the same (bf16-exact) token ids, the
+    truth that says how much of the difference is bf16's own."""
+    bf16 = compute_dtype is not None
+    kern = step_update(dev, cfg, batch, compute_dtype, "auto", bf16)
+    ref = step_update(dev, cfg, batch, compute_dtype, "reference", bf16)
+    out = dict(kernel_vs_reference=spread(rel_l2(kern, ref)))
+    if bf16:
+        truth = step_update(dev, cfg, batch, None, "reference", True)
+        kern_err, ref_err = rel_l2(kern, truth), rel_l2(ref, truth)
+        ratio = {n: kern_err[n] / max(ref_err[n], 1e-30) for n in truth}
+        out.update(kernel_vs_fp32=spread(kern_err),
+                   reference_vs_fp32=spread(ref_err),
+                   kernel_over_reference_error=spread(ratio))
     return out
 
 
@@ -236,14 +451,14 @@ def main():
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
     def record(name, case, err, ok, tolerance, kernel, plain, library,
-               nbytes, flops):
+               nbytes, flops, peak=FP32_FLOP_PER_S):
         if not ok:
             raise AssertionError("%s %s: max error %.3g outside the "
                                  "tolerance (%s)" % (name, case, err,
                                                      tolerance))
         errs[name] = max(errs[name], float(err))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        t_ops = flops / peak * 1e3
         row = dict(kernel=name, case=case, max_abs_err=float(err),
                    tolerance=tolerance, kernel_ms=time_ms(kernel),
                    plain_ms=time_ms(plain),
@@ -286,6 +501,80 @@ def main():
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k, v, is_causal=causal, scale=scale),
                nbytes=4 * 4 * n * h * t * d, flops=4 * d * pairs)
+
+    # K1 on the training path: bf16 with the logsumexp, at the bench's
+    # shape; bf16 inputs may legally run on the tensor cores, so the bound
+    # takes the bf16 dense peak
+    def bf16_err(got, want):
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        bound = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+        return diff.max().item(), bool((diff <= bound).all())
+
+    n, h, t, d, block = 8, 16, 1024, 128, 128
+    scale = 1.0 / d ** 0.5
+    q, k, v, g = (randn(n, h, t, d).bfloat16() for _ in range(4))
+    pairs = n * h * t * (t + 1) // 2
+    out, lse = A._flash_forward_cuda(q, k, v, True, scale, block, True)
+    want_out, want_lse = A.flash_forward_plain(q, k, v, True, scale, block)
+    err, ok = bf16_err(out, want_out)
+    lse_err = (lse - want_lse).abs().max().item()
+    record("flash_attention", "n8-h16-T1024-D128-causal-b128-bf16-lse",
+           max(err, lse_err), ok and lse_err <= LSE_ATOL,
+           BF16_NOTE + "; lse atol %g" % LSE_ATOL,
+           lambda: A._flash_forward_cuda(q, k, v, True, scale, block, True),
+           lambda: A.flash_forward_plain(q, k, v, True, scale, block),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True, scale=scale),
+           nbytes=2 * 4 * n * h * t * d + 4 * n * h * t,
+           flops=4 * d * pairs, peak=BF16_FLOP_PER_S)
+
+    # K4 at the same shape, from K1's saved output and lse; the library
+    # yardstick is SDPA's backward alone
+    got = A._flash_backward_cuda(q, k, v, out, lse, g, True, scale, block)
+    want = A.flash_backward_plain(q, k, v, out, lse, g, True, scale, block)
+    checks = [bf16_err(a, b) for a, b in zip(got, want)]
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=scale)
+    record("flash_attention_backward", "n8-h16-T1024-D128-causal-bf16",
+           max(e for e, _ in checks), all(o for _, o in checks), BF16_NOTE,
+           lambda: A._flash_backward_cuda(q, k, v, out, lse, g, True, scale,
+                                          block),
+           lambda: A.flash_backward_plain(q, k, v, out, lse, g, True, scale,
+                                          block),
+           lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
+                                       retain_graph=True),
+           nbytes=2 * 8 * n * h * t * d + 4 * n * h * t,
+           flops=10 * d * pairs, peak=BF16_FLOP_PER_S)
+    del q, k, v, g, out, lse, want_out, want_lse, got, want, sdpa_out
+
+    # K4 in fp32 at a small ragged shape (37 = 2 blocks of 16 + 5)
+    for causal in (True, False):
+        n, h, t, d, block = 1, 2, 37, 16, 16
+        scale = 1.0 / d ** 0.5
+        q, k, v, g = (randn(n, h, t, d) for _ in range(4))
+        out, lse = A.flash_forward_plain(q, k, v, causal, scale, block)
+        got = A._flash_backward_cuda(q, k, v, out, lse, g, causal, scale,
+                                     block)
+        want = A.flash_backward_plain(q, k, v, out, lse, g, causal, scale,
+                                      block)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        pairs = n * h * (t * (t + 1) // 2 if causal else t * t)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, scale=scale)
+        record("flash_attention_backward", "n1-h2-T37-D16-%s-fp32"
+               % ("causal" if causal else "full"), err, err <= BWD_ATOL,
+               BWD_NOTE,
+               lambda: A._flash_backward_cuda(q, k, v, out, lse, g, causal,
+                                              scale, block),
+               lambda: A.flash_backward_plain(q, k, v, out, lse, g, causal,
+                                              scale, block),
+               lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
+                                           retain_graph=True),
+               nbytes=4 * 8 * n * h * t * d + 4 * n * h * t,
+               flops=10 * d * pairs)
 
     # K2: decode (8 slots, one query each; slot 7 idle) and prefill (one
     # slot, a 256-row bucket at offset 32 with per-row horizons)
@@ -374,25 +663,55 @@ def main():
                               prompt_lens=(24, 250))
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
-    if min(launches.values()) < 1:
-        raise AssertionError("a kernel never ran on the main path: %r"
+    serve_kernels = ("flash_attention", "paged_attention", "mi_linear")
+    if min(launches[k] for k in serve_kernels) < 1:
+        raise AssertionError("a kernel never ran on the serving path: %r"
                              % launches)
     log("serve", model="8L-d2048-h16-V32768",
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2.0 ** 30,
         launches=launches, **stats)
     log("profile", **profile_phase(sess))
+    del sess
+    torch.cuda.empty_cache()
 
-    # -- 5. summary -------------------------------------------------------
+    # -- 5. train at full width -------------------------------------------
+    stats, train_launches = train_phase(dev, train_config(), batch=8)
+    log("train", nvidia_smi=smi, launches=train_launches, **stats)
+    torch.cuda.empty_cache()
+    for name, n in train_launches.items():
+        launches[name] += n
+
+    # -- 6. train parity: kernel path vs MXNET_ATTN_IMPL=reference ---------
+    fp32 = parity_phase(dev, train_config(num_layers=2), 2, None)
+    if fp32["kernel_vs_reference"]["max"] > PARITY_FP32:
+        raise AssertionError("fp32 parity %r over %g" % (fp32, PARITY_FP32))
+    log("train_parity", case="fp32-2L-batch2", bound=PARITY_FP32,
+        tolerance=PARITY_FP32_NOTE, **fp32)
+    bf16 = parity_phase(dev, train_config(), 8, "bfloat16")
+    if (bf16["kernel_vs_fp32"]["mean"] > bf16["reference_vs_fp32"]["mean"]
+            or bf16["kernel_over_reference_error"]["max"]
+            > PARITY_BF16_RATIO):
+        raise AssertionError("bf16 parity %r outside (%s)"
+                             % (bf16, PARITY_BF16_NOTE))
+    log("train_parity", case="bf16-8L-batch8", tolerance=PARITY_BF16_NOTE,
+        **bf16)
+
+    # -- 7. summary -------------------------------------------------------
+    if min(launches.values()) < 1:
+        raise AssertionError("a kernel never ran on a main path: %r"
+                             % launches)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
     if bad:
         raise AssertionError("JAX or the JAX package was imported: %r"
                              % bad[:5])
-    main_case = {"flash_attention": "n1-h16-T256-D128-causal-b16",
+    main_case = {"flash_attention": "n8-h16-T1024-D128-causal-b128-bf16-lse",
+                 "flash_attention_backward": "n8-h16-T1024-D128-causal-bf16",
                  "paged_attention": "decode-S8-Q1",
                  "mi_linear": "M8-F6144-C2048"}
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
+        "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
         "paged_attention": "mxnet_tpu/ops/attention.py:368",
         "mi_linear": "mxnet_tpu/serve/model.py:123",
     }

@@ -4,10 +4,16 @@ A package of its own beside the JAX one, with the same module layout.
 The kernels the JAX package runs on a TPU are CUDA C++ written for the
 H100 (``csrc/``, built at first use by :mod:`._cuda`); the rest is plain
 PyTorch.  Entry points run on the card unless the caller passes
-``device="cpu"``.  This first slice is the serving path:
-:mod:`.serve` runs the built-in transformer LM end to end.
+``device="cpu"``.  Two slices are ported:
+
+* serving — :mod:`.serve` runs the built-in transformer LM end to end;
+* training — :mod:`.symbol` builds the LM (:mod:`.models`), and
+  :class:`.fused.TrainStep` trains it (forward, backward, SGD update).
 """
-from . import serve
+from . import executor, fused, models, optimizer, serve, symbol
 from .base import MXNetError
 
-__all__ = ["MXNetError", "serve"]
+sym = symbol
+
+__all__ = ["MXNetError", "executor", "fused", "models", "optimizer",
+           "serve", "sym", "symbol"]

@@ -45,7 +45,11 @@ _F = ctypes.c_float
 KERNELS = {
     "flash_attention": (
         "flash_attention", "mxt_flash_attention_forward",
-        (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
+        (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
+    "flash_attention_backward": (
+        "flash_attention_backward", "mxt_flash_attention_backward",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+         _P)),
     "paged_attention": (
         "paged_attention", "mxt_paged_attention",
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),

@@ -10,6 +10,11 @@
 // explicit __fadd_rn / __fmul_rn (the sources are also built with
 // -fmad=false), so inlining into two kernels cannot change the bits.
 //
+// Element type: K1 reads fp32 or bf16 rows, K2 fp32 pages.  Every load
+// converts to fp32 through to_f32 (the identity for fp32, so the fp32
+// instantiation is the same arithmetic as before the template) and all
+// arithmetic stays fp32; store_row rounds to the output type once.
+//
 // Layout: one warp owns one query row.  Lane t holds the row's elements
 // d = t, t + 32, ... of the scaled query and of the accumulator, so a
 // row's head_dim may reach 32 * kMaxDPerLane.  A block of keys is
@@ -18,6 +23,7 @@
 // values, in key order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -29,6 +35,20 @@ constexpr int kMaxBlockChunks = 4;                      // block <= 128 keys
 constexpr int kMaxHeadDim = kWarp * kMaxDPerLane;
 constexpr int kMaxBlock = kWarp * kMaxBlockChunks;
 constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 struct RowState {
   float m;                    // running max of the scores seen
@@ -45,14 +65,15 @@ __device__ __forceinline__ void row_init(RowState& st) {
 
 // qs[i] = q[lane + 32 i] * scale, rounded once (the JAX package's
 // ``q32 = q * scale`` before any dot); zero past D.
+template <class T>
 __device__ __forceinline__ void load_scaled_query(float (&qs)[kMaxDPerLane],
-                                                  const float* __restrict__ q,
+                                                  const T* __restrict__ q,
                                                   int D, float scale,
                                                   int lane) {
 #pragma unroll
   for (int i = 0; i < kMaxDPerLane; ++i) {
     const int d = lane + kWarp * i;
-    qs[i] = d < D ? __fmul_rn(q[d], scale) : 0.f;
+    qs[i] = d < D ? __fmul_rn(to_f32(q[d]), scale) : 0.f;
   }
 }
 
@@ -60,14 +81,15 @@ __device__ __forceinline__ void load_scaled_query(float (&qs)[kMaxDPerLane],
 // elements in increasing d, then an xor butterfly adds the lanes.  Float
 // addition is commutative, so both partners of every butterfly step get
 // the same bits and every lane ends with the identical score.
+template <class T>
 __device__ __forceinline__ float row_dot(const float (&qs)[kMaxDPerLane],
-                                         const float* __restrict__ k, int D,
+                                         const T* __restrict__ k, int D,
                                          int lane) {
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxDPerLane; ++i) {
     const int d = lane + kWarp * i;
-    if (d < D) s = __fadd_rn(s, __fmul_rn(qs[i], k[d]));
+    if (d < D) s = __fadd_rn(s, __fmul_rn(qs[i], to_f32(k[d])));
   }
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1)
@@ -79,14 +101,15 @@ __device__ __forceinline__ float row_dot(const float (&qs)[kMaxDPerLane],
 // whether key j of the block is visible to this row and, if so, points
 // kp/vp at its key and value rows; its answer must be uniform across the
 // warp.  A block with no visible key is an exact no-op (correction 1,
-// nothing added), the guards of online_block_merge.
-template <class Rows>
+// nothing added), the guards of online_block_merge.  T is the element
+// type of the key and value rows.
+template <class T = float, class Rows>
 __device__ __forceinline__ void merge_block(RowState& st,
                                             const float (&qs)[kMaxDPerLane],
                                             int D, int B, int lane,
                                             const Rows& rows) {
-  const float* kp;
-  const float* vp;
+  const T* kp;
+  const T* vp;
   // pass 1: lane t keeps the score of key c*32 + t of chunk c
   float sc[kMaxBlockChunks];
   float bmax = -INFINITY;
@@ -125,7 +148,7 @@ __device__ __forceinline__ void merge_block(RowState& st,
 #pragma unroll
       for (int i = 0; i < kMaxDPerLane; ++i) {
         const int d = lane + kWarp * i;
-        if (d < D) pv[i] = __fadd_rn(pv[i], __fmul_rn(pt, vp[d]));
+        if (d < D) pv[i] = __fadd_rn(pv[i], __fmul_rn(pt, to_f32(vp[d])));
       }
     }
   }
@@ -137,15 +160,16 @@ __device__ __forceinline__ void merge_block(RowState& st,
 }
 
 // out = acc / max(l, 1e-20): a row that saw no key (an idle decode slot)
-// gives 0, not NaN.
+// gives 0, not NaN.  The fp32 quotient is rounded to T once.
+template <class T>
 __device__ __forceinline__ void store_row(const RowState& st,
-                                          float* __restrict__ out, int D,
+                                          T* __restrict__ out, int D,
                                           int lane) {
   const float den = fmaxf(st.l, 1e-20f);
 #pragma unroll
   for (int i = 0; i < kMaxDPerLane; ++i) {
     const int d = lane + kWarp * i;
-    if (d < D) out[d] = __fdiv_rn(st.acc[i], den);
+    if (d < D) out[d] = from_f32<T>(__fdiv_rn(st.acc[i], den));
   }
 }
 

@@ -1,26 +1,35 @@
-"""Blockwise (flash-style) attention and paged decode attention.
+"""Blockwise (flash-style) attention, its backward, and paged decode
+attention.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  Each function that the
-JAX package runs as a TPU kernel or as a lax kernel on the serving path
+JAX package runs as a TPU kernel, or as a lax kernel on the serving path,
 is a hand-written CUDA kernel here (``csrc/``), with its plain PyTorch
 version beside it:
 
-* :func:`flash_attention` — kernel K1 (``csrc/flash_attention.cu``), the
-  forward of the TPU flash kernel ``_pallas_attention``; plain version
-  :func:`flash_attention_plain`, the blockwise loop of
-  ``_flash_forward``.
+* :func:`flash_attention` forward — kernel K1 (``csrc/flash_attention.cu``),
+  the forward of the TPU flash kernel ``_pallas_attention``, fp32 or bf16,
+  with the logsumexp the backward needs; plain version
+  :func:`flash_forward_plain`, the blockwise loop of ``_flash_forward``.
+* :func:`flash_attention` backward — kernel K4
+  (``csrc/flash_attention_backward.cu``), the VJP of the same TPU kernel;
+  plain version :func:`flash_backward_plain`, ``_flash_backward``.  The
+  two halves meet in a ``torch.autograd.Function``, the port's form of
+  ``_flash_fn``'s custom VJP.
 * :func:`paged_attention` — kernel K2 (``csrc/paged_attention.cu``),
   ``decode_attention`` fused with the page-table gather that feeds it;
   plain version :func:`paged_attention_plain`, the gather followed by
   :func:`decode_attention`.
 
-A wrapper takes the plain version only for CPU tensors; for CUDA
-tensors it launches its kernel or raises.  Both versions share the
+:func:`dot_product_attention` picks the implementation as the JAX
+package does (``MXNET_ATTN_IMPL`` or the ``attn_impl`` op attr).
+
+A wrapper takes the plain version only for CPU (or ``meta``) tensors;
+for CUDA tensors it launches its kernel or raises.  K1 and K2 share the
 online-softmax step of :func:`online_block_merge` (the kernels through
 ``csrc/online_softmax.cuh``), so a paged decode row reproduces the
 matching row of a full-context forward bit for bit — the serving
-contract.  Sliding windows, quantized KV pages and the backward are
-ported in later slices and raise here.
+contract.  Sliding windows and quantized KV pages are ported in later
+slices and raise here.
 """
 from __future__ import annotations
 
@@ -29,11 +38,14 @@ import torch
 from .. import _cuda
 from ..base import MXNetError, get_env
 
-__all__ = ["attention_block_size", "reference_attention", "flash_attention",
-           "flash_attention_plain", "online_block_merge",
+__all__ = ["attention_impl", "attention_block_size", "dot_product_attention",
+           "reference_attention", "flash_attention", "flash_attention_plain",
+           "flash_forward_plain", "flash_backward_plain",
+           "flash_attention_backward", "online_block_merge",
            "finalize_attention", "decode_attention", "gather_pages",
            "paged_attention", "paged_attention_plain"]
 
+_IMPLS = ("auto", "flash", "reference")
 _MAX_HEAD_DIM = 256   # csrc/online_softmax.cuh: kMaxHeadDim
 _MAX_BLOCK = 128      # csrc/online_softmax.cuh: kMaxBlock
 
@@ -129,68 +141,194 @@ def reference_attention(q, k, v, causal=True, scale=None):
 
 
 # ---------------------------------------------------------------------------
-# K1: blockwise flash forward
+# K1 + K4: blockwise flash forward and its recompute backward
 # ---------------------------------------------------------------------------
 
-def flash_attention_plain(q, k, v, causal, scale, block, mi=False):
-    """The blockwise loop of the JAX package's ``_flash_forward``: visit
-    K/V blocks of ``block`` rows from position 0 in order, carrying
-    (acc, m, l) in fp32; padded keys of a ragged last block mask out."""
+def _padded_block(x, start, block):
+    """Rows ``start:start + block`` of (..., T, D), zero-padded to
+    ``block`` rows at a ragged end."""
+    xb = x[..., start:start + block, :]
+    if xb.shape[-2] < block:
+        xb = torch.nn.functional.pad(xb, (0, 0, 0, block - xb.shape[-2]))
+    return xb
+
+
+def flash_forward_plain(q, k, v, causal, scale, block, mi=False):
+    """The JAX package's ``_flash_forward``: visit K/V blocks of ``block``
+    rows from position 0 in order, carrying (acc, m, l) in fp32; padded
+    keys of a ragged last block mask out.  Returns ``(out, lse)``, ``out``
+    in q's dtype and the fp32 logsumexp ``lse = m + log l`` of shape
+    (..., T, 1) that the backward recomputes probabilities from."""
     t = q.shape[-2]
     q32 = q.float() * scale
     q_pos = torch.arange(t, device=q.device)
     acc, m, l = _init_state(q, v.shape[-1])
     for start in range(0, t, block):
-        kb = k[..., start:start + block, :]
-        vb = v[..., start:start + block, :]
         k_pos = torch.arange(start, start + block, device=q.device)
-        if kb.shape[-2] < block:  # ragged last block: pad and mask
-            pad = block - kb.shape[-2]
-            kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
-            vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
         mask = (k_pos < t)[None, :]
         if causal:
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
-        acc, m, l = _attend_block(q32, kb, vb, acc, m, l, mask, mi)
-    return finalize_attention(acc, l).to(q.dtype)
+        acc, m, l = _attend_block(q32, _padded_block(k, start, block),
+                                  _padded_block(v, start, block), acc, m, l,
+                                  mask, mi)
+    out = finalize_attention(acc, l).to(q.dtype)
+    lse = torch.where(torch.isfinite(m), m, torch.zeros_like(m)) \
+        + torch.log(torch.clamp(l, min=1e-38))
+    return out, lse
 
 
-def _flash_attention_cuda(q, k, v, causal, scale, block):
-    t, d = q.shape[-2], q.shape[-1]
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.float32:
-            raise MXNetError("flash_attention: %s is %s; the CUDA kernel "
-                             "takes float32" % (name, x.dtype))
-        if x.device != q.device:
-            raise MXNetError("flash_attention: q, k, v on different devices")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise MXNetError("flash_attention: q %r, k %r, v %r must share one "
-                         "(..., T, D) shape" % (tuple(q.shape),
-                                                tuple(k.shape),
-                                                tuple(v.shape)))
+def flash_attention_plain(q, k, v, causal, scale, block, mi=False):
+    """Plain version of kernel K1's output: :func:`flash_forward_plain`
+    without the logsumexp."""
+    return flash_forward_plain(q, k, v, causal, scale, block, mi=mi)[0]
+
+
+def flash_backward_plain(q, k, v, out, lse, g, causal, scale, block):
+    """The JAX package's ``_flash_backward``: one more pass over the K/V
+    blocks, each block's probabilities rebuilt from ``lse`` (masked pairs
+    give exactly 0), ``ds = p * (dp - delta)`` with ``delta = sum(dO *
+    O)`` over the saved, dtype-cast ``out``.  dq carries ``scale`` once at
+    the end; dk has it through ``q32``.  Linear in ``g``.  Returns (dq,
+    dk, dv) in the dtypes of q, k, v."""
+    t = q.shape[-2]
+    q32 = q.float() * scale
+    q_pos = torch.arange(t, device=q.device)
+    do = g.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for start in range(0, t, block):
+        kb32 = _padded_block(k, start, block).float()
+        vb32 = _padded_block(v, start, block).float()
+        k_pos = torch.arange(start, start + block, device=q.device)
+        mask = (k_pos < t)[None, :]
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        scores = q32 @ kb32.transpose(-1, -2)
+        scores = torch.where(mask, scores, torch.full_like(scores,
+                                                           -torch.inf))
+        p = torch.exp(scores - lse)
+        dvs.append(p.transpose(-1, -2) @ do)
+        ds = p * (do @ vb32.transpose(-1, -2) - delta)
+        dq = dq + ds @ kb32
+        dks.append(ds.transpose(-1, -2) @ q32)
+    dk = torch.cat(dks, dim=-2)[..., :t, :].to(k.dtype)
+    dv = torch.cat(dvs, dim=-2)[..., :t, :].to(v.dtype)
+    return (dq * scale).to(q.dtype), dk, dv
+
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_rows(who, t, d, block, *tensors):
+    """Check the CUDA kernels' preconditions and flatten each (..., T, D)
+    tensor to contiguous (n_bh, T, D) rows.  Returns (rows, bf16 flag)."""
+    first = tensors[0]
+    if first.dtype not in _KERNEL_DTYPES:
+        raise MXNetError("%s: %s inputs; the CUDA kernel takes float32 or "
+                         "bfloat16" % (who, first.dtype))
+    for x in tensors:
+        if x.dtype != first.dtype or x.device != first.device:
+            raise MXNetError("%s: inputs differ in dtype or device (%s on "
+                             "%s vs %s on %s)" % (who, x.dtype, x.device,
+                                                  first.dtype, first.device))
+        if x.shape != first.shape:
+            raise MXNetError("%s: shapes %r and %r must share one (..., T, "
+                             "D) shape" % (who, tuple(first.shape),
+                                           tuple(x.shape)))
     if d > _MAX_HEAD_DIM or not 1 <= block <= _MAX_BLOCK:
-        raise MXNetError("flash_attention: head_dim %d (max %d) or block %d "
-                         "(max %d) out of the kernel's range"
-                         % (d, _MAX_HEAD_DIM, block, _MAX_BLOCK))
-    q3, k3, v3 = (x.reshape(-1, t, d).contiguous() for x in (q, k, v))
+        raise MXNetError("%s: head_dim %d (max %d) or block %d (max %d) out "
+                         "of the kernel's range"
+                         % (who, d, _MAX_HEAD_DIM, block, _MAX_BLOCK))
+    rows = [x.reshape(-1, t, d).contiguous() for x in tensors]
+    return rows, _KERNEL_DTYPES[first.dtype]
+
+
+def _flash_forward_cuda(q, k, v, causal, scale, block, with_lse):
+    """Kernel K1: (out, lse or None)."""
+    t, d = q.shape[-2], q.shape[-1]
+    (q3, k3, v3), bf16 = _kernel_rows("flash_attention", t, d, block,
+                                      q, k, v)
     out = torch.empty_like(q3)
+    lse = (torch.empty(q3.shape[:-1], dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel():
         with torch.cuda.device(q.device):
             _cuda.launch("flash_attention", q3.data_ptr(), k3.data_ptr(),
-                         v3.data_ptr(), out.data_ptr(), q3.shape[0], t, d,
-                         float(scale), int(bool(causal)), int(block),
-                         _cuda.stream_of(q))
-    return out.reshape(q.shape)
+                         v3.data_ptr(), out.data_ptr(),
+                         lse.data_ptr() if with_lse else None, q3.shape[0],
+                         t, d, float(scale), int(bool(causal)), int(block),
+                         bf16, _cuda.stream_of(q))
+    out = out.reshape(q.shape)
+    return out, (lse.reshape(q.shape[:-1] + (1,)) if with_lse else None)
+
+
+def _flash_backward_cuda(q, k, v, out, lse, g, causal, scale, block):
+    """Kernel K4: (dq, dk, dv)."""
+    t, d = q.shape[-2], q.shape[-1]
+    (q3, k3, v3, o3, g3), bf16 = _kernel_rows(
+        "flash_attention_backward", t, d, block, q, k, v, out, g)
+    lse = lse.reshape(q3.shape[:-1]).float().contiguous()
+    dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
+    if dq.numel():
+        delta = torch.empty(q3.shape[:-1], dtype=torch.float32,
+                            device=q.device)
+        with torch.cuda.device(q.device):
+            _cuda.launch("flash_attention_backward", q3.data_ptr(),
+                         k3.data_ptr(), v3.data_ptr(), o3.data_ptr(),
+                         lse.data_ptr(), g3.data_ptr(), dq.data_ptr(),
+                         dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                         q3.shape[0], t, d, float(scale),
+                         int(bool(causal)), bf16, _cuda.stream_of(q))
+    return tuple(x.reshape(q.shape) for x in (dq, dk, dv))
+
+
+def flash_attention_backward(q, k, v, out, lse, g, causal, scale, block):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` from the saved
+    forward: kernel K4 on CUDA tensors, :func:`flash_backward_plain` on
+    CPU or meta tensors."""
+    if q.is_cuda:
+        return _flash_backward_cuda(q, k, v, out, lse, g, causal, scale,
+                                    block)
+    return flash_backward_plain(q, k, v, out, lse, g, causal, scale, block)
+
+
+def _flash_forward(q, k, v, causal, scale, block, mi, with_lse):
+    if q.is_cuda:
+        return _flash_forward_cuda(q, k, v, causal, scale, block, with_lse)
+    return flash_forward_plain(q, k, v, causal, scale, block, mi=mi)
+
+
+class _FlashFn(torch.autograd.Function):
+    """The JAX package's ``_flash_fn`` custom VJP: the forward saves (q, k,
+    v, out, lse), the backward recomputes from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block, mi):
+        out, lse = _flash_forward(q, k, v, causal, scale, block, mi, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, scale, block)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g,
+                                              *ctx.cfg)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, scale=None, block=None, mi=False,
                     window=0):
-    """Blockwise online-softmax attention forward over (..., T, D).
+    """Blockwise online-softmax attention over (..., T, D), fp32 or bf16.
 
-    On CUDA tensors this is kernel K1, whose per-row arithmetic is fixed
-    (M-invariant whatever ``mi`` says); on CPU tensors the plain version,
-    where ``mi`` selects the M-invariant matmul form as in the JAX
-    package.  An explicit ``block`` is honoured verbatim (serving
+    On CUDA tensors the forward is kernel K1, whose per-row arithmetic is
+    fixed (M-invariant whatever ``mi`` says), and the backward kernel K4;
+    on CPU tensors the plain versions, where ``mi`` selects the
+    M-invariant matmul form as in the JAX package.  Differentiable
+    through a recompute backward when autograd records (the forward then
+    also keeps the logsumexp); without a gradient the kernel writes no
+    logsumexp.  An explicit ``block`` is honoured verbatim (serving
     bit-exactness needs the accumulation width fixed across T)."""
     _no_window(window, "flash_attention")
     d = q.shape[-1]
@@ -199,9 +337,35 @@ def flash_attention(q, k, v, causal=True, scale=None, block=None, mi=False,
         scale = 1.0 / (d ** 0.5)
     if block is None:
         block = min(attention_block_size(), max(t, 1))
-    if q.is_cuda:
-        return _flash_attention_cuda(q, k, v, causal, scale, int(block))
-    return flash_attention_plain(q, k, v, causal, scale, int(block), mi=mi)
+    cfg = (bool(causal), float(scale), int(block))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashFn.apply(q, k, v, *cfg, bool(mi))
+    return _flash_forward(q, k, v, *cfg, mi, False)[0]
+
+
+def attention_impl():
+    """Resolve ``MXNET_ATTN_IMPL`` (``auto`` | ``flash`` | ``reference``),
+    read at call time."""
+    impl = get_env("MXNET_ATTN_IMPL", "auto").strip().lower()
+    if impl not in _IMPLS:
+        raise MXNetError("MXNET_ATTN_IMPL=%r not in %s" % (impl, _IMPLS))
+    return impl
+
+
+def dot_product_attention(q, k, v, causal=True, scale=None, impl=None,
+                          block=None, window=0):
+    """Attention by the implementation ``MXNET_ATTN_IMPL`` (or the explicit
+    ``impl``) selects: ``reference`` materializes the scores;
+    ``auto`` and ``flash`` run :func:`flash_attention` — kernels K1 and K4
+    on CUDA tensors, where the JAX package's ``auto`` picks its TPU flash
+    kernel, and the plain blockwise versions elsewhere."""
+    impl = (impl or attention_impl()).strip().lower()
+    if impl not in _IMPLS:
+        raise MXNetError("attention impl %r not in %s" % (impl, _IMPLS))
+    _no_window(window, "dot_product_attention")
+    if impl == "reference":
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale, block=block)
 
 
 # ---------------------------------------------------------------------------

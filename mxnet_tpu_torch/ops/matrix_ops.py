@@ -1,0 +1,72 @@
+"""Shape and indexing operators: ``Reshape`` and ``Embedding``.
+
+Counterpart of ``mxnet_tpu/ops/matrix_ops.py`` for the two ops the
+transformer LM reaches; the rest of the module comes with the NDArray
+slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from .registry import register
+
+
+def _infer_reshape(shape, target):
+    """The reference's Reshape special codes 0, -1, -2, -3, -4
+    (``src/operator/tensor/matrix_op.cc`` Reshape doc)."""
+    out, src_i, i = [], 0, 0
+    target = list(target)
+    while i < len(target):
+        t = int(target[i])
+        if t == 0:
+            out.append(shape[src_i])
+            src_i += 1
+        elif t == -1:
+            out.append(-1)
+            src_i += 1
+        elif t == -2:
+            out.extend(shape[src_i:])
+            src_i = len(shape)
+        elif t == -3:
+            out.append(shape[src_i] * shape[src_i + 1])
+            src_i += 2
+        elif t == -4:
+            a, b = int(target[i + 1]), int(target[i + 2])
+            dim = shape[src_i]
+            if a == -1:
+                a = dim // b
+            if b == -1:
+                b = dim // a
+            out.extend([a, b])
+            src_i += 1
+            i += 2
+        else:
+            out.append(t)
+            src_i += 1
+        i += 1
+    return tuple(out)
+
+
+@register("Reshape", aliases=("reshape",))
+def _reshape(attrs, x):
+    shape = attrs["shape"]
+    if attrs.get("reverse", False):
+        rshape = _infer_reshape(tuple(x.shape)[::-1], list(shape)[::-1])
+        return x.reshape(rshape[::-1])
+    return x.reshape(_infer_reshape(tuple(x.shape), shape))
+
+
+@register("Embedding")
+def _embedding(attrs, data, weight):
+    """Table lookup with ``jnp.take``'s default fill mode, the JAX
+    package's semantics: an id in [-V, 0) counts from the end, and an id
+    outside [-V, V) gives a NaN row and no gradient.  The ids are masked
+    before indexing, so the card never sees an out-of-range index.  Ids
+    arrive as floats and truncate toward zero (``astype(int32)``)."""
+    v = weight.shape[0]
+    ids = data.to(torch.int64)
+    valid = (ids >= -v) & (ids < v)
+    safe = torch.where(valid, torch.remainder(ids, v), torch.zeros_like(ids))
+    rows = torch.nn.functional.embedding(safe, weight)
+    return torch.where(valid[..., None], rows,
+                       torch.full_like(rows, float("nan")))

@@ -143,3 +143,108 @@ def test_serve_decode_bitexact_on_the_card(dev):
                                               8)
             np.testing.assert_array_equal(logits[slot], ref.cpu().numpy())
             seq.append(toks[slot])
+
+
+# ---------------------------------------------------------------------------
+# training slice: K1 in bf16 with lse, K4, and one TrainStep
+# ---------------------------------------------------------------------------
+#
+# Tolerance for bf16 results: each side rounds an fp32 value to bf16
+# once, and the fp32 values differ by reduction order, so two results
+# may sit one bf16 step apart: |diff| <= 2^-7 |want| + 1e-4 max|want|
+# (the second term covers gradient entries that cancel toward zero in
+# fp32 before the rounding).  lse and fp32 gradients: atol 2e-5 (fp32
+# sums over up to 64 terms of order 1 in other orders).
+
+def _bf16_close(got, want):
+    got, want = got.float(), want.float()
+    bound = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+    assert bool(((got - want).abs() <= bound).all()), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("t,d,causal,block", [(37, 64, True, 16),
+                                              (37, 64, False, 16),
+                                              (5, 128, True, 128)])
+def test_flash_forward_bf16_with_lse_matches_plain(dev, t, d, causal, block):
+    q, k, v = (_randn(dev, 2, 3, t, d, seed=s).bfloat16() for s in range(3))
+    scale = 1.0 / d ** 0.5
+    got_out, got_lse = A._flash_forward_cuda(q, k, v, causal, scale, block,
+                                             True)
+    want_out, want_lse = A.flash_forward_plain(q, k, v, causal, scale,
+                                               block)
+    assert got_out.dtype == torch.bfloat16
+    _bf16_close(got_out, want_out)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,causal", [(37, True), (37, False), (8, True)])
+def test_flash_backward_kernel_matches_plain(dev, dtype, t, causal):
+    d, block, scale = 64, 16, 0.125
+    q, k, v, g = (_randn(dev, 2, 2, t, d, seed=s).to(dtype)
+                  for s in range(4))
+    out, lse = A.flash_forward_plain(q, k, v, causal, scale, block)
+    before = _cuda.launches["flash_attention_backward"]
+    got = A.flash_attention_backward(q, k, v, out, lse, g, causal, scale,
+                                     block)
+    assert _cuda.launches["flash_attention_backward"] == before + 1
+    want = A.flash_backward_plain(q, k, v, out, lse, g, causal, scale,
+                                  block)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+        else:
+            _bf16_close(a, b)
+
+
+def test_flash_attention_autograd_runs_both_kernels(dev):
+    q, k, v = (_randn(dev, 1, 2, 20, 32, seed=s).requires_grad_()
+               for s in range(3))
+    before = dict(_cuda.launches)
+    out = A.flash_attention(q, k, v, block=8)
+    out.sum().backward()
+    assert _cuda.launches["flash_attention"] == before["flash_attention"] + 1
+    assert _cuda.launches["flash_attention_backward"] == \
+        before["flash_attention_backward"] + 1
+    qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    A.flash_attention(qc, kc, vc, block=8).sum().backward()
+    for a, b in zip((q, k, v), (qc, kc, vc)):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=0, atol=2e-5)
+
+
+def test_train_step_kernels_match_reference_impl(dev, monkeypatch):
+    """One bf16 TrainStep through K1/K4 against the same step under
+    MXNET_ATTN_IMPL=reference, from one state: the parameter update of
+    every tensor within 5e-2 relative L2 (the two attention paths round
+    to bf16 at other places; see chip_smoke.py's train-parity phase)."""
+    from mxnet_tpu_torch import fused
+    from mxnet_tpu_torch.models import transformer
+
+    sym = transformer.get_symbol(vocab_size=96, num_layers=2, d_model=64,
+                                 num_heads=2, seq_len=40)
+    shapes = {"data": (2, 40), "softmax_label": (2, 40)}
+    monkeypatch.setenv("MXNET_ATTN_BLOCK", "16")
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(0, 96, (2, 40)).astype(np.float32))
+    batch = {"data": toks.to(dev), "softmax_label": toks.to(dev)}
+    updates = {}
+    for impl in ("auto", "reference"):
+        monkeypatch.setenv("MXNET_ATTN_IMPL", impl)
+        step = fused.TrainStep(sym, optimizer_params=dict(
+            learning_rate=0.1, momentum=0.9, rescale_grad=0.5),
+            compute_dtype="bfloat16", device=dev)
+        params, aux, states = step.init_state(shapes, seed=0)
+        before = dict(_cuda.launches)
+        new, _, _, outs = step(params, aux, states, batch, None)
+        k1 = _cuda.launches["flash_attention"] - before["flash_attention"]
+        k4 = (_cuda.launches["flash_attention_backward"]
+              - before["flash_attention_backward"])
+        assert (k1, k4) == ((2, 2) if impl == "auto" else (0, 0))
+        assert bool(torch.isfinite(outs[0]).all())
+        updates[impl] = {n: (new[n] - params[n]).float() for n in params}
+    for n, want in updates["reference"].items():
+        got = updates["auto"][n]
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        assert rel < 5e-2, (n, rel)

@@ -12,7 +12,10 @@ PKG = os.path.join(ROOT, "mxnet_tpu_torch")
 
 def test_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops.linear; "
+            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops.linear, "
+            "mxnet_tpu_torch.ops.nn_ops, mxnet_tpu_torch.symbol, "
+            "mxnet_tpu_torch.fused, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.executor, mxnet_tpu_torch.models; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
