@@ -11,7 +11,8 @@ a checkout that holds ``mxnet_tpu_torch/``):
 1. card — the card's name and power limit from ``nvidia-smi``, then the
    build of every kernel from ``mxnet_tpu_torch/csrc`` (build seconds).
 2. kernels — each hand-written kernel against its plain PyTorch version
-   at the serving and training paths' shapes, with a stated tolerance:
+   at the serving and training paths' shapes (BatchNorm's K5/K6 at
+   ResNet-50's at batch 256), with a stated tolerance:
    max error, ``kernel_ms``, ``plain_ms``, ``library_ms`` (one PyTorch
    call that computes the same function, timed as a yardstick and used
    nowhere in the port) and ``bound_ms`` (the larger of bytes over 3.35
@@ -42,7 +43,25 @@ a checkout that holds ``mxnet_tpu_torch/``):
    8, where both bf16 steps are also held against the fp32 reference
    step and the kernel path must be no less accurate than the
    reference.
-7. a ``{"kernels": [...]}`` line, then the last line
+7. resnet — ResNet-50 (``models.resnet.get_symbol(num_classes=1000,
+   num_layers=50, image_shape=(3, 224, 224))``, NCHW, ``bench.py``'s
+   model at full width) trains through ``mx.mod.Module(sym,
+   context=mx.gpu(0)).fit(NDArrayIter(...), optimizer="sgd",
+   compute_dtype="bfloat16")`` for 2 epochs of 1024 numpy-seeded images
+   at batch 256 (8 steps; ``bench.py`` runs batch 512, cut here because
+   the eager step keeps every saved activation).  Parameters and moving
+   statistics must be finite and changed, the accuracy finite, and every
+   training-mode BatchNorm node must launch K5 and K6 exactly once a
+   step.  Then one profiled step.
+8. resnet-parity — one bf16 ResNet-50 ``Module`` step at 224×224, batch
+   16, through K5/K6 and once more with the plain sums patched in for
+   the kernel wrappers (and once with fp64-accumulated sums, the logged
+   noise yardstick), all held against the fp32 step from the same state
+   (TF32 off) by each parameter's and moving statistic's update: the
+   kernel path's mean and median error at most 1.1x the plain path's,
+   and at most 1.5x per tensor wherever the bf16 update tracks the fp32
+   one (plain error < 0.5).
+9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -396,6 +415,259 @@ def parity_phase(dev, cfg, batch, compute_dtype):
     return out
 
 
+# K5/K6 against their plain versions: per channel, |diff| <= 3e-5 times
+# the sum of the magnitudes of the terms summed.  Both sides sum in fp32
+# in other orders; the kernels' longest sequential chain is a few hundred
+# terms (chunk_rows), so their rounding walks to a few 2^-24 sqrt(n) of
+# that magnitude, far inside
+BN_RTOL = 3e-5
+BN_NOTE = ("per channel |diff| <= 3e-5 * sum|terms| (sum|x|, sum x^2, "
+           "sum|dy|, sum|dy xhat|): fp32 sums in two orders")
+# resnet-parity: the kernel and plain bf16 steps do the same arithmetic
+# but for the order of the channel sums, so their errors against the fp32
+# step must agree within noise.  At ResNet-50's depth from a fresh state
+# the bf16 update of the deep layers is mostly noise (measured on the
+# H100: median error 110 % on both paths, kernel against plain 58 %), so
+# a per-tensor ratio there is a draw from that noise; the per-tensor bound
+# holds where the bf16 update tracks the fp32 one (plain error < 0.5),
+# and the spread of a third summation order (fp64-accumulated sums)
+# against the plain one is logged as the measured noise
+PARITY_BN_MEAN = 1.1
+PARITY_BN_RATIO = 1.5
+PARITY_BN_TRACKS = 0.5
+PARITY_BN_NOTE = ("against the fp32 step from the same state, by the "
+                  "relative L2 error of each parameter's and moving "
+                  "statistic's update: kernel mean and median <= 1.1 x "
+                  "plain's; kernel error <= 1.5 x plain error for every "
+                  "tensor whose plain error is < 0.5")
+
+
+def bn_nodes(sym):
+    """The training-mode BatchNorm nodes of ``sym``."""
+    return [n for n in sym._topo() if not n.is_variable
+            and n.op.name in ("BatchNorm", "BatchNorm_v1")
+            and not n.attrs.get("use_global_stats", False)]
+
+
+def resnet_images(n, seed=0, image=224):
+    """``n`` numpy-seeded images, pixels uniform in [0, 1), and labels from
+    [0, 256): the bf16 step casts the labels to bf16 too, and larger ids
+    round (ROADMAP queue 3)."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, 3, image, image), dtype=np.float32)
+    return x, rng.integers(0, 256, n).astype(np.float32)
+
+
+XAVIER = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+SGD = {"learning_rate": 0.1, "momentum": 0.9}
+
+
+def resnet_phase(dev, sym, batch=256, n_images=1024, epochs=2):
+    """``Module.fit`` of ``sym`` in bf16 on ``dev`` (the phase's numbers,
+    and the kernel launches counted over the fit alone)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _cuda
+
+    cuda = dev.type == "cuda"
+    x, y = resnet_images(n_images)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(sym, context=mx.context.context_of(dev))
+    mod.bind(it.provide_data, it.provide_label)
+    init = mx.init.Xavier(**XAVIER)
+    mod.init_params(init)
+    arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in mod.get_params())
+    marks = []
+
+    def tick(param):
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append((param.epoch, time.perf_counter()))
+
+    acc = mx.metric.Accuracy()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    mod.fit(it, num_epoch=epochs, optimizer="sgd", optimizer_params=SGD,
+            initializer=init, compute_dtype="bfloat16", eval_metric=acc,
+            batch_end_callback=tick)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    steps = epochs * (n_images // batch)
+    nodes = bn_nodes(sym)
+    want = {"bn_stats": len(nodes) * steps, "bn_grad_sums": len(nodes) * steps}
+    if cuda and any(launches[k] != n for k, n in want.items()):
+        raise AssertionError("BatchNorm kernel launches %r, want %r (%d "
+                             "training-mode BatchNorm nodes x %d steps)"
+                             % ({k: launches[k] for k in want}, want,
+                                len(nodes), steps))
+    fixed = {n.name + "_gamma" for n in nodes if n.attrs.get("fix_gamma",
+                                                                True)}
+    arg, aux = ({k: v.asnumpy() for k, v in d.items()}
+                for d in mod.get_params())
+    for kind, new, old in (("parameter", arg, arg0), ("moving stat", aux,
+                                                      aux0)):
+        bad = [k for k, v in new.items() if not np.isfinite(v).all()]
+        same = [k for k, v in new.items()
+                if k not in fixed and np.array_equal(v, old[k])]
+        if bad or same:
+            raise AssertionError("%s not finite %r / unchanged %r"
+                                 % (kind, bad[:5], same[:5]))
+    name, value = acc.get()
+    if not np.isfinite(value):
+        raise AssertionError("train %s %r is not finite" % (name, value))
+    last = [t for e, t in marks if e == epochs - 1]
+    first_end = [t for e, t in marks if e == epochs - 2][-1]
+    epoch_s = last[-1] - first_end
+    stats = dict(image="x".join(str(d) for d in x.shape[1:]), batch=batch,
+                 steps=steps, bn_nodes=len(nodes),
+                 img_per_s_epoch2=(n_images // batch) * batch / epoch_s,
+                 step_ms_epoch2=1e3 * (last[-1] - last[0]) / (len(last) - 1),
+                 train_accuracy=value,
+                 launches_per_step={k: launches[k] / steps for k in want})
+    if cuda:
+        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        # the batch on the card already, as the prefetcher hands it over
+        ctx = mx.context.context_of(dev)
+        batch0 = mx.io.DataBatch([mx.nd.array(x[:batch], ctx)],
+                                 [mx.nd.array(y[:batch], ctx)])
+
+        def one_step():
+            mod.forward_backward(batch0)
+            mod.update()
+
+        one_step()
+        stats["profile"] = profiled_window(one_step, (
+            ("bn_stats", ("StatsOp",)), ("bn_grad_sums", ("GradOp",)),
+            ("cudnn_conv", ("cudnn", "conv", "xmma", "implicit", "gemm",
+                            "sm90_", "cutlass", "dgrad", "wgrad",
+                            "nchwToNhwc", "nhwcToNchw"))))
+    return stats, launches
+
+
+def emulated_kernel_sums():
+    """``(bn_stats, bn_grad_sums)`` that sum in the kernels' chunk order in
+    plain PyTorch — fp32 partials over ``chunk_rows``' runs of rows, added
+    in chunk order — to rehearse the parity criterion without the card."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_bn as P
+
+    def chunked(terms, outer, c, inner):
+        # per run of rows: 256 lanes each summing every 256th element,
+        # then the lanes added together (the kernel's block), then the
+        # runs' partials in order (its finish)
+        rows, chunks = P.chunk_rows(outer, c, inner)
+        out = []
+        for t in terms:
+            acc = torch.zeros(c, dtype=torch.float32, device=t.device)
+            for s in range(chunks):
+                run = t[s * rows:(s + 1) * rows].transpose(0, 1).reshape(c, -1)
+                run = torch.nn.functional.pad(run, (0, -run.shape[1] % 256))
+                acc = acc + run.reshape(c, -1, 256).sum(dim=1).sum(dim=1)
+            out.append(acc)
+        return tuple(out)
+
+    def stats(x, axis=1):
+        outer, c, inner = P._dims(x, axis)
+        xf = x.float().reshape(outer, c, inner)
+        return chunked([xf, xf * xf], outer, c, inner)
+
+    def grad_sums(dy, x, mean, inv, axis=1):
+        outer, c, inner = P._dims(x, axis)
+        xf = x.float().reshape(outer, c, inner)
+        dyf = dy.float().reshape(outer, c, inner)
+        xhat = (xf - mean.float().view(1, c, 1)) * inv.float().view(1, c, 1)
+        return chunked([dyf, dyf * xhat], outer, c, inner)
+
+    return stats, grad_sums
+
+
+def resnet_parity_phase(dev, sym, batch=16, image=224, kernel_sums=None):
+    """One bf16 ``Module`` step of ``sym`` through the kernel wrappers (or
+    ``kernel_sums`` patched in for them) and one with the plain sums
+    patched in, both held against the fp32 step from the same state by
+    the relative L2 error of each parameter's and moving statistic's
+    update."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import pallas_bn
+
+    ctx = mx.context.context_of(dev)
+    x, y = resnet_images(batch, seed=1, image=image)
+    shapes = ([("data", x.shape)], [("softmax_label", y.shape)])
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(*shapes)
+    mod.init_params(mx.init.Xavier(**XAVIER))
+    arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in mod.get_params())
+
+    def update(compute_dtype, sums):
+        saved = pallas_bn.bn_stats, pallas_bn.bn_grad_sums
+        if sums is not None:
+            pallas_bn.bn_stats, pallas_bn.bn_grad_sums = sums
+        try:
+            m = mx.mod.Module(sym, context=ctx)
+            m.bind(*shapes)
+            m.init_params(arg_params=arg0, aux_params=aux0)
+            m.init_optimizer(optimizer="sgd", optimizer_params=SGD,
+                             compute_dtype=compute_dtype)
+            m.forward_backward(mx.io.DataBatch(
+                [mx.nd.array(x, ctx)], [mx.nd.array(y, ctx)]))
+            m.update()
+            arg, aux = m.get_params()
+        finally:
+            pallas_bn.bn_stats, pallas_bn.bn_grad_sums = saved
+        out = {k: arg[k].asnumpy().astype(np.float64) - arg0[k]
+               for k in arg0}
+        out.update({k: aux[k].asnumpy().astype(np.float64) - aux0[k]
+                    for k in aux0})
+        return out
+
+    def f64_sums():
+        # a third summation order: the plain sums accumulated in fp64
+        def stats(x, axis=1):
+            return tuple(v.float() for v in pallas_bn.bn_stats_plain(
+                x.double(), axis))
+
+        def grad_sums(dy, x, mean, inv, axis=1):
+            return tuple(v.float() for v in pallas_bn.bn_grad_sums_plain(
+                dy.double(), x.double(), mean.double(), inv.double(), axis))
+        return stats, grad_sums
+
+    kern = update("bfloat16", kernel_sums)
+    plain = update("bfloat16", (pallas_bn.bn_stats_plain,
+                                pallas_bn.bn_grad_sums_plain))
+    alt = update("bfloat16", f64_sums())
+    truth = update(None, None)
+    live = [k for k, v in truth.items() if np.any(v)]  # fix_gamma: no update
+
+    def err(got, want):
+        return {k: float(np.linalg.norm(got[k] - want[k])
+                         / max(np.linalg.norm(want[k]), 1e-30)) for k in live}
+
+    kern_err, plain_err, alt_err = err(kern, truth), err(plain, truth), \
+        err(alt, truth)
+    ratio = {k: kern_err[k] / max(plain_err[k], 1e-30) for k in live}
+    tracking = [k for k in live if plain_err[k] < PARITY_BN_TRACKS]
+    per_tensor = {k: dict(kernel=kern_err[k], plain=plain_err[k],
+                          fp64_sums=alt_err[k]) for k in live}
+    return dict(tensors=len(live), kernel_vs_fp32=spread(kern_err),
+                plain_vs_fp32=spread(plain_err),
+                fp64_sums_vs_fp32=spread(alt_err),
+                kernel_over_plain_error=spread(ratio),
+                fp64_sums_over_plain_error=spread(
+                    {k: alt_err[k] / max(plain_err[k], 1e-30)
+                     for k in live}),
+                tracking_tensors=len(tracking),
+                tracking_kernel_over_plain=spread(
+                    {k: ratio[k] for k in tracking}) if tracking else None,
+                kernel_vs_plain=spread(err(kern, plain))), per_tensor
+
+
 def main():
     import torch
 
@@ -628,6 +900,81 @@ def main():
                    nbytes=4 * (m * c + f * c + f + m * f),
                    flops=2 * m * f * c)
 
+    # K5/K6: BatchNorm's channel sums at ResNet-50's shapes at batch 256
+    # (the stem's bn0, bn_data, a stage-1 and a stage-4 map), one
+    # channels-last case and one fp32 case; each kernel must also give the
+    # same bits when run again
+    from mxnet_tpu_torch.ops import pallas_bn as BN
+
+    def bn_library_backward(dy, x, mean, inv, axis):
+        # the (dgamma, dbeta) half of PyTorch's BatchNorm backward, which
+        # computes exactly (sum dy xhat, sum dy); channels-last goes in as
+        # an NCHW view with channels-last strides
+        if axis != 1:
+            dy, x = dy.movedim(axis, 1), x.movedim(axis, 1)
+        w = torch.ones(x.shape[1], dtype=torch.float32, device=x.device)
+        return torch.ops.aten.native_batch_norm_backward(
+            dy, x, w, None, None, mean, inv, True, 2e-5,
+            [False, True, True])
+
+    def bn_case(shape, axis, dtype):
+        case = "%s-%s-axis%d" % (str(dtype).replace("torch.", ""),
+                                 "x".join(map(str, shape)), axis)
+        x = (1.5 * randn(*shape) + 0.3).to(dtype)
+        dy = randn(*shape).to(dtype)
+        dims = tuple(i for i in range(x.dim()) if i != axis)
+        bshape = [1] * x.dim()
+        bshape[axis] = c = shape[axis]
+        n = x.numel() // c
+        xf = x.float()
+        mags = (xf.abs().sum(dims), (xf * xf).sum(dims))
+        got, want = BN.bn_stats(x, axis), BN.bn_stats_plain(x, axis)
+        if not all(torch.equal(a, b) for a, b in zip(got, BN.bn_stats(x,
+                                                                      axis))):
+            raise AssertionError("bn_stats %s: a rerun gave other bits"
+                                 % case)
+        diff = [(g - w).abs() for g, w in zip(got, want)]
+        record("bn_stats", case, max(d.max().item() for d in diff),
+               all(bool((d <= BN_RTOL * m).all())
+                   for d, m in zip(diff, mags)), BN_NOTE,
+               lambda: BN.bn_stats(x, axis),
+               lambda: BN.bn_stats_plain(x, axis),
+               lambda: torch.var_mean(x, dim=dims, correction=0),
+               nbytes=x.numel() * x.element_size() + 8 * c,
+               flops=3 * x.numel())
+        mean = want[0] / n
+        inv = torch.rsqrt((want[1] / n - mean * mean).clamp_min(0) + 2e-5)
+        xhat = (xf - mean.view(bshape)) * inv.view(bshape)
+        del xf
+        dyf = dy.float()
+        mags = (dyf.abs().sum(dims), (dyf * xhat).abs().sum(dims))
+        del dyf, xhat
+        got = BN.bn_grad_sums(dy, x, mean, inv, axis)
+        want = BN.bn_grad_sums_plain(dy, x, mean, inv, axis)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, BN.bn_grad_sums(dy, x, mean, inv, axis))):
+            raise AssertionError("bn_grad_sums %s: a rerun gave other bits"
+                                 % case)
+        diff = [(g - w).abs() for g, w in zip(got, want)]
+        record("bn_grad_sums", case, max(d.max().item() for d in diff),
+               all(bool((d <= BN_RTOL * m).all())
+                   for d, m in zip(diff, mags)), BN_NOTE,
+               lambda: BN.bn_grad_sums(dy, x, mean, inv, axis),
+               lambda: BN.bn_grad_sums_plain(dy, x, mean, inv, axis),
+               lambda: bn_library_backward(dy, x, mean, inv, axis),
+               nbytes=2 * x.numel() * x.element_size() + 16 * c,
+               flops=6 * x.numel())
+        del x, dy, got, want, diff, mags
+        torch.cuda.empty_cache()
+
+    for shape, axis, dtype in (((256, 64, 112, 112), 1, torch.bfloat16),
+                               ((256, 3, 224, 224), 1, torch.bfloat16),
+                               ((256, 256, 56, 56), 1, torch.bfloat16),
+                               ((256, 2048, 7, 7), 1, torch.bfloat16),
+                               ((256, 56, 56, 256), 3, torch.bfloat16),
+                               ((256, 512, 28, 28), 1, torch.float32)):
+        bn_case(shape, axis, dtype)
+
     # -- 3. row-count invariance ------------------------------------------
     x = randn(256, 2048)
     for f in (6144, 8192, 32768):
@@ -696,7 +1043,32 @@ def main():
     log("train_parity", case="bf16-8L-batch8", tolerance=PARITY_BF16_NOTE,
         **bf16)
 
-    # -- 7. summary -------------------------------------------------------
+    # -- 7. ResNet-50 through Module.fit ------------------------------------
+    from mxnet_tpu_torch.models import resnet
+
+    r50 = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=(3, 224, 224))
+    stats, resnet_launches = resnet_phase(dev, r50)
+    log("resnet", nvidia_smi=smi, model="resnet50", launches=resnet_launches,
+        **stats)
+    torch.cuda.empty_cache()
+    for name, n in resnet_launches.items():
+        launches[name] += n
+
+    # -- 8. ResNet-50 parity: K5/K6 vs the plain sums, against fp32 --------
+    par, per_tensor = resnet_parity_phase(dev, r50)
+    log("resnet_parity_tensors", **per_tensor)
+    if any(par[k][q] > PARITY_BN_MEAN * par["plain_vs_fp32"][q]
+           for k in ("kernel_vs_fp32",) for q in ("mean", "median")) or (
+               par["tracking_kernel_over_plain"] is not None and
+               par["tracking_kernel_over_plain"]["max"] > PARITY_BN_RATIO):
+        raise AssertionError("resnet parity %r outside (%s)"
+                             % (par, PARITY_BN_NOTE))
+    log("resnet_parity", case="resnet50-224-batch16",
+        tolerance=PARITY_BN_NOTE, **par)
+    torch.cuda.empty_cache()
+
+    # -- 9. summary -------------------------------------------------------
     if min(launches.values()) < 1:
         raise AssertionError("a kernel never ran on a main path: %r"
                              % launches)
@@ -708,12 +1080,16 @@ def main():
     main_case = {"flash_attention": "n8-h16-T1024-D128-causal-b128-bf16-lse",
                  "flash_attention_backward": "n8-h16-T1024-D128-causal-bf16",
                  "paged_attention": "decode-S8-Q1",
-                 "mi_linear": "M8-F6144-C2048"}
+                 "mi_linear": "M8-F6144-C2048",
+                 "bn_stats": "bfloat16-256x64x112x112-axis1",
+                 "bn_grad_sums": "bfloat16-256x64x112x112-axis1"}
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
         "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
         "paged_attention": "mxnet_tpu/ops/attention.py:368",
         "mi_linear": "mxnet_tpu/serve/model.py:123",
+        "bn_stats": "mxnet_tpu/ops/pallas_bn.py:79",
+        "bn_grad_sums": "mxnet_tpu/ops/pallas_bn.py:119",
     }
     kernels = []
     for name, (stem, _, _) in _cuda.KERNELS.items():

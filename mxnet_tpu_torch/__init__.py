@@ -4,16 +4,32 @@ A package of its own beside the JAX one, with the same module layout.
 The kernels the JAX package runs on a TPU are CUDA C++ written for the
 H100 (``csrc/``, built at first use by :mod:`._cuda`); the rest is plain
 PyTorch.  Entry points run on the card unless the caller passes
-``device="cpu"``.  Two slices are ported:
+``device="cpu"`` or the context ``mx.cpu()``.  Three slices are ported:
 
 * serving — :mod:`.serve` runs the built-in transformer LM end to end;
-* training — :mod:`.symbol` builds the LM (:mod:`.models`), and
-  :class:`.fused.TrainStep` trains it (forward, backward, SGD update).
+* transformer training — :mod:`.symbol` builds the LM (:mod:`.models`),
+  and :class:`.fused.TrainStep` trains it (forward, backward, SGD);
+* the MXNet training surface — ``Context``, ``NDArray``, ``Executor``
+  (``Symbol.bind``/``simple_bind``), ``io``, ``metric``, ``initializer``
+  and :class:`.module.Module`, whose ``fit`` trains ResNet
+  (``models.resnet``) through the fused step.
 """
-from . import executor, fused, models, optimizer, serve, symbol
+from . import (callback, context, executor, fused, initializer, io, metric,
+               model, models, module, ndarray, optimizer, random, serve,
+               symbol)
 from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, tpu
+from .model import load_checkpoint, save_checkpoint
+from .module import Module
+from .ndarray import NDArray
 
+init = initializer
+mod = module
+nd = ndarray
 sym = symbol
 
-__all__ = ["MXNetError", "executor", "fused", "models", "optimizer",
-           "serve", "sym", "symbol"]
+__all__ = ["Context", "MXNetError", "Module", "NDArray", "callback",
+           "context", "cpu", "current_context", "executor", "fused", "gpu",
+           "init", "initializer", "io", "load_checkpoint", "metric", "mod",
+           "model", "models", "module", "nd", "ndarray", "optimizer",
+           "random", "save_checkpoint", "serve", "sym", "symbol", "tpu"]

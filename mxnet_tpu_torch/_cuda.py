@@ -56,6 +56,12 @@ KERNELS = {
     "mi_linear": (
         "linear", "mxt_linear",
         (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "bn_stats": (
+        "batch_norm", "mxt_bn_stats",
+        (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
+    "bn_grad_sums": (
+        "batch_norm", "mxt_bn_grad_sums",
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
 }
 
 # launches per kernel since the last reset_launches()

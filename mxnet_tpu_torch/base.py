@@ -10,8 +10,8 @@ from __future__ import annotations
 import logging
 import os
 
-__all__ = ["MXNetError", "get_env", "later_slice", "logger",
-           "resolve_device"]
+__all__ = ["MXNetError", "TrainingPreempted", "get_env", "later_slice",
+           "logger", "resolve_device"]
 
 logger = logging.getLogger("mxnet_tpu_torch")
 
@@ -19,6 +19,18 @@ logger = logging.getLogger("mxnet_tpu_torch")
 class MXNetError(RuntimeError):
     """Framework error type (mirrors ``MXNetError`` raised through the
     reference's C ABI ``MXGetLastError``, ``python/mxnet/base.py``)."""
+
+
+class TrainingPreempted(MXNetError):
+    """Raised by ``Module.fit`` after a SIGTERM/SIGINT arrived mid-run:
+    the loop stops at the next batch boundary instead of dying inside a
+    step.  ``epoch`` and ``nbatch`` name the position reached."""
+
+    def __init__(self, msg, epoch=None, nbatch=None, signum=None):
+        super().__init__(msg)
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.signum = signum
 
 
 def get_env(name, default, typ=None):
@@ -41,19 +53,41 @@ def later_slice(field, value):
                       "port" % (field, value, field))
 
 
+class _Registry:
+    """Generic name -> object registry (equivalent of ``dmlc::Registry``)."""
+
+    def __init__(self, kind):
+        self._kind = kind
+        self._entries = {}
+
+    def register(self, name, obj):
+        self._entries[name] = obj
+        return obj
+
+    def get(self, name):
+        if name not in self._entries:
+            raise MXNetError(
+                "%s %r is not registered (known: %s)"
+                % (self._kind, name, sorted(self._entries)))
+        return self._entries[name]
+
+
 def resolve_device(device, who):
-    """The ``device`` an entry point runs on: ``None`` means the card.
+    """The ``device`` an entry point runs on: ``None`` means the card; a
+    ``Context`` means its ``torch_device``.
 
     Entry points never drop to the CPU on their own — without a CUDA
-    device the caller must ask for ``device="cpu"`` explicitly."""
+    device the caller must ask for ``device="cpu"`` (``mx.cpu()`` as a
+    context) explicitly."""
     import torch
 
     if device is None:
         if not torch.cuda.is_available():
             raise MXNetError(
-                "%s: no CUDA device is available; pass device='cpu' to run "
-                "on the CPU" % who)
+                "%s: no CUDA device is available; pass device='cpu' "
+                "(context mx.cpu()) to run on the CPU" % who)
         device = "cuda"
+    device = getattr(device, "torch_device", device)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise MXNetError("%s: device=%r but CUDA is not available"

@@ -1,0 +1,71 @@
+"""Training callbacks (reference ``python/mxnet/callback.py``).
+
+Counterpart of ``mxnet_tpu/callback.py`` for ``Speedometer``,
+``do_checkpoint`` and ``log_train_metric``."""
+from __future__ import annotations
+
+import logging
+import time
+
+__all__ = ["Speedometer", "do_checkpoint", "log_train_metric"]
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback saving ``prefix-symbol.json`` and the params
+    every ``period`` epochs (reference ``do_checkpoint``)."""
+    from .model import save_checkpoint
+
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            for name, value in param.eval_metric.get_name_value():
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
+
+
+class Speedometer:
+    """samples/sec logger (reference ``Speedometer``)."""
+
+    def __init__(self, batch_size, frequent=50, auto_reset=True):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.init = False
+        self.tic = 0
+        self.last_count = 0
+        self.auto_reset = auto_reset
+
+    def __call__(self, param):
+        count = param.nbatch
+        if self.last_count > count:
+            self.init = False
+        self.last_count = count
+        if not self.init:
+            self.init = True
+            self.tic = time.time()
+            return
+        if count % self.frequent != 0:
+            return
+        speed = self.frequent * self.batch_size / (time.time() - self.tic)
+        if param.eval_metric is not None:
+            name_value = param.eval_metric.get_name_value()
+            if self.auto_reset:
+                param.eval_metric.reset()
+            msg = "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+            msg += "\t%s=%f" * len(name_value)
+            logging.info(msg, param.epoch, count, speed,
+                         *sum(name_value, ()))
+        else:
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
+                         param.epoch, count, speed)
+        self.tic = time.time()

@@ -1,15 +1,17 @@
 """Model zoo: Symbol generators over the port's ``symbol``.
 
-Counterpart of ``mxnet_tpu/models``; this slice carries the transformer
-LM (``transformer.py``), the model ``bench_transformer.py`` trains.  The
-image-classification symbols come with the ResNet slice.
+Counterpart of ``mxnet_tpu/models``: the transformer LM
+(``transformer.py``, the model ``bench_transformer.py`` trains) and
+ResNet (``resnet.py``, the model ``bench.py`` trains).  The other
+image-classification symbols come with a later slice.
 """
 from ..base import MXNetError
-from . import transformer
+from . import resnet, transformer
 
-__all__ = ["transformer", "get_model"]
+__all__ = ["resnet", "transformer", "get_model"]
 
-_MODELS = {"transformer": transformer.get_symbol}
+_MODELS = {"resnet": resnet.get_symbol,
+           "transformer": transformer.get_symbol}
 
 
 def get_model(name, **kwargs):

@@ -1,8 +1,9 @@
-"""Shape and indexing operators: ``Reshape`` and ``Embedding``.
+"""Shape and indexing operators: ``Reshape``, ``Flatten`` and
+``Embedding``.
 
-Counterpart of ``mxnet_tpu/ops/matrix_ops.py`` for the two ops the
-transformer LM reaches; the rest of the module comes with the NDArray
-slice.
+Counterpart of ``mxnet_tpu/ops/matrix_ops.py`` for the ops the
+transformer LM and ResNet reach; the rest of the module comes with a
+later slice.
 """
 from __future__ import annotations
 
@@ -54,6 +55,12 @@ def _reshape(attrs, x):
         rshape = _infer_reshape(tuple(x.shape)[::-1], list(shape)[::-1])
         return x.reshape(rshape[::-1])
     return x.reshape(_infer_reshape(tuple(x.shape), shape))
+
+
+@register("Flatten", aliases=("flatten",))
+def _flatten(attrs, x):
+    """(N, ...) -> (N, prod(...)) (reference ``Flatten``)."""
+    return x.reshape(x.shape[0], -1)
 
 
 @register("Embedding")

@@ -1,9 +1,9 @@
-"""Neural-network layer operators of the transformer LM.
+"""Neural-network layer operators of the transformer LM and ResNet.
 
 Counterpart of ``mxnet_tpu/ops/nn_ops.py`` for ``FullyConnected``,
-``Activation``, ``LayerNorm``, ``SoftmaxOutput`` and
-``MultiHeadAttention``; the other layers (convolution, pooling,
-BatchNorm, dropout, ...) come with later slices.
+``Convolution``, ``Pooling``, ``Activation``, ``BatchNorm``,
+``LayerNorm``, ``SoftmaxOutput`` and ``MultiHeadAttention``; the other
+layers (deconvolution, dropout, ...) come with later slices.
 
 * Projections are plain matmuls (cuBLAS on the card), as the JAX package
   leaves them to XLA; the bias is added after the product, in the
@@ -15,6 +15,12 @@ BatchNorm, dropout, ...) come with later slices.
 * ``MultiHeadAttention`` dispatches the score/value contraction through
   ``ops/attention.py::dot_product_attention`` — kernels K1 (forward) and
   K4 (backward) on the card.
+* ``Convolution`` and ``Pooling`` are PyTorch's (cuDNN on the card): the
+  JAX package left them to XLA and wrote no TPU kernel for them.
+* ``BatchNorm`` in training mode is :func:`_bn_train`, a
+  ``torch.autograd.Function`` with the JAX package's closed-form
+  backward; on bf16 data its channel sums are kernels K5 and K6
+  (``ops/pallas_bn.py``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,29 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, later_slice
+from . import pallas_bn
 from .registry import register
+
+
+def _pair(v, n=2):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, (int, float)):
+        return (int(v),) * n
+    t = tuple(int(x) for x in v)
+    return t if t else (1,) * n
+
+
+def _channels_last(layout):
+    return layout in ("NWC", "NHWC", "NDHWC")
+
+
+def _to_channels_first(x):
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _to_channels_last(x):
+    return x.permute(0, *range(2, x.dim()), 1)
 
 
 @register("FullyConnected", aliases=("fully_connected",))
@@ -36,8 +64,99 @@ def _fully_connected(attrs, data, weight, *bias):
     return out
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", aliases=("conv", "Convolution_v1"))
+def _convolution(attrs, data, weight, *bias):
+    """Reference ``src/operator/convolution-inl.h``: grouped ND
+    convolution, weight (O, I/g, *kernel) for NC-first layouts, (O,
+    *kernel, I/g) for channels-last.  The bias is added after the
+    product, in its dtype, as the JAX package adds it."""
+    kernel = _pair(attrs["kernel"], len(attrs["kernel"]))
+    nd = len(kernel)
+    if nd not in _CONV:
+        raise MXNetError("Convolution: %d spatial dims" % nd)
+    ch_last = _channels_last(attrs.get("layout"))
+    if ch_last:
+        data, weight = _to_channels_first(data), _to_channels_first(weight)
+    out = _CONV[nd](data, weight, stride=_pair(attrs.get("stride"), nd),
+                    padding=_pair(attrs.get("pad", (0,) * nd), nd),
+                    dilation=_pair(attrs.get("dilate"), nd),
+                    groups=int(attrs.get("num_group", 1)))
+    if bias:
+        out = out + bias[0].reshape((1, -1) + (1,) * nd)
+    return _to_channels_last(out) if ch_last else out
+
+
+def _window_sum(x, kernel, stride):
+    """Sum of each (unpadded) window of the channels-first ``x``."""
+    nd = len(kernel)
+    if nd == 1:
+        return _window_sum(x.unsqueeze(-2), (1,) + kernel,
+                           (1,) + stride).squeeze(-2)
+    pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@register("Pooling", aliases=("Pooling_v1",))
+def _pooling(attrs, data):
+    """Reference ``src/operator/pooling-inl.h``: max/avg/sum pooling with
+    global_pool and the 'valid'/'full' conventions; avg counts the padding
+    (``count_include_pad=True``, the reference default)."""
+    pool_type = attrs.get("pool_type", "max")
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError("unknown pool_type %r" % pool_type)
+    ch_last = _channels_last(attrs.get("layout"))
+    if ch_last:
+        data = _to_channels_first(data)
+    nd = data.dim() - 2
+    if bool(attrs.get("global_pool", False)):
+        axes = tuple(range(2, 2 + nd))
+        if pool_type == "max":
+            out = data.amax(dim=axes, keepdim=True)
+        elif pool_type == "sum":
+            out = data.sum(dim=axes, keepdim=True)
+        else:
+            out = data.mean(dim=axes, keepdim=True)
+        return _to_channels_last(out) if ch_last else out
+    kernel = _pair(attrs["kernel"], len(attrs["kernel"]))
+    nd = len(kernel)
+    stride = _pair(attrs.get("stride"), nd)
+    pad = _pair(attrs.get("pad", (0,) * nd), nd)
+    # 'full' (ceil) pads the high edge so partial windows count
+    extra = [0] * nd
+    if attrs.get("pooling_convention", "valid") == "full":
+        for d in range(nd):
+            rem = (data.shape[2 + d] + 2 * pad[d] - kernel[d]) % stride[d]
+            if rem:
+                extra[d] = stride[d] - rem
+    pads = []
+    for d in reversed(range(nd)):  # F.pad lists the last axis first
+        pads += [pad[d], pad[d] + extra[d]]
+    if pool_type == "max":
+        fill = float("-inf") if data.is_floating_point() else \
+            torch.iinfo(data.dtype).min
+        out = _MAX_POOL[nd](F.pad(data, pads, value=fill), kernel, stride)
+    else:
+        out = _window_sum(F.pad(data, pads, value=0.0), kernel, stride)
+        if pool_type == "avg":
+            denom = 1
+            for k in kernel:
+                denom *= k
+            out = out / torch.tensor(denom, dtype=out.dtype,
+                                     device=out.device)
+    return _to_channels_last(out) if ch_last else out
+
+
+# relu is max(x, 0) as jnp.maximum computes it: its gradient at exactly
+# 0 is 0.5 (torch.relu's is 0), and BatchNorm outputs of exactly 0 occur
+# in bf16
 _ACTIVATIONS = {
-    "relu": torch.relu,
+    "relu": lambda x: torch.maximum(x, x.new_zeros(())),
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "softrelu": F.softplus,
@@ -144,3 +263,129 @@ def _multi_head_attention(attrs, data, in_weight, in_bias, out_weight,
                                 window=int(attrs.get("window", 0)))
     ctx = ctx.transpose(1, 2).reshape(n, t, c)
     return F.linear(ctx, out_weight) + out_bias
+
+
+def _bshape(data, axis):
+    return tuple(data.shape[axis] if i == axis else 1
+                 for i in range(data.dim()))
+
+
+def _as_scalar(value, like):
+    """A Python scalar in ``like``'s dtype: JAX's weak typing casts the
+    scalar to the array's dtype before the arithmetic."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+@register("BatchNorm", aliases=("BatchNorm_v1",), uses_train_mode=True,
+          mutable_inputs=(3, 4))
+def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
+    """Reference ``src/operator/batch_norm-inl.h``.  Inputs: data, gamma,
+    beta, aux moving_mean, moving_var; returns (out, new_mean, new_var).
+    ``fix_gamma`` pins gamma to 1 (the reference default), ``axis`` is the
+    channel axis.  Training mode runs :func:`_bn_train` and blends the
+    batch statistics into the moving ones in the aux dtype."""
+    eps = float(attrs.get("eps", 1e-3))
+    momentum = float(attrs.get("momentum", 0.9))
+    fix_gamma = bool(attrs.get("fix_gamma", True))
+    use_global = bool(attrs.get("use_global_stats", False))
+    axis = int(attrs.get("axis", 1)) % data.dim()
+    if bool(attrs.get("__is_train__", False)) and not use_global:
+        out, mean, var = _bn_train(eps, axis, fix_gamma)(data, gamma, beta)
+        mom = _as_scalar(momentum, moving_mean)
+        rest = _as_scalar(1 - momentum, moving_mean)
+        new_mean = mom * moving_mean + rest * mean.to(moving_mean.dtype)
+        new_var = mom * moving_var + rest * var.to(moving_var.dtype)
+        return out, new_mean, new_var
+    bshape = _bshape(data, axis)
+    g32 = (torch.ones_like(gamma) if fix_gamma else gamma).float()
+    mean32 = moving_mean.float()
+    inv = torch.rsqrt(moving_var.float() + eps).reshape(bshape)
+    g32 = g32.reshape(bshape)
+    scale = (inv * g32).to(data.dtype)
+    shift = (beta.float().reshape(bshape) - mean32.reshape(bshape) * inv
+             * g32).to(data.dtype)
+    return data * scale + shift, moving_mean, moving_var
+
+
+class _BNTrain(torch.autograd.Function):
+    """Training-mode BatchNorm with the JAX package's hand-written
+    backward (``nn_ops._bn_train``, :511-620).
+
+    Forward: per-channel mean and biased variance — on bf16 data from
+    :func:`pallas_bn.bn_stats` (K5 on the card) as ``E[x²] − E[x]²``, on
+    fp32 data by the two-pass variance — then ``out = data·scale + shift``
+    with per-channel constants rounded to the data dtype.  Backward:
+
+        dx = (g·inv) · (dy − E[dy] − x̂·E[dy·x̂])
+
+    with the two channel sums from :func:`pallas_bn.bn_grad_sums` (K6 on
+    the card) for bf16 data and from PyTorch sums otherwise.  The choice
+    follows the data's dtype, as the reference's does.  Every
+    activation-sized tensor stays in the data dtype; the sums are fp32.
+    The mean and variance outputs carry no gradient: their one consumer
+    is the moving-stat blend."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, eps, axis, fix_gamma):
+        bshape = _bshape(data, axis)
+        count = data.numel() // max(data.shape[axis], 1)
+        if data.dtype == torch.bfloat16:
+            s1, s2 = pallas_bn.bn_stats(data, axis)
+            mean = s1 / count
+            var = torch.clamp_min(s2 / count - mean * mean, 0.0)
+        else:
+            dims = tuple(i for i in range(data.dim()) if i != axis)
+            var, mean = torch.var_mean(data.float(), dim=dims, correction=0)
+        g32 = (torch.ones_like(gamma) if fix_gamma else gamma).float()
+        inv = torch.rsqrt(var + eps)
+        scale = (inv * g32).reshape(bshape).to(data.dtype)
+        shift = (beta.float() - mean * inv * g32).reshape(bshape).to(
+            data.dtype)
+        out = data * scale + shift
+        ctx.save_for_backward(data, gamma, mean, inv)
+        ctx.axis, ctx.fix_gamma = axis, fix_gamma
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        data, gamma, mean, inv = ctx.saved_tensors
+        axis, fix_gamma = ctx.axis, ctx.fix_gamma
+        dt = data.dtype
+        bshape = _bshape(data, axis)
+        dims = tuple(i for i in range(data.dim()) if i != axis)
+        n = data.numel() // max(data.shape[axis], 1)
+        g32 = torch.ones_like(gamma).float() if fix_gamma else gamma.float()
+        inv_b = inv.reshape(bshape).to(dt)
+        mean_b = mean.reshape(bshape).to(dt)
+        xhat = (data - mean_b) * inv_b
+        if dt == torch.bfloat16:
+            s_dy, s_dyxhat = pallas_bn.bn_grad_sums(dy, data, mean, inv,
+                                                    axis)
+            gi_b = (g32 * inv).reshape(bshape).to(dt)
+            e_dy = (s_dy / n).reshape(bshape).to(dt)
+            e_dyxhat = (s_dyxhat / n).reshape(bshape).to(dt)
+            dx = gi_b * (dy - e_dy - xhat * e_dyxhat)
+            dbeta = s_dy.to(gamma.dtype)
+            dgamma = torch.zeros_like(gamma) if fix_gamma \
+                else s_dyxhat.to(gamma.dtype)
+            return dx, dgamma, dbeta, None, None, None
+        dxhat = dy * g32.reshape(bshape).to(dt)
+        e_dxhat = (dxhat.sum(dims, dtype=torch.float32) / n).reshape(bshape)
+        e_dxhat_xhat = ((dxhat * xhat).sum(dims, dtype=torch.float32)
+                        / n).reshape(bshape)
+        dx = inv_b * (dxhat - e_dxhat.to(dt) - xhat * e_dxhat_xhat.to(dt))
+        dbeta = dy.sum(dims, dtype=torch.float32).to(gamma.dtype)
+        dgamma = torch.zeros_like(gamma) if fix_gamma else \
+            (dy * xhat).sum(dims, dtype=torch.float32).to(gamma.dtype)
+        return dx, dgamma, dbeta, None, None, None
+
+
+def _bn_train(eps, axis, fix_gamma):
+    """``bn(data, gamma, beta) -> (out, mean, var)``, training-mode
+    BatchNorm over channel ``axis`` (the JAX package's ``_bn_train``
+    factory, same signature)."""
+    def bn(data, gamma, beta):
+        return _BNTrain.apply(data, gamma, beta, float(eps), int(axis),
+                              bool(fix_gamma))
+    return bn

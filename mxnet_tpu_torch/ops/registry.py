@@ -15,14 +15,17 @@ Counterpart of ``mxnet_tpu/ops/registry.py``, with the same contract:
 * ops that consume randomness declare ``needs_rng`` and are handed a
   ``torch.Generator`` as their first input.
 
-Imperative invoke (``invoke`` and its per-op executable cache) comes with
-the NDArray slice.
+Imperative invoke (:func:`invoke`, the NDArray path) runs ``compute``
+eagerly under ``torch.no_grad()``: PyTorch has no compilation step for
+the JAX package's per-op ``jit`` cache to stand for, so ``_jitted``
+returns the eager callable.
 """
 from __future__ import annotations
 
 from ..base import MXNetError, get_env
 
-__all__ = ["OpDef", "register", "get", "exists", "list_ops", "FrozenAttrs"]
+__all__ = ["OpDef", "register", "get", "exists", "list_ops", "FrozenAttrs",
+           "invoke"]
 
 _OP_REGISTRY = {}
 
@@ -112,6 +115,18 @@ class OpDef:
             return self.num_outputs(attrs)
         return self.num_outputs
 
+    def _jitted(self, frozen_attrs):
+        """``fn(*inputs) -> tuple`` running ``compute`` eagerly without
+        recording gradients (the JAX package's jitted executable)."""
+        import torch
+
+        def fn(*inputs):
+            with torch.no_grad():
+                out = self.compute(frozen_attrs, *inputs)
+            return out if isinstance(out, tuple) else (out,)
+
+        return fn
+
     def __repr__(self):
         return "OpDef(%s)" % self.name
 
@@ -148,3 +163,13 @@ def exists(name):
 
 def list_ops():
     return sorted(_OP_REGISTRY)
+
+
+def invoke(op, inputs, attrs):
+    """Run an op's compute on raw tensors (a ``torch.Generator`` already
+    prepended when the op declares ``needs_rng``).  Returns a tuple:
+    ``(*outputs, *updated_mutable_values)``."""
+    if not isinstance(op, OpDef):
+        op = get(op)
+    frozen = attrs if isinstance(attrs, FrozenAttrs) else FrozenAttrs(attrs)
+    return op._jitted(frozen)(*inputs)

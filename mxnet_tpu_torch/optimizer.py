@@ -1,14 +1,18 @@
-"""Optimizers: the base class and SGD's fused form.
+"""Optimizers: the base class, SGD, and the updater of the split path.
 
 Counterpart of ``mxnet_tpu/optimizer.py`` (reference
-``python/mxnet/optimizer.py``).  This slice ports what ``fused.TrainStep``
-drives: the ``Optimizer`` base (``rescale_grad``, ``clip_gradient``,
-``wd``, per-parameter ``lr_mult``/``wd_mult``, the registry) and the
-fused update form — ``init_fused_state(weight)`` and ``fused_update(
-weight, grad, state, lr, wd, t, rng) -> (new_weight, new_state)``, pure
-functions over tensors that return new tensors and leave their inputs
-as they were.  SGD (momentum, multi-precision) is the one optimizer of
-the slice; the split ``update()`` path and the others come later.
+``python/mxnet/optimizer.py``).  Ported: the ``Optimizer`` base
+(``rescale_grad``, ``clip_gradient``, ``wd``, per-parameter
+``lr_mult``/``wd_mult``, the update counters ``num_update`` and
+``_update_count`` that ``Module`` reads, the registry); the fused update
+form that ``fused.TrainStep`` drives — ``init_fused_state(weight)`` and
+``fused_update(weight, grad, state, lr, wd, t, rng) -> (new_weight,
+new_state)``, pure functions over tensors that return new tensors and
+leave their inputs as they were; and the split form ``create_state``/
+``update`` over NDArrays with :func:`get_updater`, the path of
+``Module.update`` after an executor's ``forward``/``backward``.  SGD
+(momentum, multi-precision) is the one optimizer; the others and
+``lr_scheduler`` come with a later slice.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import torch
 
 from .base import MXNetError, later_slice
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
+           "register"]
 
 _registry = {}
 
@@ -45,12 +50,14 @@ class Optimizer:
             raise later_slice("lr_scheduler", lr_scheduler)
         if clip_global_norm is not None:
             raise later_slice("clip_global_norm", clip_global_norm)
+        self.lr_scheduler = None
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
+        self._index_update_count = {}
         self.idx2name = dict(param_idx2name or {})
         self.sym_attrs = sym.attr_dict() if sym is not None else {}
         self.lr_mult = {}
@@ -76,6 +83,43 @@ class Optimizer:
             if "__wd_mult__" in attrs:
                 self.wd_mult[name] = float(attrs["__wd_mult__"])
         self.wd_mult.update(args_wd_mult)
+
+    # -- update counting and per-parameter lr/wd (split path) -------------
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _get_lr(self, index):
+        lr = self.lr
+        if index in self.lr_mult:
+            return lr * self.lr_mult[index]
+        return lr * self.lr_mult.get(self.idx2name.get(index), 1.0)
+
+    def _get_wd(self, index):
+        wd = self.wd
+        if index in self.wd_mult:
+            return wd * self.wd_mult[index]
+        return wd * self.wd_mult.get(self.idx2name.get(index), 1.0)
+
+    def create_state(self, index, weight):
+        """The split path's state for NDArray ``weight``: the fused state
+        over its tensor."""
+        return self.init_fused_state(weight._data)
+
+    def update(self, index, weight, grad, state):
+        """One split-path step on NDArrays: ``weight`` is rebound; returns
+        the new state."""
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        with torch.no_grad():
+            new_w, new_state = self.fused_update(
+                weight._data, grad._data, state, lr, wd,
+                self._index_update_count[index], None)
+        weight._set_data(new_w)
+        return new_state
 
     # -- fused form -------------------------------------------------------
     # ``grad`` is the raw (pre-rescale) gradient; lr/wd already carry the
@@ -134,3 +178,22 @@ class SGD(Optimizer):
             new_mom = self.momentum * state - lr * (g + wd * weight)
             return weight + new_mom, new_mom
         return weight - lr * (g + wd * weight), None
+
+
+class Updater:
+    """Worker-side updater closure (reference ``get_updater``/``Updater``:
+    what a KVStore calls per key)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        self.states[index] = self.optimizer.update(index, weight, grad,
+                                                   self.states[index])
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -6,19 +6,19 @@ of op applications over named variables.  Shape inference runs each op's
 ``compute`` on ``meta`` tensors (no data, no kernel: every wrapper takes
 its plain version there), and :mod:`..executor`'s ``_trace_fn`` turns the
 graph into one function that ``fused.TrainStep`` differentiates with
-torch autograd.
+torch autograd; ``bind``/``simple_bind`` return that module's
+``Executor``.
 
 JSON save/load writes the reference's checkpoint graph format
 (``nodes``/``arg_nodes``/``heads`` — ``nnvm::pass::SaveJSON``) exactly as
 the JAX package does, so a ``prefix-symbol.json`` saved by either package
-loads in the other.  ``bind``/``simple_bind``/``eval`` need the Executor,
-which comes with the Module slice.
+loads in the other.
 """
 from __future__ import annotations
 
 import json
 
-from ..base import MXNetError, later_slice
+from ..base import MXNetError
 from ..ops import registry as _registry
 from ..ops.op_names import expected_inputs
 
@@ -153,14 +153,24 @@ class Symbol:
         return [tuple(int(d) for d in o.shape) for o in outs]
 
     # -- binding --------------------------------------------------------------
-    def simple_bind(self, *args, **kwargs):
-        raise later_slice("Symbol.simple_bind", "Executor")
+    def simple_bind(self, ctx=None, grad_req="write", **kwargs):
+        """Allocate every argument, gradient and aux array from the input
+        shapes in ``kwargs`` and bind them (reference ``simple_bind``)."""
+        from ..executor import Executor
 
-    def bind(self, *args, **kwargs):
-        raise later_slice("Symbol.bind", "Executor")
+        return Executor._simple_bind(self, ctx, grad_req, kwargs)
 
-    def eval(self, *args, **kwargs):
-        raise later_slice("Symbol.eval", "Executor")
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        from ..executor import Executor
+
+        return Executor._bind(self, ctx, args, args_grad, grad_req,
+                              aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        shapes = {k: v.shape for k, v in kwargs.items()}
+        ex = self.simple_bind(ctx, grad_req="null", **shapes)
+        return ex.forward(is_train=False, **kwargs)
 
     # -- serialization ------------------------------------------------------
     def tojson(self):
@@ -309,6 +319,22 @@ def _fill_param_shapes(node, env, shapes):
         set_var(1, (nh, flat))
         if len(node.inputs) > 2:
             set_var(2, (nh,))
+    elif op in ("Convolution", "Convolution_v1"):
+        nf = int(a["num_filter"])
+        ng = int(a.get("num_group", 1))
+        kernel = tuple(int(k) for k in a["kernel"])
+        if a.get("layout") in ("NWC", "NHWC", "NDHWC"):
+            # channels-last: weight (O, *kernel, I/g), cuDNN-NHWC form
+            set_var(1, (nf,) + kernel + (data[-1] // ng,))
+        else:
+            set_var(1, (nf, data[1] // ng) + kernel)
+        if len(node.inputs) > 2:
+            set_var(2, (nf,))
+    elif op in ("BatchNorm", "BatchNorm_v1"):
+        c = data[int(a.get("axis", 1))]
+        for pos in (1, 2, 3, 4):
+            if pos < len(node.inputs):
+                set_var(pos, (c,))
     elif op == "LayerNorm":
         c = data[int(a.get("axis", -1))]
         set_var(1, (c,))
@@ -365,7 +391,8 @@ def _apply(op_name, input_syms, attrs, name=None):
 
 # the slice's ops that auto-create their parameter variables
 _PARAMETRIC_OPS = {
-    "FullyConnected", "Embedding", "LayerNorm", "SoftmaxOutput", "Softmax",
+    "FullyConnected", "Convolution", "Convolution_v1", "BatchNorm",
+    "BatchNorm_v1", "Embedding", "LayerNorm", "SoftmaxOutput", "Softmax",
     "MultiHeadAttention", "_contrib_MultiHeadAttention",
 }
 

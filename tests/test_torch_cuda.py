@@ -248,3 +248,130 @@ def test_train_step_kernels_match_reference_impl(dev, monkeypatch):
         got = updates["auto"][n]
         rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
         assert rel < 5e-2, (n, rel)
+
+
+# ---------------------------------------------------------------------------
+# ResNet slice: K5 bn_stats, K6 bn_grad_sums, and Module.fit on the card
+# ---------------------------------------------------------------------------
+#
+# K5/K6 against their plain versions: per channel, |diff| <= 3e-5 times
+# the sum of the magnitudes of the terms (fp32 sums in two orders; see
+# chip_smoke.py's BN_NOTE); a rerun gives the same bits (no atomics).
+
+BN_SHAPES = [((256, 64, 112, 112), 1, torch.bfloat16),
+             ((256, 3, 224, 224), 1, torch.bfloat16),
+             ((256, 256, 56, 56), 1, torch.bfloat16),
+             ((256, 2048, 7, 7), 1, torch.bfloat16),
+             ((256, 56, 56, 256), 3, torch.bfloat16),
+             ((256, 512, 28, 28), 1, torch.float32),
+             ((3, 5, 7, 2), 1, torch.float32),
+             ((6, 3, 5, 33), 3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,axis,dtype", BN_SHAPES)
+def test_bn_kernels_match_plain_and_rerun_bitwise(dev, shape, axis, dtype):
+    from mxnet_tpu_torch.ops import pallas_bn as BN
+
+    x = (1.5 * _randn(dev, *shape, seed=1) + 0.3).to(dtype)
+    # dy arrives from autograd possibly non-contiguous: a transposed view
+    dy = _randn(dev, *shape, seed=2).to(dtype).transpose(0, 1).contiguous() \
+        .transpose(0, 1)
+    assert not dy.is_contiguous()
+    dims = tuple(i for i in range(4) if i != axis)
+    c = shape[axis]
+    bshape = [1] * 4
+    bshape[axis] = c
+    before = dict(_cuda.launches)
+    got = BN.bn_stats(x, axis)
+    assert _cuda.launches["bn_stats"] == before["bn_stats"] + 1
+    want = BN.bn_stats_plain(x, axis)
+    xf = x.float()
+    for g, w, m in zip(got, want, (xf.abs().sum(dims), (xf * xf).sum(dims))):
+        assert g.dtype == torch.float32 and g.shape == (c,)
+        assert bool(((g - w).abs() <= 3e-5 * m).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, BN.bn_stats(x, axis)))
+    n = x.numel() // c
+    mean = want[0] / n
+    inv = torch.rsqrt((want[1] / n - mean * mean).clamp_min(0) + 2e-5)
+    got = BN.bn_grad_sums(dy, x, mean, inv, axis)
+    assert _cuda.launches["bn_grad_sums"] == before["bn_grad_sums"] + 1
+    want = BN.bn_grad_sums_plain(dy, x, mean, inv, axis)
+    dyf = dy.float()
+    xhat = (xf - mean.view(bshape)) * inv.view(bshape)
+    for g, w, m in zip(got, want, (dyf.abs().sum(dims),
+                                   (dyf * xhat).abs().sum(dims))):
+        assert bool(((g - w).abs() <= 3e-5 * m).all())
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, BN.bn_grad_sums(dy, x, mean, inv, axis)))
+
+
+def test_bn_wrappers_raise_instead_of_falling_back(dev):
+    from mxnet_tpu_torch.ops import pallas_bn as BN
+
+    x = _randn(dev, 2, 3, 4, 4)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        BN.bn_stats(x.half())
+    with pytest.raises(MXNetError, match="dtypes"):
+        BN.bn_grad_sums(x.bfloat16(), x, x[0, :, 0, 0], x[0, :, 0, 0])
+    with pytest.raises(MXNetError, match="per-channel"):
+        BN.bn_grad_sums(x, x, x[0, 0, 0], x[0, 0, 0])
+
+
+def test_batch_norm_bf16_runs_k5_and_k6_once_each(dev):
+    from mxnet_tpu_torch.ops import registry as reg
+
+    x = _randn(dev, 4, 6, 5, 5).bfloat16().requires_grad_()
+    g, b = (torch.ones(6, device=dev, dtype=torch.bfloat16,
+                       requires_grad=True) for _ in range(2))
+    mm = torch.zeros(6, device=dev, dtype=torch.bfloat16)
+    mv = torch.ones(6, device=dev, dtype=torch.bfloat16)
+    # a random cotangent: under ones, dx is 0 up to rounding
+    cot = _randn(dev, 4, 6, 5, 5, seed=3).bfloat16()
+    before = dict(_cuda.launches)
+    out, _, _ = reg.get("BatchNorm").compute(reg.FrozenAttrs(
+        {"fix_gamma": False, "__is_train__": True}), x, g, b, mm, mv)
+    out.backward(cot)
+    assert _cuda.launches["bn_stats"] == before["bn_stats"] + 1
+    assert _cuda.launches["bn_grad_sums"] == before["bn_grad_sums"] + 1
+    xc = x.detach().cpu().requires_grad_()
+    gc, bc = (t.detach().cpu().requires_grad_() for t in (g, b))
+    outc, _, _ = reg.get("BatchNorm").compute(reg.FrozenAttrs(
+        {"fix_gamma": False, "__is_train__": True}), xc, gc, bc, mm.cpu(),
+        mv.cpu())
+    outc.backward(cot.cpu())
+    for a, c in ((out, outc), (x.grad, xc.grad), (g.grad, gc.grad),
+                 (b.grad, bc.grad)):
+        _bf16_close(a.detach().cpu(), c.detach())
+
+
+def test_module_fit_tiny_resnet_on_the_card(dev):
+    """Two bf16 steps of the tiny ResNet through Module.fit on gpu(0): K5
+    and K6 once per BatchNorm node per step, finite changed parameters."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+
+    sym = resnet.resnet(units=[1, 1], num_stages=2, filter_list=[8, 32, 64],
+                        num_classes=10, image_shape=(3, 64, 64))
+    n_bn = sum(1 for n in sym._topo() if not n.is_variable
+               and n.op.name == "BatchNorm")
+    rs = np.random.RandomState(0)
+    x = rs.rand(8, 3, 64, 64).astype(np.float32)
+    y = rs.randint(0, 10, 8).astype(np.float32)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind([("data", (4, 3, 64, 64))], [("softmax_label", (4,))])
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    before_params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    _cuda.reset_launches()
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            optimizer="sgd", optimizer_params={"learning_rate": 0.1,
+                                               "momentum": 0.9},
+            compute_dtype="bfloat16")
+    assert _cuda.launches["bn_stats"] == 2 * n_bn
+    assert _cuda.launches["bn_grad_sums"] == 2 * n_bn
+    for k, v in mod.get_params()[0].items():
+        v = v.asnumpy()
+        assert np.isfinite(v).all()
+        if k != "bn_data_gamma":
+            assert not np.array_equal(v, before_params[k]), k
+    assert mod.get_params()[0]["fc1_weight"].context == mx.gpu(0)

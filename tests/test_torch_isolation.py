@@ -15,7 +15,13 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops.linear, "
             "mxnet_tpu_torch.ops.nn_ops, mxnet_tpu_torch.symbol, "
             "mxnet_tpu_torch.fused, mxnet_tpu_torch.optimizer, "
-            "mxnet_tpu_torch.executor, mxnet_tpu_torch.models; "
+            "mxnet_tpu_torch.executor, mxnet_tpu_torch.models, "
+            "mxnet_tpu_torch.context, mxnet_tpu_torch.random, "
+            "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.module, mxnet_tpu_torch.model, "
+            "mxnet_tpu_torch.callback, mxnet_tpu_torch.ops.pallas_bn, "
+            "mxnet_tpu_torch.models.resnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -102,10 +102,15 @@ def test_scopes_and_errors():
                                    "net_fullyconnected0_bias"]
     assert fc.attr_dict()["net_fullyconnected0_weight"] == {
         "__lr_mult__": "0.5"}
-    with pytest.raises(MXNetError, match="later slice"):
-        fc.simple_bind(None, x=(2, 4))
+    from mxnet_tpu_torch import context
+
+    ex = fc.simple_bind(context.cpu(), x=(2, 4))
+    assert ex.arg_dict["net_fullyconnected0_weight"].shape == (3, 4)
+    if not torch.cuda.is_available():  # the default context is the card
+        with pytest.raises(MXNetError, match=r"mx\.cpu\(\)"):
+            fc.simple_bind(None, x=(2, 4))
     with pytest.raises(MXNetError, match="not registered"):
-        tsym.load_json(json.dumps({"nodes": [{"op": "Convolution",
+        tsym.load_json(json.dumps({"nodes": [{"op": "Deconvolution",
                                               "name": "c", "inputs": []}],
                                    "arg_nodes": [], "heads": [[0, 0, 0]]}))
 
