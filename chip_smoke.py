@@ -61,7 +61,31 @@ a checkout that holds ``mxnet_tpu_torch/``):
    kernel path's mean and median error at most 1.1x the plain path's,
    and at most 1.5x per tensor wherever the bf16 update tracks the fp32
    one (plain error < 0.5).
-9. a ``{"kernels": [...]}`` line, then the last line
+9. gluon — the same ResNet-50 as Gluon's model zoo builds it
+   (``vision.resnet50_v1(classes=1000)``, 224x224, NCHW, full width,
+   Xavier(gaussian, in, 2), ``cast("bfloat16")``) trains imperatively:
+   ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` -> ``backward()``
+   -> ``Trainer("sgd", lr 0.1, momentum 0.9, multi_precision).step(256)``
+   over ``DataLoader(ArrayDataset(X, Y), batch_size=256, shuffle=True)``,
+   2 epochs of 1024 numpy-seeded images (8 steps; batch 256 where
+   ``bench.py`` trains 512, as in the resnet phase).  The loss must be
+   finite every step, every parameter and running statistic finite and
+   changed, K5 and K6 launched exactly once per BatchNorm block a step
+   (counted from the net), and ``hybridize()`` must give the imperative
+   forward's logits bit for bit (both run the same eager ops).  Then one
+   profiled step.
+10. custom-op — the rtc facility's own path, then the loss head as an
+   rtc-backed ``CustomOp``: ``CudaKernel`` runs ``o = 2x + y`` through
+   ``__call__`` and ``push`` at (16, 128) and (8192, 8192); the Gluon
+   ResNet-50 trains 4 more steps with its loss head
+   ``nd.Custom(net(x).astype("float32"), y, op_type="rtc_softmax")``
+   (both rtc softmax kernels once a step, loss finite, parameters
+   changed); ``Module.fit`` trains PR 3's ResNet-50 symbol with its
+   ``SoftmaxOutput`` replaced by ``sym.Custom(fc1, label,
+   op_type="rtc_softmax")`` at batch 64 for 2 steps; and on one batch the
+   logits' gradient through the rtc head must equal
+   ``SoftmaxCrossEntropyLoss``'s divided by N.
+11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -102,9 +126,28 @@ PARITY_BF16_NOTE = ("against the fp32 reference step on the same token "
                     "ids: mean kernel error <= mean reference error, and "
                     "every tensor's kernel error <= 1.5 x its reference "
                     "error")
+# rtc kernels against their plain versions: 2x + y and the softmax
+# backward are one or two fp32 operations a value on both sides (2x is
+# exact; -fmad=false keeps the add separate), so they must agree bit for
+# bit; the softmax forward takes expf against torch's exp and sums its
+# row in another order
+RTC_EXACT_NOTE = "bit-equal: the same fp32 operations in the same order"
+RTC_SOFTMAX_ATOL = 1e-6
+RTC_SOFTMAX_NOTE = ("atol 1e-6 on probabilities <= 1: fp32 on both sides, "
+                    "one row max and one row sum of 1000 terms each, expf "
+                    "against torch's exp")
+# custom-op: the rtc head's logit gradient (p - onehot)/N against
+# SoftmaxCrossEntropyLoss's gradient / N: both p within 1e-6 of each other
+HEAD_GRAD_ATOL = 2e-6
+HEAD_GRAD_NOTE = ("|diff| <= 2e-6 / N: the rtc softmax within 1e-6 of "
+                  "torch's, and log_softmax's gradient forms exp(log p) - "
+                  "onehot, one more rounding")
 LINEAR_SLACK = 2.0
 LINEAR_NOTE = ("|diff| <= 2 C 2^-24 (|x| |w|^T + |b|): the worst-case "
                "fp32 error of two summation orders over C terms")
+
+
+RTC_KERNELS = ("rtc_axpy", "rtc_softmax_forward", "rtc_softmax_backward")
 
 
 def log(phase, **fields):
@@ -668,6 +711,263 @@ def resnet_parity_phase(dev, sym, batch=16, image=224, kernel_sums=None):
                 kernel_vs_plain=spread(err(kern, plain))), per_tensor
 
 
+def count_batchnorms(block):
+    """The BatchNorm blocks of a Gluon block, counted from the net."""
+    from mxnet_tpu_torch.gluon import nn
+
+    n = 1 if isinstance(block, nn.BatchNorm) else 0
+    return n + sum(count_batchnorms(c) for c in block._children.values())
+
+
+def param_values(params, trainer=None):
+    """Each parameter's value as fp32 numpy: a bf16 parameter's fp32
+    master copy where ``trainer`` keeps one (``multi_precision``), since a
+    small update may not move the bf16 copy at all."""
+    master = {}
+    if trainer is not None:
+        for i, p in enumerate(trainer._params):
+            state = trainer._updater.states.get(i)
+            if isinstance(state, tuple):
+                master[p.name] = state[1]
+    return [(master[p.name].cpu().numpy() if p.name in master
+             else p.data().asnumpy()) for p in params]
+
+
+def gluon_net(ctx, image=224):
+    """``vision.resnet50_v1(classes=1000)``, Xavier(gaussian, in, 2) on
+    ``ctx``, its deferred shapes resolved by one predict-mode forward, then
+    ``cast("bfloat16")``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(**XAVIER), ctx=ctx)
+    net(mx.nd.zeros((1, 3, image, image), ctx))
+    net.cast("bfloat16")
+    return net
+
+
+def gluon_phase(dev, net, batch=256, n_images=1024, epochs=2, image=224):
+    """The tentpole loop over ``net``: returns the phase's numbers and the
+    kernel launches counted over the loop alone."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _cuda, autograd, gluon
+
+    cuda = dev.type == "cuda"
+    ctx = mx.context.context_of(dev)
+    x, y = resnet_images(n_images, image=image)
+    y = np.random.default_rng(1).integers(0, 1000, n_images).astype(
+        np.float32)
+    params = list(net.collect_params().values())
+    before = param_values(params)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            dict(SGD, multi_precision=True))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(x, y),
+                                   batch_size=batch, shuffle=True)
+    losses, marks = [], []
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    with ctx:
+        for epoch in range(epochs):
+            for xb, yb in loader:
+                with autograd.record():
+                    loss = loss_fn(net(xb.astype("bfloat16")), yb)
+                loss.backward()
+                trainer.step(batch)
+                losses.append(float(loss.mean().asscalar()))  # syncs
+                marks.append((epoch, time.perf_counter()))
+    launches = dict(_cuda.launches)
+    steps = epochs * (n_images // batch)
+    n_bn = count_batchnorms(net)
+    want = {"bn_stats": n_bn * steps, "bn_grad_sums": n_bn * steps}
+    if cuda and any(launches[k] != n for k, n in want.items()):
+        raise AssertionError("BatchNorm kernel launches %r, want %r (%d "
+                             "BatchNorm blocks x %d steps)"
+                             % ({k: launches[k] for k in want}, want, n_bn,
+                                steps))
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss: %r" % losses)
+    after = param_values(params, trainer)
+    bad = [p.name for p, a in zip(params, after) if not np.isfinite(a).all()
+           or not np.isfinite(p.data().asnumpy()).all()]
+    same = [p.name for p, a, b in zip(params, after, before)
+            if np.array_equal(a, b)]
+    if bad or same:
+        raise AssertionError("parameters not finite %r / unchanged %r"
+                             % (bad[:5], same[:5]))
+    last = [t for e, t in marks if e == epochs - 1]
+    first_end = [t for e, t in marks if e == epochs - 2][-1]
+    stats = dict(model="resnet50_v1", image="3x%dx%d" % (image, image),
+                 batch=batch, steps=steps, batchnorm_blocks=n_bn,
+                 params=sum(int(np.prod(p.shape)) for p in params),
+                 loss_first=losses[0], loss_last=losses[-1],
+                 img_per_s_epoch2=(n_images // batch) * batch
+                 / (last[-1] - first_end),
+                 step_ms_epoch2=1e3 * (last[-1] - last[0]) / (len(last) - 1),
+                 launches_per_step={k: launches[k] / steps for k in want})
+    # hybridize() against the imperative forward, in inference mode
+    xb = mx.nd.array(x[:max(1, batch // 8)], ctx).astype("bfloat16")
+    ref = net(xb).asnumpy()
+    net.hybridize()
+    hyb = net(xb).asnumpy()
+    net.hybridize(False)
+    if not np.array_equal(ref, hyb):
+        raise AssertionError("hybridize changed the logits by %.3g"
+                             % np.abs(ref - hyb).max())
+    stats["hybridize_bit_equal"] = True
+    if cuda:
+        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        xb = mx.nd.array(x[:batch], ctx).astype("bfloat16")
+        yb = mx.nd.array(y[:batch], ctx)
+
+        def one_step():
+            with autograd.record():
+                loss = loss_fn(net(xb), yb)
+            loss.backward()
+            trainer.step(batch)
+
+        one_step()
+        stats["profile"] = profiled_window(one_step, (
+            ("bn_stats", ("StatsOp",)), ("bn_grad_sums", ("GradOp",)),
+            ("cudnn_conv", ("cudnn", "conv", "xmma", "implicit", "gemm",
+                            "sm90_", "cutlass", "dgrad", "wgrad",
+                            "nchwToNhwc", "nhwcToNchw"))))
+    return stats, launches
+
+
+def custom_op_phase(dev, net, batch=256, steps=4, image=224, fit_batch=64):
+    """The rtc facility's own path and the rtc-backed loss head (see the
+    module note, phase 10).  Returns the phase's numbers and its kernel
+    launches."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _cuda, autograd, gluon
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.testing import rtc_ops
+
+    cuda = dev.type == "cuda"
+    ctx = mx.context.context_of(dev)
+    _cuda.reset_launches()
+    # 1. the facility through its user entry points: __call__ and push
+    for shape in ((16, 128), (8192, 8192)):
+        a = mx.nd.array(np.random.default_rng(2).random(shape, np.float32),
+                        ctx)
+        b = mx.nd.array(np.random.default_rng(3).random(shape, np.float32),
+                        ctx)
+        if cuda:
+            k = rtc_ops._kernel("rtc_axpy", shape)
+            (o,) = k(a, b)
+            dst = mx.nd.zeros(shape, ctx)
+            k.push([a, b], [dst])
+            outs = [o, dst]
+        else:
+            outs = [mx.nd.array(rtc_ops.axpy(a.handle, b.handle), ctx)]
+        want = 2.0 * a.handle + b.handle
+        for out in outs:
+            if not torch.equal(out.handle, want):
+                raise AssertionError("rtc_axpy %r differs from 2x + y"
+                                     % (shape,))
+        del a, b, outs, want
+    # 2. the Gluon ResNet-50 with the rtc loss head
+    x, y = resnet_images(steps * batch, seed=3, image=image)
+    y = np.random.default_rng(4).integers(0, 1000, steps * batch).astype(
+        np.float32)
+    params = list(net.collect_params().values())
+    before = param_values(params)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            dict(SGD, multi_precision=True))
+    losses = []
+    for i in range(steps):
+        xb = mx.nd.array(x[i * batch:(i + 1) * batch], ctx)
+        yb = mx.nd.array(y[i * batch:(i + 1) * batch], ctx)
+        with autograd.record():
+            p = mx.nd.Custom(net(xb.astype("bfloat16")).astype("float32"),
+                             yb, op_type="rtc_softmax")
+        p.backward()
+        trainer.step(batch)
+        pick = p.handle.detach().gather(1, yb.handle.long()[:, None])
+        losses.append(float(-torch.log(pick.clamp_min(1e-30)).mean()))
+    head = {k: _cuda.launches.get("rtc:" + k, 0)
+            for k in ("rtc_softmax_forward", "rtc_softmax_backward")}
+    if cuda and any(n != steps for n in head.values()):
+        raise AssertionError("rtc head launches %r, want %d each"
+                             % (head, steps))
+    after = param_values(params, trainer)
+    if not np.isfinite(losses).all() or not all(
+            np.isfinite(a).all() for a in after):
+        raise AssertionError("non-finite loss or parameters: %r" % losses)
+    same = [q.name for q, a, b in zip(params, after, before)
+            if np.array_equal(a, b)]
+    if same:
+        raise AssertionError("parameters unchanged: %r" % same[:5])
+    # 3. the same op inside a bound Symbol, under Module.fit (fp32: a graph
+    # with a Custom node runs on the split executor)
+    sym = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=(3, image, image))
+    fc1 = sym.get_internals()["fc1_output"]
+    head_sym = mx.sym.Custom(fc1, mx.sym.Variable("softmax_label"),
+                             op_type="rtc_softmax", name="softmax")
+    xf, yf = resnet_images(2 * fit_batch, seed=5, image=image)
+    mod = mx.mod.Module(head_sym, context=ctx)
+    mod.fit(mx.io.NDArrayIter(xf, yf, batch_size=fit_batch), num_epoch=1,
+            optimizer="sgd", optimizer_params=SGD,
+            initializer=mx.init.Xavier(**XAVIER))
+    if mod._fused is not None:
+        raise AssertionError("Module fused a graph with a Custom node")
+    if not all(np.isfinite(v.asnumpy()).all()
+               for v in mod.get_params()[0].values()):
+        raise AssertionError("Module.fit with the rtc head: non-finite "
+                             "parameters")
+    del mod
+    launches = dict(_cuda.launches)
+    # 4. the logits' gradient through the rtc head against
+    # SoftmaxCrossEntropyLoss's / N, on one batch (outside the counts): at
+    # the net's logits, whose softmax may be saturated (p exactly 0 or 1,
+    # where any two implementations agree), and at the same logits
+    # standardized per row, where it is not
+    xb = mx.nd.array(x[:batch], ctx).astype("bfloat16")
+    yb = mx.nd.array(y[:batch], ctx)
+    raw = net(xb).astype("float32").asnumpy()
+    r64 = raw.astype(np.float64)
+    std = ((r64 - r64.mean(1, keepdims=True))
+           / r64.std(1, keepdims=True).clip(1e-6)).astype(np.float32)
+    head = dict(head_launches=head)
+    for case, logits in (("net_logits", raw), ("standardized", std)):
+        grads = []
+        for use_rtc in (True, False):
+            z = mx.nd.array(logits, ctx)
+            z.attach_grad()
+            with autograd.record():
+                if use_rtc:
+                    out = mx.nd.Custom(z, yb, op_type="rtc_softmax")
+                else:
+                    out = gluon.loss.SoftmaxCrossEntropyLoss()(z, yb)
+            out.backward()
+            grads.append(z.grad.asnumpy())
+        err = float(np.abs(grads[0] - grads[1] / batch).max())
+        if err > HEAD_GRAD_ATOL / batch:
+            raise AssertionError("rtc head gradient off SoftmaxCrossEntropy"
+                                 "Loss's / N by %.3g at the %s (%s)"
+                                 % (err, case, HEAD_GRAD_NOTE))
+        g = np.abs(grads[0] * batch)  # |p - onehot|
+        head[case] = dict(
+            max_abs_err=err, entries_differing=int(
+                (grads[0] != grads[1] / batch).sum()),
+            # where two softmax implementations can round apart
+            entries_unsaturated=int(((g > 1e-6) & (g < 0.5)).sum()))
+    stats = dict(steps=steps, batch=batch, loss_first=losses[0],
+                 loss_last=losses[-1],
+                 module_fit=dict(batch=fit_batch, steps=2, precision="fp32"),
+                 head_grad_tolerance=HEAD_GRAD_NOTE, **head)
+    return stats, launches
+
+
 def main():
     import torch
 
@@ -698,7 +998,7 @@ def main():
 
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = {}
-    errs = dict.fromkeys(_cuda.KERNELS, 0.0)
+    errs = dict.fromkeys(list(_cuda.KERNELS) + list(RTC_KERNELS), 0.0)
 
     def time_ms(fn, target_ms=300.0):
         """Mean CUDA-event time of ``fn`` per call, L2 flushed before
@@ -722,8 +1022,18 @@ def main():
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
+    def device_ms(fn, key, reps=20):
+        """Device time per call of the kernels whose name holds ``key``,
+        from the profiler over ``reps`` calls: the kernel alone, without
+        the host's launch path, which the CUDA-event time of a
+        launch-bound kernel includes."""
+        fn()
+        prof = profiled_window(lambda: [fn() for _ in range(reps)],
+                               ((key, (key,)),))
+        return prof["device_ms_by_group"][key] / reps
+
     def record(name, case, err, ok, tolerance, kernel, plain, library,
-               nbytes, flops, peak=FP32_FLOP_PER_S):
+               nbytes, flops, peak=FP32_FLOP_PER_S, device_key=None):
         if not ok:
             raise AssertionError("%s %s: max error %.3g outside the "
                                  "tolerance (%s)" % (name, case, err,
@@ -737,6 +1047,8 @@ def main():
                    library_ms=time_ms(library) if library else None,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if device_key:
+            row["kernel_device_ms"] = device_ms(kernel, device_key)
         log("kernel", **row)
         rows[(name, case)] = row
 
@@ -864,6 +1176,23 @@ def main():
     horizons = (32 + np.arange(256) + 1).astype(np.int32).reshape(1, 256)
     cases.append(("prefill-S1-Q256-offset32", randn(1, h, 256, d),
                   tables[:1].contiguous(), torch.from_numpy(horizons).to(dev)))
+    def gathered_sdpa(q, tab, hor):
+        """SDPA over the decode case's context already gathered into (S,
+        H, L, D) for the active slots, L = the longest slot, shorter slots
+        masked; the gather itself is not timed."""
+        if tab.shape[0] != 8:
+            return None
+        live = (hor > 0).nonzero().flatten()
+        L = int(hor.max())
+        kc, vc = (pool[tab[live].long()].reshape(len(live), -1, h, d)
+                  [:, :L].permute(0, 2, 1, 3).contiguous()
+                  for pool in (k_pool, v_pool))
+        mask = (torch.arange(L, device=dev)[None, :] < hor[live][:, None]) \
+            .reshape(len(live), 1, 1, L)
+        ql = q[live].contiguous()
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            ql, kc, vc, attn_mask=mask, scale=1.0 / d ** 0.5)
+
     for case, q, tab, hor in cases:
         got = A.paged_attention(q, k_pool, v_pool, tab, hor)
         want = A.paged_attention_plain(q, k_pool, v_pool, tab, hor)
@@ -877,7 +1206,8 @@ def main():
         record("paged_attention", case, err, err <= ATTN_ATOL, ATTN_NOTE,
                lambda: A.paged_attention(q, k_pool, v_pool, tab, hor),
                lambda: A.paged_attention_plain(q, k_pool, v_pool, tab, hor),
-               None, nbytes=nbytes, flops=4 * d * h * int(hn.sum()))
+               gathered_sdpa(q, tab, hor), nbytes=nbytes,
+               flops=4 * d * h * int(hn.sum()))
 
     # K3: every projection shape of the path at decode and prefill rows.
     # Tolerance: both sides sum C products in fp32 in different orders,
@@ -975,6 +1305,58 @@ def main():
                                ((256, 512, 28, 28), 1, torch.float32)):
         bn_case(shape, axis, dtype)
 
+    # rtc: CUDA bodies compiled at run time (testing/rtc_ops.py).  The first
+    # CudaKernel build, then the same text again from the disk cache
+    from mxnet_tpu_torch.testing import rtc_ops as R
+
+    t0 = time.perf_counter()
+    R._kernel("rtc_axpy", (16, 128))._launcher(
+        [torch.empty(16, 128, device=dev)] * 2)
+    rtc_build_s = time.perf_counter() - t0
+    saved_entries, _cuda._rtc_entries = _cuda._rtc_entries, {}
+    t0 = time.perf_counter()
+    R.CudaKernel(R.AXPY_BODY, [((16, 128), "float32")], ["x", "y", "o"],
+                 name="rtc_axpy")._launcher(
+        [torch.empty(16, 128, device=dev)] * 2)
+    rtc_cached_s = time.perf_counter() - t0
+    _cuda._rtc_entries.update(saved_entries)
+    log("rtc_build", first_build_s=rtc_build_s, cached_rebuild_s=rtc_cached_s)
+    for shape in ((16, 128), (8192, 8192)):
+        x, y = randn(*shape), randn(*shape)
+        n = x.numel()
+        got, want = R.axpy(x, y), R.axpy_plain(x, y)
+        err = (got - want).abs().max().item()
+        record("rtc_axpy", "fp32-%dx%d" % shape, err, torch.equal(got, want),
+               RTC_EXACT_NOTE, lambda: R.axpy(x, y),
+               lambda: R.axpy_plain(x, y),
+               lambda: torch.add(y, x, alpha=2.0), nbytes=12 * n,
+               flops=2 * n, device_key="rtc_axpy")
+        del x, y, got, want
+    for scale in (1.0, 1e4):
+        case = "fp32-256x1000" + ("" if scale == 1.0 else "-x1e4")
+        x = scale * randn(256, 1000)
+        label = torch.randint(0, 1000, (256,), device=dev,
+                              generator=gen).float()
+        p, p_want = R.softmax_forward(x), R.softmax_forward_plain(x)
+        err = (p - p_want).abs().max().item()
+        record("rtc_softmax_forward", case, err, err <= RTC_SOFTMAX_ATOL,
+               RTC_SOFTMAX_NOTE, lambda: R.softmax_forward(x),
+               lambda: R.softmax_forward_plain(x),
+               lambda: torch.softmax(x, 1), nbytes=8 * x.numel(),
+               flops=5 * x.numel(), device_key="rtc_softmax_forward")
+        got = R.softmax_backward(p, label)
+        want = R.softmax_backward_plain(p, label)
+        xs = x.detach().requires_grad_()
+        ce = torch.nn.functional.cross_entropy(xs, label.long())
+        record("rtc_softmax_backward", case, (got - want).abs().max().item(),
+               torch.equal(got, want), RTC_EXACT_NOTE,
+               lambda: R.softmax_backward(p, label),
+               lambda: R.softmax_backward_plain(p, label),
+               lambda: torch.autograd.grad(ce, xs, retain_graph=True),
+               nbytes=8 * x.numel() + 4 * label.numel(),
+               flops=2 * x.numel(), device_key="rtc_softmax_backward")
+        del x, xs, ce, p, p_want, got, want
+
     # -- 3. row-count invariance ------------------------------------------
     x = randn(256, 2048)
     for f in (6144, 8192, 32768):
@@ -1068,7 +1450,25 @@ def main():
         tolerance=PARITY_BN_NOTE, **par)
     torch.cuda.empty_cache()
 
-    # -- 9. summary -------------------------------------------------------
+    # -- 9. Gluon ResNet-50, imperative ------------------------------------
+    from mxnet_tpu_torch.context import context_of
+
+    net = gluon_net(context_of(dev))
+    stats, gluon_launches = gluon_phase(dev, net)
+    log("gluon", nvidia_smi=smi, launches=gluon_launches, **stats)
+    torch.cuda.empty_cache()
+    for name, n in gluon_launches.items():
+        launches[name] = launches.get(name, 0) + n
+
+    # -- 10. the rtc facility and the rtc-backed CustomOp head --------------
+    stats, custom_launches = custom_op_phase(dev, net)
+    log("custom_op", nvidia_smi=smi, launches=custom_launches, **stats)
+    del net
+    torch.cuda.empty_cache()
+    for name, n in custom_launches.items():
+        launches[name] = launches.get(name, 0) + n
+
+    # -- 11. summary ------------------------------------------------------
     if min(launches.values()) < 1:
         raise AssertionError("a kernel never ran on a main path: %r"
                              % launches)
@@ -1082,7 +1482,10 @@ def main():
                  "paged_attention": "decode-S8-Q1",
                  "mi_linear": "M8-F6144-C2048",
                  "bn_stats": "bfloat16-256x64x112x112-axis1",
-                 "bn_grad_sums": "bfloat16-256x64x112x112-axis1"}
+                 "bn_grad_sums": "bfloat16-256x64x112x112-axis1",
+                 "rtc_axpy": "fp32-8192x8192",
+                 "rtc_softmax_forward": "fp32-256x1000",
+                 "rtc_softmax_backward": "fp32-256x1000"}
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
         "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
@@ -1091,16 +1494,23 @@ def main():
         "bn_stats": "mxnet_tpu/ops/pallas_bn.py:79",
         "bn_grad_sums": "mxnet_tpu/ops/pallas_bn.py:119",
     }
+    sources = {name: ("cuda", "mxnet_tpu_torch/csrc/%s.cu" % stem)
+               for name, (stem, _, _) in _cuda.KERNELS.items()}
+    for name in RTC_KERNELS:
+        sources[name] = ("cuda-rtc", "mxnet_tpu_torch/testing/rtc_ops.py")
+        replaces[name] = "mxnet_tpu/rtc.py:54"
     kernels = []
-    for name, (stem, _, _) in _cuda.KERNELS.items():
+    for name, (route, source) in sources.items():
         row = rows[(name, main_case[name])]
+        count = launches[name] if route == "cuda" else \
+            launches["rtc:" + name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/%s.cu" % stem,
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": route, "source": source,
+            "replaces": replaces[name], "launches": count,
             "max_abs_err": errs[name], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "kernel_device_ms": row.get("kernel_device_ms"),
             "shape": main_case[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,15 @@ PyTorch.  Entry points run on the card unless the caller passes
 * the MXNet training surface — ``Context``, ``NDArray``, ``Executor``
   (``Symbol.bind``/``simple_bind``), ``io``, ``metric``, ``initializer``
   and :class:`.module.Module`, whose ``fit`` trains ResNet
-  (``models.resnet``) through the fused step.
+  (``models.resnet``) through the fused step;
+* imperative training — :mod:`.autograd` over torch autograd, and
+  :mod:`.gluon` (blocks, layers, losses, ``Trainer``, ``data``, the
+  model zoo's ResNets); :mod:`.operator` (``CustomOp``) and :mod:`.rtc`
+  (CUDA kernel bodies compiled at run time).
 """
-from . import (callback, context, executor, fused, initializer, io, metric,
-               model, models, module, ndarray, optimizer, random, serve,
-               symbol)
+from . import (autograd, callback, context, executor, fused, gluon,
+               initializer, io, metric, model, models, module, ndarray,
+               operator, optimizer, random, rtc, serve, symbol)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, tpu
 from .model import load_checkpoint, save_checkpoint
@@ -28,8 +32,9 @@ mod = module
 nd = ndarray
 sym = symbol
 
-__all__ = ["Context", "MXNetError", "Module", "NDArray", "callback",
-           "context", "cpu", "current_context", "executor", "fused", "gpu",
-           "init", "initializer", "io", "load_checkpoint", "metric", "mod",
-           "model", "models", "module", "nd", "ndarray", "optimizer",
-           "random", "save_checkpoint", "serve", "sym", "symbol", "tpu"]
+__all__ = ["Context", "MXNetError", "Module", "NDArray", "autograd",
+           "callback", "context", "cpu", "current_context", "executor",
+           "fused", "gluon", "gpu", "init", "initializer", "io",
+           "load_checkpoint", "metric", "mod", "model", "models", "module",
+           "nd", "ndarray", "operator", "optimizer", "random", "rtc",
+           "save_checkpoint", "serve", "sym", "symbol", "tpu"]

@@ -14,6 +14,12 @@ stream), allocates nothing, and returns ``cudaGetLastError()``;
 Python wrappers in ``ops/`` check device, dtype, shape and contiguity,
 allocate the outputs, and add one to :data:`launches` per kernel launch
 — the count that shows a run really went through the kernels.
+
+:func:`build_source` is the same build for a source text handed over at
+run time (``rtc.CudaKernel``): one library per text, in
+``build/mxnet_tpu_torch/rtc/<sha256 of text and flags>/``, reused by
+later calls and later processes; its launches count under
+``"rtc:<kernel name>"``.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import time
 from .base import MXNetError
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "launch",
-           "build_seconds", "stream_of"]
+           "build_seconds", "build_source", "stream_of"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -70,6 +76,7 @@ launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _entries = {}
 build_seconds = None  # wall time of the build in this process (0: cached)
+_rtc_entries = {}     # digest -> (C entry, error-text entry)
 
 
 def reset_launches():
@@ -144,6 +151,42 @@ def build():
             _entries[name] = (fn, err)
         build_seconds = time.perf_counter() - t0 if todo else 0.0
         return out_dir
+
+
+def build_source(text, entry, argtypes):
+    """Compile the CUDA source ``text`` (or reuse its library from an
+    earlier call or process) and return its C function ``entry`` with
+    ``argtypes`` bound, returning int.  A compile error raises
+    :class:`MXNetError` carrying nvcc's output."""
+    digest = hashlib.sha256(
+        (" ".join(NVCC_FLAGS) + "\0" + text).encode()).hexdigest()
+    with _lock:
+        if digest not in _rtc_entries:
+            out_dir = os.path.join(BUILD_ROOT, "rtc", digest[:32])
+            lib_path = os.path.join(out_dir, "librtc.so")
+            if not os.path.exists(lib_path):
+                os.makedirs(out_dir, exist_ok=True)
+                src = os.path.join(out_dir, "kernel.%d.cu" % os.getpid())
+                with open(src, "w") as f:
+                    f.write(text)
+                tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                if proc.returncode:
+                    raise MXNetError("rtc: nvcc rc %d compiling %s:\n%s"
+                                     % (proc.returncode, entry, proc.stdout))
+                os.replace(tmp, lib_path)
+                os.replace(src, os.path.join(out_dir, "kernel.cu"))
+            lib = ctypes.CDLL(lib_path)
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            err = lib.mxt_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _rtc_entries[digest] = (fn, err)
+        return _rtc_entries[digest]
 
 
 def stream_of(tensor):

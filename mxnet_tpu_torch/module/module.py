@@ -279,6 +279,9 @@ class Module(BaseModule):
         if not self._optimizer.supports_fused:
             return "optimizer %s has no fused form" \
                 % type(self._optimizer).__name__
+        if any(not n.is_variable and n.op.name == "Custom"
+               for n in self._symbol._topo()):
+            return "Custom ops run on the split executor"
         req = self._grad_req
         ok = req == "write" if isinstance(req, str) else all(
             v == "write" or (k in self._fixed_param_names and v == "null")

@@ -6,14 +6,17 @@ the JAX package, an NDArray holds one tensor and *rebinds* it on
 mutation (``_set_data`` bumps ``_version``) instead of writing in place,
 so a tensor handed to a step or an executor is never changed under it.
 Every operator call goes through :func:`imperative_invoke`, which runs
-the op's compute eagerly without recording gradients and threads
-``mutable_inputs`` (BatchNorm's moving stats) back into their NDArrays.
+the op's compute eagerly — under torch's grad mode inside
+``autograd.record()``, without it outside (:mod:`..autograd`) — and
+threads ``mutable_inputs`` (BatchNorm's moving stats) back into their
+NDArrays, detached.
 
 ``save``/``load`` use the JAX package's ``.npz`` container with the same
 keys, so a file written by either package loads in the other.  bf16
 arrays come back from ``asnumpy`` as float32 (numpy has no bfloat16).
-The autograd tape (``attach_grad``/``backward``) comes with a later
-slice.
+``attach_grad``/``grad``/``backward`` are the reference's imperative
+autograd surface; a marked array's tensor is a ``requires_grad`` leaf,
+and rebinding keeps it one.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import os
 
 import numpy as _np
 
-from ..base import MXNetError, later_slice
+from ..base import MXNetError
 from ..context import Context, context_of, current_context
 from .. import random as _random
 from ..ops import registry as _registry
@@ -44,6 +47,17 @@ def torch_dtype(dtype):
         return getattr(torch, _np.dtype(name).name)
     except (AttributeError, TypeError):
         raise MXNetError("unsupported dtype %r" % (dtype,)) from None
+
+
+def dtype_name(dtype):
+    """The name of a numpy dtype, a dtype name or a torch dtype."""
+    import torch
+
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    if isinstance(dtype, str):
+        return dtype
+    return _np.dtype(dtype).name
 
 
 def _host(value, dtype=None):
@@ -72,12 +86,15 @@ class NDArray:
     ``copyto``/``as_in_context``, ``astype``, ``reshape`` and every
     registered op as a method."""
 
-    __slots__ = ("_data", "_ctx", "_version", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_version", "_grad", "_grad_req",
+                 "__weakref__")
 
     def __init__(self, data, ctx=None):
         self._data = data
         self._ctx = ctx if ctx is not None else context_of(data.device)
         self._version = 0
+        self._grad = None
+        self._grad_req = None
 
     # -- basic properties ---------------------------------------------------
     @property
@@ -108,6 +125,12 @@ class NDArray:
     ctx = context
 
     @property
+    def grad(self):
+        """The gradient buffer attached by ``attach_grad`` or
+        ``autograd.mark_variables`` (None without one)."""
+        return self._grad
+
+    @property
     def handle(self):
         """The tensor (stands in for the C-ABI NDArrayHandle)."""
         return self._data
@@ -135,10 +158,11 @@ class NDArray:
         return self.asnumpy().reshape(())[()]
 
     def astype(self, dtype):
-        return NDArray(self._data.to(torch_dtype(dtype)), self._ctx)
+        return imperative_invoke("Cast", [self],
+                                 {"dtype": dtype_name(dtype)})[0]
 
     def copy(self):
-        return NDArray(self._data.clone(), self._ctx)
+        return imperative_invoke("_copy", [self], {})[0]
 
     def copyto(self, other):
         """Copy into an NDArray (rebinding it; its dtype is kept) or onto
@@ -159,10 +183,17 @@ class NDArray:
         return self.copyto(ctx)
 
     def detach(self):
+        """The same values outside any graph: gradients stop here."""
         return NDArray(self._data.detach(), self._ctx)
 
     # -- mutation (engine write semantics: rebind, never write in place) --
     def _set_data(self, data):
+        """Rebind to ``data``, detached: a write never joins the autograd
+        graph.  A marked variable's new tensor is a ``requires_grad`` leaf
+        again, so the next recording differentiates against it."""
+        data = data.detach()
+        if self._grad_req in ("write", "add") and data.is_floating_point():
+            data.requires_grad_(True)
         self._data = data
         self._version += 1
 
@@ -172,21 +203,30 @@ class NDArray:
         if isinstance(value, NDArray):
             value = value._data
         if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(_np.ascontiguousarray(
-                _np.asarray(value)))
+            arr = _np.ascontiguousarray(value)
+            if not arr.flags.writeable:  # torch.from_numpy wants writable
+                arr = arr.copy()
+            value = torch.from_numpy(arr)
         value = value.detach().to(device=self._data.device,
                                   dtype=self._data.dtype)
         if key is Ellipsis or key == slice(None):
             self._set_data(value.expand(self.shape).clone())
             return
-        new = self._data.clone()
-        new[key] = value
+        with torch.no_grad():
+            new = self._data.clone()
+            new[key] = value
         self._set_data(new)
 
     def __getitem__(self, key):
+        """Indexing; inside ``autograd.record()`` it is differentiable."""
+        from .. import autograd
+
         if isinstance(key, NDArray):
-            key = key._data
-        return NDArray(self._data[key], self._ctx)
+            key = key._data.detach()
+        if autograd.is_recording():
+            with autograd.grad_mode():
+                return NDArray(autograd._track(self)[key], self._ctx)
+        return NDArray(self._data.detach()[key], self._ctx)
 
     def reshape(self, shape, **kwargs):
         if isinstance(shape, int):
@@ -198,10 +238,23 @@ class NDArray:
         return imperative_invoke("Flatten", [self], {})[0]
 
     def attach_grad(self, grad_req="write"):
-        raise later_slice("NDArray.attach_grad", grad_req)
+        """Allocate a zero gradient buffer and mark this array for autograd
+        (reference ``NDArray.attach_grad``)."""
+        import torch
+
+        from .. import autograd
+
+        grad = NDArray(torch.zeros_like(self._data.detach()), self._ctx)
+        autograd.mark_variables([self], [grad], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        raise later_slice("NDArray.backward", "autograd")
+        """Gradients of this array into the marked variables' buffers
+        (reference ``NDArray.backward``)."""
+        from .. import autograd
+
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph=retain_graph,
+                          train_mode=train_mode)
 
     def __getattr__(self, name):
         # any registered op is a method with self as first input (the
@@ -263,6 +316,10 @@ class NDArray:
     def __rtruediv__(self, o): return self._binary(o, "elemwise_div", "_rdiv_scalar", rop=True)
     def __pow__(self, o): return self._binary(o, "elemwise_power", "_power_scalar")
     def __neg__(self): return imperative_invoke("negative", [self], {})[0]
+    def __gt__(self, o): return self._binary(o, "elemwise_greater", "_greater_scalar")
+    def __ge__(self, o): return self._binary(o, "elemwise_greater_equal", "_greater_equal_scalar")
+    def __lt__(self, o): return self._binary(o, "elemwise_lesser", "_lesser_scalar")
+    def __le__(self, o): return self._binary(o, "elemwise_lesser_equal", "_lesser_equal_scalar")
     __hash__ = object.__hash__
 
     def __iadd__(self, o):
@@ -289,21 +346,32 @@ class NDArray:
 def imperative_invoke(op_name, inputs, attrs, out=None):
     """Run one registered op imperatively; returns a list of output
     NDArrays.  Handles the generator for ``needs_rng`` ops, train mode
-    (off: the autograd scope comes with a later slice), the write-back
-    of ``mutable_inputs`` and ``out=`` targets."""
+    (``autograd.is_training()``), recording (inside ``autograd.record()``
+    the op runs under torch's grad mode and its inputs join the graph;
+    the mutable ones never do), the write-back of ``mutable_inputs`` and
+    ``out=`` targets, both rebound detached."""
+    from .. import autograd
+
     op = _registry.get(op_name)
     attrs = dict(attrs)
     op.validate_attrs(attrs)
     if op.uses_train_mode and "__is_train__" not in attrs:
-        attrs["__is_train__"] = False
+        attrs["__is_train__"] = autograd.is_training()
     ctx = inputs[0]._ctx if inputs and isinstance(inputs[0], NDArray) \
         else current_context()
-    tensors = [x._data if isinstance(x, NDArray) else _as_tensor(x, ctx=ctx)
-               for x in inputs]
+    recording = autograd.is_recording()
+    tensors = []
+    for i, x in enumerate(inputs):
+        if not isinstance(x, NDArray):
+            tensors.append(_as_tensor(x, ctx=ctx))
+        elif recording and i not in op.mutable_inputs:
+            tensors.append(autograd._track(x))
+        else:
+            tensors.append(x._data)
     if op.needs_rng:
         tensors = [_random.next_key(ctx)] + tensors
     frozen = _registry.FrozenAttrs(attrs)
-    results = _registry.invoke(op, tensors, frozen)
+    results = _registry.invoke(op, tensors, frozen, record=recording)
     n_out = op.count_outputs(frozen)
     for idx, new_val in zip(op.mutable_inputs, results[n_out:]):
         if isinstance(inputs[idx], NDArray):

@@ -1,11 +1,19 @@
-"""Elementwise binary and scalar operators.
+"""Elementwise unary, binary and scalar operators, and reductions.
 
-Counterpart of ``mxnet_tpu/ops/math_ops.py`` for the ops that symbol
-arithmetic (``Symbol.__add__`` and friends) and the transformer LM reach:
-the ``elemwise_*``/``broadcast_*`` binary family, the ``_*_scalar``
-family and ``negative``.  Each is one PyTorch expression; both binary
-spellings broadcast, as in the JAX package.  The rest of the module
-comes with the NDArray slice.
+Counterpart of ``mxnet_tpu/ops/math_ops.py``: the unary family, the
+``elemwise_*``/``broadcast_*`` binary family, the ``_*_scalar`` family,
+``BlockGrad``/``Cast``/``_copy``, and ``sum``/``mean``/``max``/``min``
+with ``axis``, ``keepdims`` and ``exclude``.  Each is one
+PyTorch expression; both binary spellings broadcast, as in the JAX
+package.  Where JAX's gradient at a tie or a kink differs from a torch
+built-in's, the op is written so that torch's gradient is JAX's:
+``maximum``/``minimum`` (and their scalar forms, and ``relu``) go
+through ``torch.maximum``/``torch.minimum``, which split a tie's
+gradient in halves as ``jnp.maximum`` does (``torch.clamp`` would give
+it all to the input); ``abs`` is a select whose gradient at 0 is 1, as
+``jnp.abs``'s is (``torch.abs``'s is 0); ``max``/``min`` reduce with
+``amax``/``amin``, which share a tied maximum's gradient evenly as
+``jnp.max`` does.
 """
 from __future__ import annotations
 
@@ -13,12 +21,78 @@ import torch
 
 from .registry import register
 
-register("negative", lambda attrs, x: torch.neg(x))
+
+def _scalar(x, s):
+    """A Python scalar as a 0-d tensor of ``x``'s dtype (JAX's weak
+    typing)."""
+    return torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3)
+
+
+_UNARY = {
+    "abs": lambda x: torch.where(x >= 0, x, -x),
+    "ceil": torch.ceil, "floor": torch.floor,
+    "rint": torch.round, "round": torch.round, "trunc": torch.trunc,
+    "fix": torch.trunc, "exp": torch.exp, "expm1": torch.expm1,
+    "log": torch.log, "log1p": torch.log1p, "log2": torch.log2,
+    "log10": torch.log10, "sqrt": torch.sqrt, "cbrt": _cbrt,
+    "square": torch.square, "negative": torch.neg, "sign": torch.sign,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh,
+    "arctanh": torch.atanh, "degrees": torch.rad2deg,
+    "radians": torch.deg2rad,
+    "gamma": lambda x: torch.exp(torch.lgamma(x)),
+    "gammaln": torch.lgamma, "erf": torch.erf,
+    "erfinv": torch.erfinv, "rsqrt": torch.rsqrt,
+    "rcbrt": lambda x: 1.0 / _cbrt(x), "reciprocal": torch.reciprocal,
+    "relu": lambda x: torch.maximum(x, x.new_zeros(())),
+    "sigmoid": torch.sigmoid,
+    "softsign": torch.nn.functional.softsign,
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+}
+
+for _name, _fn in _UNARY.items():
+    register(_name, (lambda fn: lambda attrs, x: fn(x))(_fn))
+
+
+@register("_copy", aliases=("identity",))
+def _copy(attrs, x):
+    return x.clone()
+
+
+@register("BlockGrad", aliases=("stop_gradient", "block_grad"))
+def _block_grad(attrs, x):
+    """Reference ``BlockGrad``: identity forward, no gradient."""
+    return x.detach()
+
+
+@register("Cast", aliases=("cast",))
+def _cast(attrs, x):
+    from ..ndarray.ndarray import torch_dtype
+
+    return x.to(torch_dtype(attrs["dtype"]))
+
+
+def _logic(fn):
+    return lambda a, b: fn(a, b).to(torch.result_type(a, b))
+
 
 _BINARY = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul,
     "div": torch.div, "power": torch.pow,
     "maximum": torch.maximum, "minimum": torch.minimum,
+    "mod": torch.remainder, "hypot": torch.hypot, "arctan2": torch.atan2,
+    "equal": _logic(torch.eq), "not_equal": _logic(torch.ne),
+    "greater": _logic(torch.gt), "greater_equal": _logic(torch.ge),
+    "lesser": _logic(torch.lt), "lesser_equal": _logic(torch.le),
+    "logical_and": _logic(lambda a, b: (a != 0) & (b != 0)),
+    "logical_or": _logic(lambda a, b: (a != 0) | (b != 0)),
+    "logical_xor": _logic(lambda a, b: (a != 0) ^ (b != 0)),
 }
 
 for _name, _fn in _BINARY.items():
@@ -48,8 +122,8 @@ _SCALAR = {
     "_rmod_scalar": lambda x, s: torch.remainder(torch.full_like(x, s), x),
     "_power_scalar": lambda x, s: torch.pow(x, s),
     "_rpower_scalar": lambda x, s: torch.pow(s, x),
-    "_maximum_scalar": lambda x, s: torch.clamp_min(x, s),
-    "_minimum_scalar": lambda x, s: torch.clamp_max(x, s),
+    "_maximum_scalar": lambda x, s: torch.maximum(x, _scalar(x, s)),
+    "_minimum_scalar": lambda x, s: torch.minimum(x, _scalar(x, s)),
     "_hypot_scalar": lambda x, s: torch.hypot(x, torch.full_like(x, s)),
     "_equal_scalar": _cmp(torch.eq),
     "_not_equal_scalar": _cmp(torch.ne),
@@ -62,3 +136,43 @@ _SCALAR = {
 for _name, _fn in _SCALAR.items():
     register(_name, (lambda fn: lambda attrs, x: fn(
         x, float(attrs["scalar"])))(_fn))
+
+
+# ---------------------------------------------------------------------------
+# reductions (reference broadcast_reduce_op_value.cc)
+# ---------------------------------------------------------------------------
+
+def _norm_axis(axis, ndim, exclude=False):
+    """The reduced axes as a tuple (None: all of them)."""
+    if axis is None:
+        return None
+    if isinstance(axis, int):
+        axis = (axis,)
+    axis = tuple(int(a) % ndim for a in axis)
+    if exclude:
+        axis = tuple(a for a in range(ndim) if a not in axis)
+    return axis
+
+
+def _reduce(fn):
+    def compute(attrs, x):
+        axis = _norm_axis(attrs.get("axis"), x.dim(),
+                          bool(attrs.get("exclude", False)))
+        keepdims = bool(attrs.get("keepdims", False))
+        if axis == ():
+            return x  # an empty axis list reduces nothing, as in JAX
+        if axis is None:
+            axis = tuple(range(x.dim()))
+        return fn(x, axis, keepdims)
+    return compute
+
+
+_REDUCE = {
+    "sum": lambda x, a, k: torch.sum(x, dim=a, keepdim=k),
+    "mean": lambda x, a, k: torch.mean(x, dim=a, keepdim=k),
+    "max": lambda x, a, k: torch.amax(x, dim=a, keepdim=k),
+    "min": lambda x, a, k: torch.amin(x, dim=a, keepdim=k),
+}
+
+for _name, _fn in _REDUCE.items():
+    register(_name, _reduce(_fn), aliases=("%s_axis" % _name,))

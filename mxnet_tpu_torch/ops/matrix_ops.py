@@ -1,9 +1,9 @@
-"""Shape and indexing operators: ``Reshape``, ``Flatten`` and
-``Embedding``.
+"""Shape and indexing operators: ``Reshape``, ``Flatten``,
+``Embedding``, ``Concat``, ``pick`` and ``where``.
 
 Counterpart of ``mxnet_tpu/ops/matrix_ops.py`` for the ops the
-transformer LM and ResNet reach; the rest of the module comes with a
-later slice.
+transformer LM, ResNet and the Gluon losses reach; the rest of the module
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -77,3 +77,33 @@ def _embedding(attrs, data, weight):
     rows = torch.nn.functional.embedding(safe, weight)
     return torch.where(valid[..., None], rows,
                        torch.full_like(rows, float("nan")))
+
+
+@register("Concat", aliases=("concat", "concatenate"))
+def _concat(attrs, *xs):
+    """Join along ``dim`` (default 1)."""
+    return torch.cat(xs, dim=int(attrs.get("dim", 1)))
+
+
+@register("pick", aliases=("choose_element_0index",))
+def _pick(attrs, x, index):
+    """``x``'s entry at ``index`` along ``axis`` (default 1; None means
+    the last).  Indices truncate toward zero and clip into range, as the
+    JAX package's ``take_along_axis`` does; the gradient lands on the
+    picked entries only."""
+    axis = attrs.get("axis", 1)
+    axis = x.dim() - 1 if axis is None else int(axis) % x.dim()
+    idx = index.to(torch.int64).clamp(0, x.shape[axis] - 1)
+    picked = torch.gather(x, axis, idx.unsqueeze(axis))
+    if bool(attrs.get("keepdims", False)):
+        return picked
+    return picked.squeeze(axis)
+
+
+@register("where")
+def _where(attrs, cond, a, b):
+    """``a`` where ``cond`` is non-zero, else ``b``; a condition of lower
+    rank selects whole rows (the reference's ``where``)."""
+    if cond.dim() < a.dim():
+        cond = cond.reshape(tuple(cond.shape) + (1,) * (a.dim() - cond.dim()))
+    return torch.where(cond != 0, a, b)

@@ -1,9 +1,10 @@
 """Neural-network layer operators of the transformer LM and ResNet.
 
 Counterpart of ``mxnet_tpu/ops/nn_ops.py`` for ``FullyConnected``,
-``Convolution``, ``Pooling``, ``Activation``, ``BatchNorm``,
-``LayerNorm``, ``SoftmaxOutput`` and ``MultiHeadAttention``; the other
-layers (deconvolution, dropout, ...) come with later slices.
+``Convolution``, ``Deconvolution``, ``Pooling``, ``Activation``,
+``LeakyReLU``, ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``,
+``softmax``/``log_softmax``, ``Dropout``, ``SoftmaxOutput`` and
+``MultiHeadAttention``; the other layers come with later slices.
 
 * Projections are plain matmuls (cuBLAS on the card), as the JAX package
   leaves them to XLA; the bias is added after the product, in the
@@ -89,6 +90,26 @@ def _convolution(attrs, data, weight, *bias):
     return _to_channels_last(out) if ch_last else out
 
 
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution")
+def _deconvolution(attrs, data, weight, *bias):
+    """Reference ``src/operator/deconvolution-inl.h``: the transposed
+    convolution, weight (I, O/g, *kernel), output ``(H-1)·stride - 2·pad +
+    kernel + adj`` (the JAX package ignores ``dilate`` here too)."""
+    kernel = _pair(attrs["kernel"], len(attrs["kernel"]))
+    nd = len(kernel)
+    out = _DECONV[nd](data, weight, stride=_pair(attrs.get("stride"), nd),
+                      padding=_pair(attrs.get("pad", (0,) * nd), nd),
+                      output_padding=_pair(attrs.get("adj", (0,) * nd), nd),
+                      groups=int(attrs.get("num_group", 1)))
+    if bias:
+        out = out + bias[0].reshape((1, -1) + (1,) * nd)
+    return out
+
+
 def _window_sum(x, kernel, stride):
     """Sum of each (unpadded) window of the channels-first ``x``."""
     nd = len(kernel)
@@ -172,6 +193,76 @@ def _activation(attrs, x):
     if act not in _ACTIVATIONS:
         raise MXNetError("unknown act_type %r" % act)
     return _ACTIVATIONS[act](x)
+
+
+@register("LeakyReLU", needs_rng=True, uses_train_mode=True)
+def _leaky_relu(attrs, rng, x, *gamma):
+    """Reference ``src/operator/leaky_relu-inl.h``: leaky, elu, prelu and
+    rrelu (a random slope per element in training, the mean slope
+    otherwise)."""
+    act = attrs.get("act_type", "leaky")
+    slope = float(attrs.get("slope", 0.25))
+    pos = x > 0
+    if act == "leaky":
+        return torch.where(pos, x, slope * x)
+    if act == "elu":
+        return torch.where(pos, x, slope * torch.expm1(x))
+    if act == "prelu":
+        g = gamma[0].reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(pos, x, g * x)
+    if act == "rrelu":
+        lo = float(attrs.get("lower_bound", 0.125))
+        hi = float(attrs.get("upper_bound", 0.334))
+        if attrs.get("__is_train__", False):
+            s = torch.rand(x.shape, generator=rng, device=x.device,
+                           dtype=x.dtype) * (hi - lo) + lo
+            return torch.where(pos, x, s * x)
+        return torch.where(pos, x, ((lo + hi) / 2) * x)
+    raise MXNetError("unknown LeakyReLU act_type %r" % act)
+
+
+def _temperature(attrs, x):
+    t = float(attrs.get("temperature") or 1.0)
+    return x if t == 1.0 else x / t
+
+
+@register("softmax")
+def _softmax(attrs, x):
+    return torch.softmax(_temperature(attrs, x), dim=int(attrs.get("axis",
+                                                                   -1)))
+
+
+@register("log_softmax")
+def _log_softmax(attrs, x):
+    return torch.log_softmax(_temperature(attrs, x),
+                             dim=int(attrs.get("axis", -1)))
+
+
+@register("Dropout", needs_rng=True, uses_train_mode=True)
+def _dropout(attrs, rng, x):
+    """Reference ``src/operator/dropout-inl.h``: inverted dropout, scaled
+    in training, the identity otherwise.  The mask is drawn from the
+    ``torch.Generator`` the invoke layer hands over (one per call, from
+    ``mx.random``'s seed)."""
+    p = float(attrs.get("p", 0.5))
+    is_train = bool(attrs.get("__is_train__", False))
+    if p <= 0 or (not is_train and attrs.get("mode", "training") != "always"):
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+@register("InstanceNorm")
+def _instance_norm(attrs, data, gamma, beta):
+    """Normalize each (sample, channel) over its spatial axes."""
+    eps = float(attrs.get("eps", 1e-3))
+    axes = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=axes, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape))
 
 
 @register("LayerNorm")

@@ -104,8 +104,8 @@ def expected_inputs(op_name, attrs):
         names = ["data"]
     if op_name == "RNN" and attrs.get("mode", "lstm") != "lstm":
         names = [n for n in names if n != "state_cell"]
-    if op_name == "Custom":
-        from ..base import later_slice
+    if op_name == "Custom" and "op_type" in attrs:
+        from ..operator import _make_prop
 
-        raise later_slice("op", "Custom")
+        names = list(_make_prop(attrs).list_arguments())
     return tuple(names), tuple(aux)

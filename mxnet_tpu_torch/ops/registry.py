@@ -16,9 +16,9 @@ Counterpart of ``mxnet_tpu/ops/registry.py``, with the same contract:
   ``torch.Generator`` as their first input.
 
 Imperative invoke (:func:`invoke`, the NDArray path) runs ``compute``
-eagerly under ``torch.no_grad()``: PyTorch has no compilation step for
-the JAX package's per-op ``jit`` cache to stand for, so ``_jitted``
-returns the eager callable.
+eagerly, under ``torch.no_grad()`` unless the caller records for
+autograd: PyTorch has no compilation step for the JAX package's per-op
+``jit`` cache to stand for, so ``_jitted`` returns the eager callable.
 """
 from __future__ import annotations
 
@@ -115,13 +115,14 @@ class OpDef:
             return self.num_outputs(attrs)
         return self.num_outputs
 
-    def _jitted(self, frozen_attrs):
-        """``fn(*inputs) -> tuple`` running ``compute`` eagerly without
-        recording gradients (the JAX package's jitted executable)."""
+    def _jitted(self, frozen_attrs, record=False):
+        """``fn(*inputs) -> tuple`` running ``compute`` eagerly (the JAX
+        package's jitted executable), building torch's graph only when
+        ``record``."""
         import torch
 
         def fn(*inputs):
-            with torch.no_grad():
+            with torch.enable_grad() if record else torch.no_grad():
                 out = self.compute(frozen_attrs, *inputs)
             return out if isinstance(out, tuple) else (out,)
 
@@ -165,11 +166,12 @@ def list_ops():
     return sorted(_OP_REGISTRY)
 
 
-def invoke(op, inputs, attrs):
+def invoke(op, inputs, attrs, record=False):
     """Run an op's compute on raw tensors (a ``torch.Generator`` already
-    prepended when the op declares ``needs_rng``).  Returns a tuple:
+    prepended when the op declares ``needs_rng``), recording torch's
+    graph when ``record``.  Returns a tuple:
     ``(*outputs, *updated_mutable_values)``."""
     if not isinstance(op, OpDef):
         op = get(op)
     frozen = attrs if isinstance(attrs, FrozenAttrs) else FrozenAttrs(attrs)
-    return op._jitted(frozen)(*inputs)
+    return op._jitted(frozen, record)(*inputs)

@@ -107,7 +107,8 @@ class Optimizer:
     def create_state(self, index, weight):
         """The split path's state for NDArray ``weight``: the fused state
         over its tensor."""
-        return self.init_fused_state(weight._data)
+        with torch.no_grad():
+            return self.init_fused_state(weight._data.detach())
 
     def update(self, index, weight, grad, state):
         """One split-path step on NDArrays: ``weight`` is rebound; returns

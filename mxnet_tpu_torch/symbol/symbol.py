@@ -350,6 +350,17 @@ def _fill_param_shapes(node, env, shapes):
         set_var(2, (3 * c,))
         set_var(3, (c, c))
         set_var(4, (c,))
+    elif op == "Custom":
+        # the prop's infer_shape derives the other inputs' shapes from the
+        # data's (reference python/mxnet/operator.py infer_shape_entry);
+        # an empty shape is an input the prop echoed back unknown
+        from ..operator import _make_prop
+
+        prop = _make_prop(a)
+        known = [list(data)] + [[] for _ in prop.list_arguments()[1:]]
+        for pos, s in enumerate(prop.infer_shape(known)[0]):
+            if s and pos < len(node.inputs):
+                set_var(pos, s)
 
 
 def _apply(op_name, input_syms, attrs, name=None):
@@ -393,7 +404,7 @@ def _apply(op_name, input_syms, attrs, name=None):
 _PARAMETRIC_OPS = {
     "FullyConnected", "Convolution", "Convolution_v1", "BatchNorm",
     "BatchNorm_v1", "Embedding", "LayerNorm", "SoftmaxOutput", "Softmax",
-    "MultiHeadAttention", "_contrib_MultiHeadAttention",
+    "MultiHeadAttention", "_contrib_MultiHeadAttention", "Custom",
 }
 
 

@@ -10,7 +10,8 @@ Tolerance: atol 1e-5 between an attention kernel and its plain version
 (fp32, unit-normal inputs, the reductions run in other orders); for the
 projection, the worst-case bound of two fp32 summation orders; and
 bit-equality where the serving contract demands it (row-count
-invariance, decode == reference).
+invariance, decode == reference).  The rtc kernels (``rtc.CudaKernel``,
+compiled at run time) are held to the stated tolerance of each test.
 """
 import numpy as np
 import pytest
@@ -375,3 +376,143 @@ def test_module_fit_tiny_resnet_on_the_card(dev):
         if k != "bn_data_gamma":
             assert not np.array_equal(v, before_params[k]), k
     assert mod.get_params()[0]["fc1_weight"].context == mx.gpu(0)
+
+
+# -- rtc: CUDA bodies compiled at run time ------------------------------
+
+_AXPY_BODIES = {
+    torch.float32: "o[i] = 2.0f * x[i] + y[i];",
+    torch.bfloat16: "o[i] = __float2bfloat16(2.0f * __bfloat162float(x[i])"
+                    " + __bfloat162float(y[i]));",
+    torch.float16: "o[i] = __float2half(2.0f * __half2float(x[i])"
+                   " + __half2float(y[i]));",
+}
+
+
+@pytest.mark.parametrize("dtype", list(_AXPY_BODIES))
+def test_rtc_kernel_matches_plain(dev, dtype):
+    """``o = 2x + y`` compiled at run time, in each dtype of the map: fp32
+    on both sides with -fmad=false gives the same bits; bf16 and half
+    compute in fp32 and round once on both sides."""
+    from mxnet_tpu_torch import rtc
+
+    body = ("const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            "if (i < x_dims[0] * x_dims[1]) " + _AXPY_BODIES[dtype])
+    x, y = (_randn(dev, 33, 129, seed=s).to(dtype) for s in (1, 2))
+    k = rtc.CudaKernel(body, [((33, 129), dtype)], ["x", "y", "o"],
+                       name="axpy_test")
+    before = _cuda.launches.get("rtc:axpy_test", 0)
+    (out,) = k(x, y)
+    assert _cuda.launches["rtc:axpy_test"] == before + 1
+    want = (2.0 * x.float() + y.float()).to(dtype)
+    assert torch.equal(out.handle, want)
+
+
+def test_rtc_cached_build_does_not_call_nvcc(dev, monkeypatch):
+    from mxnet_tpu_torch import rtc
+
+    body = ("const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            "if (i < x_dims[0]) y[i] = x[i] + 1.0f;")
+    x = _randn(dev, 1000)
+    rtc.CudaKernel(body, [((1000,), "float32")], ["x", "y"])(x)
+
+    def no_nvcc():
+        raise AssertionError("a cached build called nvcc")
+
+    monkeypatch.setattr(_cuda, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_cuda, "_rtc_entries", {})
+    (y,) = rtc.CudaKernel(body, [((1000,), "float32")], ["x", "y"])(x)
+    assert torch.equal(y.handle, x + 1.0)
+
+
+def test_rtc_compile_error_carries_nvcc_message(dev):
+    from mxnet_tpu_torch import rtc
+
+    k = rtc.CudaKernel("this is not C++;", [((4,), "float32")], ["x", "y"],
+                       name="broken")
+    with pytest.raises(MXNetError, match="error") as err:
+        k(_randn(dev, 4))
+    assert "nvcc" in str(err.value)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e4])
+def test_rtc_softmax_kernels_match_plain(dev, scale):
+    """The softmax head's two kernels: probabilities within atol 1e-6
+    (fp32, expf against torch's exp, one row sum each), and the backward
+    bit-equal (one subtraction and one division on both sides)."""
+    from mxnet_tpu_torch.testing import rtc_ops
+
+    x = scale * _randn(dev, 37, 1000, seed=4)
+    label = torch.randint(0, 1000, (37,), device=dev).float()
+    p = rtc_ops.softmax_forward(x)
+    torch.testing.assert_close(p, rtc_ops.softmax_forward_plain(x),
+                               rtol=0, atol=1e-6)
+    assert torch.equal(rtc_ops.softmax_backward(p, label),
+                       rtc_ops.softmax_backward_plain(p, label))
+    with pytest.raises(MXNetError, match="float32"):
+        rtc_ops.softmax_forward(x.double())
+
+
+def test_gluon_bf16_step_runs_k5_k6_once_per_batchnorm(dev):
+    """One bf16 Gluon step of a tiny ResNetV1 on the card: K5 and K6 once
+    per BatchNorm block, and a CustomOp loss head through both rtc softmax
+    kernels once each."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.testing import rtc_ops  # noqa: F401  (rtc_softmax)
+
+    net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                          [8, 16, 16, 32, 32], classes=10, thumbnail=True)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    n_bn = sum(1 for k in net.collect_params().keys()
+               if k.endswith("_gamma"))
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.randn(8, 3, 16, 16).astype(np.float32), mx.gpu(0))
+    y = mx.nd.array(rs.randint(0, 10, 8).astype(np.float32), mx.gpu(0))
+    net(x)
+    net.cast("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "multi_precision": True})
+    _cuda.reset_launches()
+    with mx.autograd.record():
+        out = net(x.astype("bfloat16")).astype("float32")
+        loss = mx.nd.Custom(out, y, op_type="rtc_softmax")
+    loss.backward()
+    trainer.step(8)
+    assert _cuda.launches["bn_stats"] == n_bn
+    assert _cuda.launches["bn_grad_sums"] == n_bn
+    assert _cuda.launches["rtc:rtc_softmax_forward"] == 1
+    assert _cuda.launches["rtc:rtc_softmax_backward"] == 1
+    for p in net.collect_params().values():
+        assert bool(torch.isfinite(p.data().handle.float()).all()), p.name
+
+
+def test_gluon_dataloader_prefetch_stages_onto_the_card(dev):
+    """``DataLoader(prefetch=2)`` stages batches through pinned memory and
+    a side stream: every batch arrives on the card, equal to the host
+    data, in order; a worker error surfaces at ``next()``."""
+    import mxnet_tpu_torch as mx
+
+    X = np.arange(4000, dtype=np.float32).reshape(40, 100)
+    y = np.arange(40, dtype=np.float32)
+    loader = mx.gluon.data.DataLoader(mx.gluon.data.ArrayDataset(X, y),
+                                      batch_size=8, prefetch=2,
+                                      device=mx.gpu(0))
+    batches = list(loader)
+    assert len(batches) == 5
+    for i, (xb, yb) in enumerate(batches):
+        assert xb.handle.is_cuda and xb.context == mx.gpu(0)
+        np.testing.assert_array_equal(xb.asnumpy(), X[8 * i:8 * i + 8])
+        np.testing.assert_array_equal(yb.asnumpy(), y[8 * i:8 * i + 8])
+
+    class Bad(mx.gluon.data.Dataset):
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i):
+            raise ValueError("bad sample %d" % i)
+
+    with pytest.raises(ValueError, match="bad sample"):
+        list(mx.gluon.data.DataLoader(Bad(), batch_size=2, prefetch=1,
+                                      device=mx.gpu(0)))

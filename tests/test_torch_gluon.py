@@ -1,0 +1,279 @@
+"""The port's Gluon surface against the JAX package's, on the CPU.
+
+The same numpy inputs go through both packages:
+
+* the seven losses, plain and weighted, and their gradients (fp32, rtol
+  1e-5);
+* deferred initialization, ``save_params``/``load_params`` across the
+  packages both ways, ``DataLoader`` order with ``shuffle=True``, and
+  the model zoo's blocks (the same parameters with the same shapes);
+
+and on the port alone: ``hybridize()`` against the imperative forward
+(bit-equal: the same eager ops), the prefetching ``DataLoader``, the
+entry points' default context, the parts that wait for a later slice,
+and a ``cast("bfloat16")`` + ``multi_precision`` ResNet step held against
+the fp32 step.  The layers are in ``test_torch_gluon_layers.py``, the
+ResNet training parity in ``test_torch_gluon_resnet.py``.
+"""
+import contextlib
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as tmx
+from mxnet_tpu.gluon.model_zoo import vision as jvision
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+
+RTOL = 1e-5
+
+
+def close(got, want, rtol=RTOL, scale_atol=1e-6):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(
+        got, want, rtol=rtol,
+        atol=scale_atol * max(float(np.abs(want).max(initial=0.0)), 1e-30))
+
+
+def _loss_inputs(name):
+    rs = np.random.RandomState(5)
+    pred = rs.randn(4, 6).astype("float32")
+    if name == "SoftmaxCrossEntropyLoss":
+        return pred, rs.randint(0, 6, 4).astype("float32")
+    if name == "KLDivLoss":
+        lab = rs.rand(4, 6).astype("float32")
+        return pred, lab / lab.sum(1, keepdims=True)
+    if name in ("SigmoidBinaryCrossEntropyLoss",):
+        return pred, (rs.rand(4, 6) > 0.5).astype("float32")
+    if name == "HingeLoss":
+        return pred, np.sign(rs.randn(4, 6)).astype("float32")
+    return pred, rs.randn(4, 6).astype("float32")
+
+
+LOSSES = ["L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
+          "SigmoidBinaryCrossEntropyLoss", "KLDivLoss", "HuberLoss",
+          "HingeLoss"]
+
+
+@pytest.mark.parametrize("name", LOSSES)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_losses_and_gradients(name, weighted):
+    pred, label = _loss_inputs(name)
+    sw = np.random.RandomState(7).rand(4, 1).astype("float32")
+    res = {}
+    for key, mx in (("jax", jmx), ("torch", tmx)):
+        with (tmx.cpu() if mx is tmx else contextlib.nullcontext()):
+            p = mx.nd.array(pred)
+            p.attach_grad()
+            kwargs = {"weight": 0.7} if weighted else {}
+            fn = getattr(mx.gluon.loss, name)(**kwargs)
+            with mx.autograd.record():
+                loss = fn(p, mx.nd.array(label),
+                          mx.nd.array(sw) if weighted else None)
+            loss.backward()
+            res[key] = (loss.asnumpy(), p.grad.asnumpy())
+    assert res["torch"][0].shape == (4,)
+    close(res["torch"][0], res["jax"][0])
+    close(res["torch"][1], res["jax"][1])
+
+
+def test_deferred_init_resolves_from_the_input_shape():
+    with tmx.cpu():
+        layer = tmx.gluon.nn.Dense(5)
+        layer.initialize()
+        assert layer.weight._data is None
+        with pytest.raises(tmx.gluon.parameter.DeferredInitializationError):
+            layer.weight.data()
+        out = layer(tmx.nd.ones((2, 7)))
+    assert out.shape == (2, 5) and layer.weight.shape == (5, 7)
+    jl = jmx.gluon.nn.Dense(5)
+    jl.initialize()
+    jl(jmx.nd.ones((2, 7)))
+    assert jl.weight.shape == layer.weight.shape
+
+
+def _mlp(mx, prefix):
+    net = mx.gluon.nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(8, activation="relu"),
+                mx.gluon.nn.BatchNorm(), mx.gluon.nn.Dense(3))
+    return net
+
+
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_save_load_params_across_packages(tmp_path, direction):
+    x = np.random.RandomState(2).randn(4, 6).astype("float32")
+    fname = str(tmp_path / "net.params")
+    jnet, tnet = _mlp(jmx, "mlp_"), _mlp(tmx, "mlp_")
+    if direction == "jax_to_torch":
+        jnet.initialize(jmx.init.Xavier())
+        jnet(jmx.nd.array(x))
+        jnet.save_params(fname)
+        with tmx.cpu():
+            tnet.load_params(fname, ctx=tmx.cpu())
+    else:
+        tnet.initialize(tmx.init.Xavier(), ctx=tmx.cpu())
+        with tmx.cpu():
+            tnet(tmx.nd.array(x))
+        tnet.save_params(fname)
+        jnet.load_params(fname)
+    assert sorted(jnet.collect_params().keys()) == \
+        sorted(tnet.collect_params().keys())
+    with tmx.cpu():
+        got = tnet(tmx.nd.array(x)).asnumpy()
+    close(got, jnet(jmx.nd.array(x)).asnumpy())
+
+
+def test_dataloader_shuffle_order_matches_jax():
+    X = np.arange(60).reshape(20, 3).astype("float32")
+    y = np.arange(20).astype("float32")
+    orders = {}
+    for key, mx in (("jax", jmx), ("torch", tmx)):
+        loader = mx.gluon.data.DataLoader(mx.gluon.data.ArrayDataset(X, y),
+                                          batch_size=6, shuffle=True, seed=4)
+        with (tmx.cpu() if mx is tmx else contextlib.nullcontext()):
+            orders[key] = [[b[1].asnumpy().tolist() for b in loader]
+                           for _ in range(2)]
+    assert orders["torch"] == orders["jax"]
+    assert orders["torch"][0] != orders["torch"][1]  # epochs reshuffle
+
+
+def test_dataloader_prefetch_stages_and_closes():
+    X = np.arange(40).reshape(10, 4).astype("float32")
+    y = np.arange(10).astype("float32")
+    loader = tmx.gluon.data.DataLoader(tmx.gluon.data.ArrayDataset(X, y),
+                                       batch_size=2, prefetch=2,
+                                       device=tmx.cpu())
+    batches = list(loader)
+    assert len(batches) == 5
+    np.testing.assert_array_equal(batches[1][0].asnumpy(), X[2:4])
+    it = iter(loader)
+    next(it)
+    thread = it._thread
+    it.close(timeout=5)
+    assert not thread.is_alive()
+    with pytest.raises(StopIteration):
+        next(it)
+
+    class Bad(tmx.gluon.data.Dataset):
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i):
+            raise ValueError("bad sample %d" % i)
+
+    with pytest.raises(ValueError, match="bad sample"):
+        list(tmx.gluon.data.DataLoader(Bad(), batch_size=2, prefetch=1,
+                                       device=tmx.cpu()))
+
+
+def test_hybridize_equals_imperative():
+    x = np.random.RandomState(1).randn(8, 6).astype("float32")
+    with tmx.cpu():
+        net = _mlp(tmx, "h_")
+        net.initialize(tmx.init.Xavier())
+        ref = net(tmx.nd.array(x)).asnumpy()
+        net.hybridize()
+        out = net(tmx.nd.array(x)).asnumpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_entry_points_default_to_the_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default context is usable")
+    net = tmx.gluon.nn.Dense(3, in_units=2)
+    with pytest.raises(MXNetError, match=r"mx\.cpu\(\)"):
+        net.initialize()
+    X = np.zeros((4, 2), "float32")
+    with pytest.raises(MXNetError, match=r"mx\.cpu\(\)"):
+        iter(tmx.gluon.data.DataLoader(tmx.gluon.data.ArrayDataset(X, X),
+                                       batch_size=2, prefetch=1))
+
+
+def test_later_slice_parts_raise():
+    with pytest.raises(MXNetError, match="later slice"):
+        tmx.gluon.Trainer([], "sgd", kvstore="dist_sync")
+    with pytest.raises(MXNetError, match="later slice"):
+        tmx.gluon.SymbolBlock(None, None)
+    with pytest.raises(MXNetError, match="later slice"):
+        tmx.gluon.nn.MoE(4)
+    with pytest.raises(MXNetError, match="pretrained"):
+        tvision.resnet18_v1(pretrained=True)
+
+
+@pytest.mark.parametrize("name", ["resnet18_v1", "resnet50_v1",
+                                  "resnet34_v2", "resnet152_v2", "vgg11_bn",
+                                  "alexnet", "squeezenet1.1", "densenet121",
+                                  "mobilenet0.25", "inceptionv3"])
+def test_model_zoo_structure_matches(name):
+    """The zoo builds the same blocks: the same parameters, in order, with
+    the same declared shapes."""
+    jp = list(jvision.get_model(name, classes=10).collect_params().values())
+    tp = list(tvision.get_model(name, classes=10).collect_params().values())
+    assert [p.shape for p in tp] == [p.shape for p in jp]
+    assert [p.grad_req for p in tp] == [p.grad_req for p in jp]
+
+
+def test_resnet50_v1_has_53_batchnorms():
+    net = tvision.resnet50_v1(classes=1000)
+    bns = [p for p in net.collect_params().keys() if p.endswith("_gamma")]
+    assert len(bns) == 53
+
+
+
+
+def test_resnet_bf16_multi_precision_tracks_fp32():
+    """``cast("bfloat16")`` casts every parameter (BatchNorm's too) and the
+    SGD step keeps fp32 master weights.  Held against the fp32 step from
+    the same state (a tiny ResNetV1, 16x16, batch 4): the bf16 update's
+    mean relative L2 error over the updated tensors stays below 0.15
+    (bf16 keeps 8 bits; measured ~0.05 here), and every parameter stays
+    bf16."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(4, 3, 16, 16).astype("float32")
+    y = rs.randint(0, 10, 4).astype("float32")
+
+    def net_and_init():
+        net = tvision.ResNetV1(tvision.BottleneckV1, [1, 1, 1, 1],
+                               [8, 16, 16, 32, 32], classes=10,
+                               thumbnail=True)
+        net.initialize(tmx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2))
+        net(tmx.nd.array(x))
+        return net
+
+    def step(net, dtype, multi_precision):
+        trainer = tmx.gluon.Trainer(
+            net.collect_params(), "sgd", {"learning_rate": 0.1,
+                                          "momentum": 0.9,
+                                          "multi_precision": multi_precision})
+        loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with tmx.autograd.record():
+            loss = loss_fn(net(tmx.nd.array(x).astype(dtype))
+                           .astype("float32"), tmx.nd.array(y))
+        loss.backward()
+        trainer.step(4)
+        return [p.data().asnumpy().astype(np.float64)
+                for p in net.collect_params().values()]
+
+    with tmx.cpu():
+        net = net_and_init()
+        init = [p.data().asnumpy().astype(np.float64)
+                for p in net.collect_params().values()]
+        ref = step(net, "float32", False)
+        net = net_and_init()
+        for p, v in zip(net.collect_params().values(), init):
+            p.set_data(v.astype(np.float32))
+        net.cast("bfloat16")
+        got = step(net, "bfloat16", True)
+    assert all(str(p.data().dtype) == "torch.bfloat16"
+               for p in net.collect_params().values())
+    errs = []
+    for g, r, i in zip(got, ref, init):
+        upd = r - i
+        if np.linalg.norm(upd) > 0:
+            errs.append(np.linalg.norm((g - i) - upd) / np.linalg.norm(upd))
+    assert len(errs) > 20 and np.mean(errs) < 0.15, np.mean(errs)

@@ -21,7 +21,11 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.metric, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.module, mxnet_tpu_torch.model, "
             "mxnet_tpu_torch.callback, mxnet_tpu_torch.ops.pallas_bn, "
-            "mxnet_tpu_torch.models.resnet; "
+            "mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.autograd, "
+            "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.operator, "
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.testing.rtc_ops, "
+            "mxnet_tpu_torch.ops.optimizer_ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
