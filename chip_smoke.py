@@ -12,14 +12,20 @@ a checkout that holds ``mxnet_tpu_torch/``):
    build of every kernel from ``mxnet_tpu_torch/csrc`` (build seconds).
 2. kernels — each hand-written kernel against its plain PyTorch version
    at the serving and training paths' shapes (BatchNorm's K5/K6 at
-   ResNet-50's at batch 256), with a stated tolerance:
+   ResNet-50's at batch 256; the bf16 tensor-core attention K7/K8 at the
+   training path's n8 h16 T1024 D128 causal and at 30 ragged and
+   head-dim cases, each rerun bit-equal and linear in g, and at the main
+   shape no less accurate than SDPA against fp64 truth), with a stated
+   tolerance:
    max error, ``kernel_ms``, ``plain_ms``, ``library_ms`` (one PyTorch
    call that computes the same function, timed as a yardstick and used
    nowhere in the port) and ``bound_ms`` (the larger of bytes over 3.35
    TB/s and operations over the peak for the inputs' type: 67 TFLOP/s
    fp32 outside the tensor cores, 989 TFLOP/s bf16 dense, from the H100
    SXM data sheet).  Timings are CUDA-event means over launches on a
-   cold L2.
+   cold L2.  Then one ``sass`` line (tensor-core instructions in each
+   kernel library, from ``cuobjdump --dump-sass``: K7 and K8 must show
+   HGMMA) and one ``ptxas`` line (registers and spills of K7/K8).
 3. invariance — rows of the exact projection (K3) and of LayerNorm at
    M = 256 are bit-identical to the same rows computed alone.
 4. serve — the transformer LM at the width of ``bench_transformer.py``'s
@@ -34,15 +40,16 @@ a checkout that holds ``mxnet_tpu_torch/``):
    ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
    batch 8; SGD lr 1e-3, momentum 0.9, rescale_grad 1/8): one warm-up
    and five timed steps.  The cross-entropy at the labels and every
-   parameter must be finite, and attention must have run through K1 and
-   K4 exactly once per layer per step.  Then one profiled step.
+   parameter must be finite, and attention must have run through K7 and
+   K8 (bf16) exactly once per layer per step.  Then one profiled step.
 6. train-parity — one step of the kernel path against one step under
    ``MXNET_ATTN_IMPL=reference`` from one state, by the per-tensor
    relative L2 error of the parameter update: fp32 at full width with 2
    layers and batch 2 (bound 1e-3), and bf16 with all 8 layers and batch
    8, where both bf16 steps are also held against the fp32 reference
    step and the kernel path must be no less accurate than the
-   reference.
+   reference.  The fp32 step runs K1/K4, the bf16 one K7/K8; launches
+   are counted over each.
 7. resnet — ResNet-50 (``models.resnet.get_symbol(num_classes=1000,
    num_layers=50, image_shape=(3, 224, 224))``, NCHW, ``bench.py``'s
    model at full width) trains through ``mx.mod.Module(sym,
@@ -90,6 +97,7 @@ a checkout that holds ``mxnet_tpu_torch/``):
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -103,11 +111,12 @@ ATTN_ATOL = 1e-5
 ATTN_NOTE = ("atol 1e-5: fp32 on both sides; the D = 128 score dots and "
              "the per-block sums run in other orders, ~100 units of "
              "roundoff at these magnitudes")
-BF16_NOTE = ("|diff| <= 2^-7 |want| + 1e-4 max|want|: both sides round an "
-             "fp32 result to bf16 once, and the fp32 values differ by "
-             "reduction order, so results may sit one bf16 step apart; the "
-             "second term covers entries that cancel toward zero in fp32")
 LSE_ATOL = 5e-5
+# K7/K8 against fp64 truth: max and mean |error| of out, dq, dk, dv each
+# at most 1.25x SDPA's, which rounds P to bf16 the same way
+SM90_FP64 = 1.25
+SM90_FP64_NOTE = ("max and mean |error| against an fp64 materialised "
+                  "attention and its gradients, each <= 1.25 x SDPA's")
 BWD_ATOL = 2e-5
 BWD_NOTE = ("atol 2e-5: fp32 on both sides, sums over up to 37 terms of "
             "order 1 in other orders")
@@ -115,8 +124,10 @@ BWD_NOTE = ("atol 2e-5: fp32 on both sides, sums over up to 37 terms of "
 PARITY_FP32 = 1e-3
 PARITY_FP32_NOTE = ("fp32 everywhere; only the attention's summation order "
                     "differs between K1/K4 and the materialized reference")
-# bf16: the kernel path keeps scores and probabilities in fp32 where the
-# materialized reference rounds both to bf16, so against the fp32 step
+# bf16: the kernel path (K7/K8) keeps scores, the softmax statistics and
+# the normalisation in fp32 and rounds only P and dS for its products,
+# where the materialized reference rounds the scores and the normalised
+# probabilities to bf16, so against the fp32 step
 # (the truth) it must be no less accurate: its mean error over tensors at
 # most the reference's, and no tensor's error above 1.5 times the
 # reference's (one step's noise on single tensors: the plain versions on
@@ -152,6 +163,109 @@ RTC_KERNELS = ("rtc_axpy", "rtc_softmax_forward", "rtc_softmax_backward")
 
 def log(phase, **fields):
     print("%s %s" % (phase, json.dumps(fields, sort_keys=True)), flush=True)
+
+
+SM90_STEMS = ("flash_attention_sm90", "flash_attention_backward_sm90")
+
+
+def kernel_sass(build_dir):
+    """Tensor-core instructions in each kernel library's SASS
+    (``cuobjdump --dump-sass``): HGMMA (wgmma) and HMMA (mma.sync) counts
+    per source.  K7 and K8 must show HGMMA."""
+    from mxnet_tpu_torch import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    counts = {}
+    for stem in sorted({stem for stem, _, _ in _cuda.KERNELS.values()}):
+        text = subprocess.run(
+            [tool, "--dump-sass", os.path.join(build_dir, "lib%s.so" % stem)],
+            capture_output=True, text=True, check=True).stdout
+        counts[stem] = {op: len(re.findall(r"\b%s\." % op, text))
+                        for op in ("HGMMA", "HMMA")}
+    missing = [stem for stem in SM90_STEMS if not counts[stem]["HGMMA"]]
+    if missing:
+        raise AssertionError("no HGMMA in the SASS of %r" % missing)
+    return counts
+
+
+def ptxas_report(build_dir, stems=SM90_STEMS):
+    """Registers and spill bytes of every kernel of ``stems``, from the
+    ``-Xptxas -v`` log the build keeps beside each library."""
+    out = {}
+    for stem in stems:
+        name = None
+        with open(os.path.join(build_dir, "lib%s.log" % stem)) as f:
+            for line in f:
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    base = re.search(r"\d(flash_(?:fwd|bwd)_[a-z0-9_]*"
+                                     r"[a-z0-9])(I(?:Li\d+E)+E)?",
+                                     m.group(1))
+                    args = re.findall(r"Li(\d+)E", base.group(2) or "")
+                    name = base.group(1) + ("<%s>" % ",".join(args)
+                                            if args else "")
+                    out[name] = {}
+                    continue
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m and name:
+                    out[name].update(spill_stores=int(m.group(1)),
+                                     spill_loads=int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sm90_invariants(A, q, k, v, out, lse, g, causal, scale, got):
+    """K8 (``got`` = its (dq, dk, dv) at ``g``) gives the same bits when run
+    again, and exactly twice its result at 2 g (no atomics; every step is
+    linear in dO and doubling is exact in fp32 and bf16)."""
+    import torch
+
+    again = A._flash_backward_cuda(q, k, v, out, lse, g, causal, scale, 128)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K8: a rerun gave other bits")
+    twice = A._flash_backward_cuda(q, k, v, out, lse, 2 * g, causal, scale,
+                                   128)
+    if not all(torch.equal(2 * a, b) for a, b in zip(got, twice)):
+        raise AssertionError("K8: the result at 2 g is not twice that at g")
+
+
+def fp64_accuracy(q, k, v, g, scale, kernel, library):
+    """Max and mean |error| of ``kernel`` and ``library`` (each (out, dq,
+    dk, dv) of causal attention over (n, h, T, D) bf16 inputs) against an
+    fp64 materialised attention and its gradients, one batch row at a
+    time; with the kernel's error over the library's."""
+    import torch
+
+    names = ("out", "dq", "dk", "dv")
+    sums = {name: [0.0, 0.0, 0.0, 0.0] for name in names}
+    t = q.shape[-2]
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    for i in range(q.shape[0]):
+        q64, k64, v64, g64 = (x[i].double() for x in (q, k, v, g))
+        p = torch.softmax((q64 @ k64.transpose(-1, -2) * scale)
+                          .masked_fill(~mask, -torch.inf), -1)
+        o = p @ v64
+        ds = p * (g64 @ v64.transpose(-1, -2)
+                  - (g64 * o).sum(-1, keepdim=True))
+        truth = (o, scale * (ds @ k64), scale * (ds.transpose(-1, -2) @ q64),
+                 p.transpose(-1, -2) @ g64)
+        for j, name in enumerate(names):
+            for side, res in ((0, kernel), (2, library)):
+                e = (res[j][i].double() - truth[j]).abs()
+                sums[name][side] = max(sums[name][side], e.max().item())
+                sums[name][side + 1] += e.sum().item()
+        del p, o, ds, truth
+    count = q.numel()
+    out = {}
+    for name, (kmax, ksum, lmax, lsum) in sums.items():
+        out[name] = dict(kernel_max=kmax, kernel_mean=ksum / count,
+                         sdpa_max=lmax, sdpa_mean=lsum / count,
+                         max_ratio=kmax / max(lmax, 1e-30),
+                         mean_ratio=ksum / max(lsum, 1e-30))
+    return out
 
 
 def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
@@ -366,7 +480,8 @@ def train_phase(dev, cfg, batch, steps=5):
     step_s = (time.perf_counter() - t0) / steps
     launches = dict(_cuda.launches)
     per_step = {k: launches[k] / (steps + 1)
-                for k in ("flash_attention", "flash_attention_backward")}
+                for k in ("flash_attention_sm90",
+                          "flash_attention_backward_sm90")}
     if any(n != cfg["num_layers"] for n in per_step.values()):
         raise AssertionError("attention kernels per step %r, want %d each"
                              % (per_step, cfg["num_layers"]))
@@ -393,11 +508,11 @@ def train_phase(dev, cfg, batch, steps=5):
                  cross_entropy=ce,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2.0 ** 30,
                  launches_per_step=per_step)
-    # one profiled step: K1, K4, cuBLAS GEMMs and the rest
+    # one profiled step: K7, K8, cuBLAS GEMMs and the rest
     stats["profile"] = profiled_window(
         lambda: step(params, aux, states, data, None),
-        (("flash_attention", ("flash_forward_kernel",)),
-         ("flash_attention_backward", ("flash_bwd_",)),
+        (("flash_attention_sm90", ("flash_fwd_sm90",)),
+         ("flash_attention_backward_sm90", ("flash_bwd_sm90",)),
          ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))))
     return stats, launches
 
@@ -439,7 +554,8 @@ def spread(rel):
 
 
 def parity_phase(dev, cfg, batch, compute_dtype):
-    """One step through K1/K4 against one under MXNET_ATTN_IMPL=reference
+    """One step through the attention kernels (K1/K4 in fp32, K7/K8 in
+    bf16) against one under MXNET_ATTN_IMPL=reference
     from the same ``init_state(seed=0)``: the per-tensor relative L2
     error of the parameter update.  In bf16 both are also held against
     the fp32 reference step on the same (bf16-exact) token ids, the
@@ -996,6 +1112,11 @@ def main():
         build_s=_cuda.build_seconds, build_dir=os.path.relpath(build_dir,
                                                                 here))
 
+    log("sass", tensor_core_instructions=kernel_sass(build_dir))
+    log("ptxas", note="registers a thread at launch (setmaxnreg then gives "
+        "the consumer warpgroups 240) and spill bytes",
+        kernels=ptxas_report(build_dir))
+
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = {}
     errs = dict.fromkeys(list(_cuda.KERNELS) + list(RTC_KERNELS), 0.0)
@@ -1086,52 +1207,106 @@ def main():
                    q, k, v, is_causal=causal, scale=scale),
                nbytes=4 * 4 * n * h * t * d, flops=4 * d * pairs)
 
-    # K1 on the training path: bf16 with the logsumexp, at the bench's
-    # shape; bf16 inputs may legally run on the tensor cores, so the bound
-    # takes the bf16 dense peak
-    def bf16_err(got, want):
-        got, want = got.float(), want.float()
-        diff = (got - want).abs()
-        bound = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
-        return diff.max().item(), bool((diff <= bound).all())
+    # K7 + K8: the bf16 tensor-core kernels of the training path, at the
+    # bench's shape, against the plain versions inside the derived bound
+    # (the plain versions keep P and dS in fp32, the kernels round them to
+    # bf16 as the TPU kernel does: testing/attention_sm90.py)
+    from mxnet_tpu_torch.testing import attention_sm90 as SM90
 
-    n, h, t, d, block = 8, 16, 1024, 128, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n, h, t, d = 8, 16, 1024, 128
     scale = 1.0 / d ** 0.5
     q, k, v, g = (randn(n, h, t, d).bfloat16() for _ in range(4))
     pairs = n * h * t * (t + 1) // 2
-    out, lse = A._flash_forward_cuda(q, k, v, True, scale, block, True)
-    want_out, want_lse = A.flash_forward_plain(q, k, v, True, scale, block)
-    err, ok = bf16_err(out, want_out)
+    out, lse = A._flash_forward_cuda(q, k, v, True, scale, 128, True)
+    want_out, want_lse = A.flash_forward_plain(q, k, v, True, scale, 128)
+    err, ratio = SM90.violation(out, want_out, SM90.forward_bound(
+        q, k, v, want_out, True, scale))
     lse_err = (lse - want_lse).abs().max().item()
-    record("flash_attention", "n8-h16-T1024-D128-causal-b128-bf16-lse",
-           max(err, lse_err), ok and lse_err <= LSE_ATOL,
-           BF16_NOTE + "; lse atol %g" % LSE_ATOL,
-           lambda: A._flash_forward_cuda(q, k, v, True, scale, block, True),
-           lambda: A.flash_forward_plain(q, k, v, True, scale, block),
-           lambda: torch.nn.functional.scaled_dot_product_attention(
-               q, k, v, is_causal=True, scale=scale),
+    record("flash_attention_sm90", "n8-h16-T1024-D128-causal-lse",
+           max(err, lse_err), ratio <= 1.0 and lse_err <= LSE_ATOL,
+           SM90.TOLERANCE_NOTE + "; lse atol %g" % LSE_ATOL,
+           lambda: A._flash_forward_cuda(q, k, v, True, scale, 128, True),
+           lambda: A.flash_forward_plain(q, k, v, True, scale, 128),
+           lambda: sdpa(q, k, v, is_causal=True, scale=scale),
            nbytes=2 * 4 * n * h * t * d + 4 * n * h * t,
            flops=4 * d * pairs, peak=BF16_FLOP_PER_S)
-
-    # K4 at the same shape, from K1's saved output and lse; the library
-    # yardstick is SDPA's backward alone
-    got = A._flash_backward_cuda(q, k, v, out, lse, g, True, scale, block)
-    want = A.flash_backward_plain(q, k, v, out, lse, g, True, scale, block)
-    checks = [bf16_err(a, b) for a, b in zip(got, want)]
+    got = A._flash_backward_cuda(q, k, v, out, lse, g, True, scale, 128)
+    want = A.flash_backward_plain(q, k, v, out, lse, g, True, scale, 128)
+    checks = [SM90.violation(a, b, c) for a, b, c in zip(
+        got, want, SM90.backward_bounds(q, k, v, out, lse, g, want, True,
+                                        scale))]
+    sm90_invariants(A, q, k, v, out, lse, g, True, scale, got)
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, scale=scale)
-    record("flash_attention_backward", "n8-h16-T1024-D128-causal-bf16",
-           max(e for e, _ in checks), all(o for _, o in checks), BF16_NOTE,
+    sdpa_out = sdpa(qs, ks, vs, is_causal=True, scale=scale)
+    record("flash_attention_backward_sm90", "n8-h16-T1024-D128-causal",
+           max(e for e, _ in checks), all(r <= 1.0 for _, r in checks),
+           SM90.TOLERANCE_NOTE + "; rerun bit-equal; K8(2g) == 2 K8(g)",
            lambda: A._flash_backward_cuda(q, k, v, out, lse, g, True, scale,
-                                          block),
+                                          128),
            lambda: A.flash_backward_plain(q, k, v, out, lse, g, True, scale,
-                                          block),
+                                          128),
            lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
                                        retain_graph=True),
            nbytes=2 * 8 * n * h * t * d + 4 * n * h * t,
            flops=10 * d * pairs, peak=BF16_FLOP_PER_S)
+    # against fp64 truth, beside SDPA (which also rounds P to bf16)
+    sdpa_grads = torch.autograd.grad(sdpa_out, (qs, ks, vs), g)
+    acc = fp64_accuracy(q, k, v, g, scale, (out,) + tuple(got),
+                        (sdpa_out.detach(),) + tuple(sdpa_grads))
+    log("sm90_accuracy", case="n8-h16-T1024-D128-causal", bound=SM90_FP64,
+        tolerance=SM90_FP64_NOTE, **acc)
+    bad = [name for name, r in acc.items()
+           if r["max_ratio"] > SM90_FP64 or r["mean_ratio"] > SM90_FP64]
+    if bad:
+        raise AssertionError("K7/K8 less accurate than SDPA against fp64 "
+                             "in %r: %r" % (bad, acc))
     del q, k, v, g, out, lse, want_out, want_lse, got, want, sdpa_out
+    del qs, ks, vs, sdpa_grads
+    torch.cuda.empty_cache()
+
+    # K7 + K8 at ragged and small shapes, every head dim class: the bound,
+    # reruns bit-equal, linearity in g
+    worst = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
+    n_cases = 0
+    for t in (5, 37, 200):
+        for d in (16, 64, 80, 128, 256):
+            for causal in (True, False):
+                scale = 1.0 / d ** 0.5
+                q, k, v, g = (randn(1, 2, t, d).bfloat16() for _ in range(4))
+                out, lse = A._flash_forward_cuda(q, k, v, causal, scale, 128,
+                                                 True)
+                wo, wl = A.flash_forward_plain(q, k, v, causal, scale, 128)
+                e, r = SM90.violation(out, wo, SM90.forward_bound(
+                    q, k, v, wo, causal, scale))
+                results = [("out", "flash_attention_sm90", e, r)]
+                got = A._flash_backward_cuda(q, k, v, wo, wl, g, causal,
+                                             scale, 128)
+                want = A.flash_backward_plain(q, k, v, wo, wl, g, causal,
+                                              scale, 128)
+                for name, a, b, c in zip(("dq", "dk", "dv"), got, want,
+                                         SM90.backward_bounds(
+                                             q, k, v, wo, wl, g, want,
+                                             causal, scale)):
+                    e, r = SM90.violation(a, b, c)
+                    results.append((name, "flash_attention_backward_sm90",
+                                    e, r))
+                sm90_invariants(A, q, k, v, wo, wl, g, causal, scale, got)
+                lse_err = (lse - wl).abs().max().item()
+                for name, kernel, e, r in results:
+                    if r > 1.0 or lse_err > LSE_ATOL:
+                        raise AssertionError(
+                            "%s T%d D%d causal=%s: %s error %.3g is %.3g x "
+                            "the bound (%s); lse error %.3g"
+                            % (kernel, t, d, causal, name, e, r,
+                               SM90.TOLERANCE_NOTE, lse_err))
+                    worst[name] = max(worst[name], r)
+                    errs[kernel] = max(errs[kernel], e)
+                n_cases += 1
+    log("sm90_cases", cases=n_cases, shapes="n1-h2, T in (5, 37, 200), D in "
+        "(16, 64, 80, 128, 256), causal and full",
+        tolerance=SM90.TOLERANCE_NOTE, worst_error_over_bound=worst,
+        rerun_bitequal=True, linear_in_g=True)
 
     # K4 in fp32 at a small ragged shape (37 = 2 blocks of 16 + 5)
     for causal in (True, False):
@@ -1411,12 +1586,18 @@ def main():
         launches[name] += n
 
     # -- 6. train parity: kernel path vs MXNET_ATTN_IMPL=reference ---------
+    _cuda.reset_launches()
     fp32 = parity_phase(dev, train_config(num_layers=2), 2, None)
+    for name, n in _cuda.launches.items():
+        launches[name] = launches.get(name, 0) + n
     if fp32["kernel_vs_reference"]["max"] > PARITY_FP32:
         raise AssertionError("fp32 parity %r over %g" % (fp32, PARITY_FP32))
     log("train_parity", case="fp32-2L-batch2", bound=PARITY_FP32,
         tolerance=PARITY_FP32_NOTE, **fp32)
+    _cuda.reset_launches()
     bf16 = parity_phase(dev, train_config(), 8, "bfloat16")
+    for name, n in _cuda.launches.items():
+        launches[name] = launches.get(name, 0) + n
     if (bf16["kernel_vs_fp32"]["mean"] > bf16["reference_vs_fp32"]["mean"]
             or bf16["kernel_over_reference_error"]["max"]
             > PARITY_BF16_RATIO):
@@ -1477,8 +1658,10 @@ def main():
     if bad:
         raise AssertionError("JAX or the JAX package was imported: %r"
                              % bad[:5])
-    main_case = {"flash_attention": "n8-h16-T1024-D128-causal-b128-bf16-lse",
-                 "flash_attention_backward": "n8-h16-T1024-D128-causal-bf16",
+    main_case = {"flash_attention": "n1-h16-T1024-D128-causal-b16",
+                 "flash_attention_backward": "n1-h2-T37-D16-causal-fp32",
+                 "flash_attention_sm90": "n8-h16-T1024-D128-causal-lse",
+                 "flash_attention_backward_sm90": "n8-h16-T1024-D128-causal",
                  "paged_attention": "decode-S8-Q1",
                  "mi_linear": "M8-F6144-C2048",
                  "bn_stats": "bfloat16-256x64x112x112-axis1",
@@ -1489,6 +1672,8 @@ def main():
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
         "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
+        "flash_attention_sm90": "mxnet_tpu/ops/attention.py:497",
+        "flash_attention_backward_sm90": "mxnet_tpu/ops/attention.py:497",
         "paged_attention": "mxnet_tpu/ops/attention.py:368",
         "mi_linear": "mxnet_tpu/serve/model.py:123",
         "bn_stats": "mxnet_tpu/ops/pallas_bn.py:79",

@@ -4,7 +4,7 @@ A package of its own beside the JAX one, with the same module layout.
 The kernels the JAX package runs on a TPU are CUDA C++ written for the
 H100 (``csrc/``, built at first use by :mod:`._cuda`); the rest is plain
 PyTorch.  Entry points run on the card unless the caller passes
-``device="cpu"`` or the context ``mx.cpu()``.  Three slices are ported:
+``device="cpu"`` or the context ``mx.cpu()``.  Four slices are ported:
 
 * serving — :mod:`.serve` runs the built-in transformer LM end to end;
 * transformer training — :mod:`.symbol` builds the LM (:mod:`.models`),

@@ -5,8 +5,16 @@ shared library of its own with a plain C interface and loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds, not minutes.
 All sources compile in parallel at first use, into
 ``build/mxnet_tpu_torch/<hash>/`` at the repo root, keyed by a hash of
-every file in ``csrc/`` and of the compiler flags; a later process with
-the same sources reuses the libraries.
+every file in ``csrc/`` and of each source's compiler flags; a later
+process with the same sources reuses the libraries.  nvcc's output
+(``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+library as ``lib<source>.log``.
+
+Flags are per source (:func:`nvcc_flags`).  The exact sources — K1, K2,
+K3, K4 (``online_softmax.cuh``'s users and the projection), the
+BatchNorm sums and run-time ``rtc`` kernels — build with ``-fmad=false``,
+so that no add and multiply are contracted behind serving's bit-exactness
+contract.  The Hopper kernels K7/K8 (``*_sm90.cu``) build without it.
 
 Every C entry launches on the stream it is handed (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``;
@@ -34,14 +42,18 @@ import time
 from .base import MXNetError
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "launch",
-           "build_seconds", "build_source", "stream_of"]
+           "build_seconds", "build_source", "stream_of", "nvcc_flags"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "build", "mxnet_tpu_torch")
 
+# the exact build: every source but those in SOURCE_FLAGS, and rtc texts
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+FAST_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+SOURCE_FLAGS = {"flash_attention_sm90": FAST_FLAGS,
+                "flash_attention_backward_sm90": FAST_FLAGS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,10 +63,16 @@ _F = ctypes.c_float
 KERNELS = {
     "flash_attention": (
         "flash_attention", "mxt_flash_attention_forward",
-        (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
+        (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
     "flash_attention_backward": (
         "flash_attention_backward", "mxt_flash_attention_backward",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "flash_attention_sm90": (
+        "flash_attention_sm90", "mxt_flash_attention_sm90",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P)),
+    "flash_attention_backward_sm90": (
+        "flash_attention_backward_sm90", "mxt_flash_attention_backward_sm90",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I,
          _P)),
     "paged_attention": (
         "paged_attention", "mxt_paged_attention",
@@ -97,8 +115,17 @@ def _nvcc():
                      "built from mxnet_tpu_torch/csrc at first use")
 
 
+def nvcc_flags(stem):
+    """nvcc's flags for ``csrc/<stem>.cu``: :data:`NVCC_FLAGS` (with
+    ``-fmad=false``) unless :data:`SOURCE_FLAGS` names the source, and
+    ``-Xptxas -v`` for the build log."""
+    return SOURCE_FLAGS.get(stem, NVCC_FLAGS) + ("-Xptxas", "-v")
+
+
 def _source_key():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
+    for stem in sorted({stem for stem, _, _ in KERNELS.values()}):
+        h.update(("%s: %s\n" % (stem, " ".join(nvcc_flags(stem)))).encode())
     for name in sorted(os.listdir(CSRC)):
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -124,7 +151,7 @@ def build():
             procs = {}
             for s in todo:  # one nvcc per source, all at once
                 tmp = "%s.%d.tmp" % (libs[s], os.getpid())
-                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                cmd = [nvcc, *nvcc_flags(s), "-o", tmp,
                        os.path.join(CSRC, s + ".cu")]
                 procs[s] = (tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -132,6 +159,8 @@ def build():
             errors = []
             for s, (tmp, proc) in procs.items():
                 log, _ = proc.communicate()
+                with open(os.path.join(out_dir, "lib%s.log" % s), "w") as f:
+                    f.write(log)
                 if proc.returncode:
                     errors.append("%s.cu (nvcc rc %d):\n%s"
                                   % (s, proc.returncode, log))

@@ -1,5 +1,7 @@
-// K1: blockwise softmax-attention forward, fp32 or bf16 inputs, with an
-// optional logsumexp output for the backward (K4).
+// K1: blockwise softmax-attention forward in fp32, with an optional
+// logsumexp output for the backward (K4).  bf16 inputs go to K7
+// (flash_attention_sm90.cu), the tensor-core kernel; this SIMT kernel is
+// the fp32 path: serving's bit-exact oracle and fp32 training.
 //
 // Replaces: mxnet_tpu/ops/attention.py::_pallas_attention (:497-506), the
 // TPU's fused flash kernel, whose numerics the JAX package defines by
@@ -8,9 +10,8 @@
 //
 // Bound on an H100: the causal work is 4 * D flops per visible (query,
 // key) pair, so at T = 1024, D = 128 the kernel is bound by operations
-// (fp32 SIMT, 67 TFLOP/s, for fp32 inputs; the bf16 tensor-core line,
-// 989 TFLOP/s, for bf16 ones), while its bytes (q, k, v read once, out
-// and lse written once) are small.
+// (fp32 SIMT, 67 TFLOP/s), while its bytes (q, k, v read once, out and
+// lse written once) are small.
 //
 // Design: one warp per query row, four rows of one (batch, head) per
 // thread block so their key/value reads hit the same L1 lines.  A row
@@ -18,9 +19,8 @@
 // keeps (m, l, acc) in registers; the per-block arithmetic is
 // online_softmax.cuh's merge_block, shared with the paged decode kernel
 // so that a decode row and the matching row here agree bit for bit.
-// bf16 rows convert to fp32 on load and the output rounds once; the fp32
-// instantiation keeps the arithmetic of the fp32-only kernel.  Plain
-// SIMT with a fixed order; tensor cores and TMA are later work.
+// Plain SIMT with a fixed order and -fmad=false: TF32 tensor cores would
+// break the fp32 parity the serving contract rests on.
 #include "error.cuh"
 #include "online_softmax.cuh"
 
@@ -79,20 +79,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q, k, v, out: (n_bh, T, D) contiguous, fp32 (bf16 == 0) or bf16
-// (bf16 == 1), on the current device; lse: (n_bh, T) fp32, or null when
-// the caller needs no backward (serving).  Returns cudaGetLastError()
-// after the launch.
+// q, k, v, out: (n_bh, T, D) contiguous fp32 on the current device;
+// lse: (n_bh, T) fp32, or null when the caller needs no backward
+// (serving).  Returns cudaGetLastError() after the launch.
 extern "C" int mxt_flash_attention_forward(const void* q, const void* k,
                                            const void* v, void* out,
                                            void* lse, int n_bh, int T,
                                            int D, float scale, int causal,
-                                           int block, int bf16,
-                                           void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, lse, n_bh, T, D, scale,
-                                 causal, block, s);
+                                           int block, void* stream) {
   return launch<float>(q, k, v, out, lse, n_bh, T, D, scale, causal, block,
-                       s);
+                       static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,7 @@
-// K4: the flash-attention backward, recomputed from the forward's
-// logsumexp, fp32 or bf16 inputs.
+// K4: the flash-attention backward in fp32, recomputed from the
+// forward's logsumexp.  bf16 inputs go to K8
+// (flash_attention_backward_sm90.cu), the tensor-core kernel; this SIMT
+// kernel serves fp32 training.
 //
 // Replaces: the VJP of mxnet_tpu/ops/attention.py::_pallas_attention
 // (:497-506), the TPU flash kernel's backward, whose numerics the JAX
@@ -12,14 +14,12 @@
 //
 // Bound on an H100: 10 * D flops per visible (query, key) pair (the
 // q.k and dO.v dots, and the three rank-1 accumulations), against the
-// fp32 SIMT line (67 TFLOP/s) for fp32 inputs and the bf16 tensor-core
-// line (989 TFLOP/s) for bf16 ones; the bytes (q, k, v, O, dO, lse read
+// fp32 SIMT line (67 TFLOP/s); the bytes (q, k, v, O, dO, lse read
 // once, dq, dk, dv written once) are small next to them at T = 1024.
 //
 // Design: three launches on the caller's stream, no atomics, so the
 // result is the same bits on every run.
-//   1. delta: one warp per query row, from the saved out in its own
-//      dtype (the bf16-rounded O, as JAX uses it at :266).
+//   1. delta: one warp per query row, from the saved out.
 //   2. dK/dV: one warp per key row j; it walks the query rows that see
 //      it in increasing i, recomputes p and ds, and keeps dk_j, dv_j in
 //      registers.
@@ -30,8 +30,7 @@
 // Only real keys are visited, so a ragged last block needs no padding
 // and a masked pair contributes nothing.  Four rows of one (batch, head)
 // share a thread block, so the rows they walk hit the same L1 lines.
-// Plain fp32 SIMT; tensor cores, TMA and tiles in shared memory are
-// later work.
+// Plain fp32 SIMT: TF32 tensor cores would break fp32 parity.
 #include "error.cuh"
 #include "online_softmax.cuh"
 
@@ -195,19 +194,14 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 
 }  // namespace
 
-// q, k, v, out, dout, dq, dk, dv: (n_bh, T, D) contiguous, fp32
-// (bf16 == 0) or bf16 (bf16 == 1); lse (the forward's, K1) and delta
-// (scratch): (n_bh, T) fp32.  All on the current device.  Returns
-// cudaGetLastError() after the launches.
+// q, k, v, out, dout, dq, dk, dv: (n_bh, T, D) contiguous fp32; lse (the
+// forward's, K1) and delta (scratch): (n_bh, T) fp32.  All on the
+// current device.  Returns cudaGetLastError() after the launches.
 extern "C" int mxt_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* out,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, int n_bh, int T, int D, float scale, int causal, int bf16,
+    void* delta, int n_bh, int T, int D, float scale, int causal,
     void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, delta,
-                                 n_bh, T, D, scale, causal, s);
   return launch<float>(q, k, v, out, lse, dout, dq, dk, dv, delta, n_bh, T,
-                       D, scale, causal, s);
+                       D, scale, causal, static_cast<cudaStream_t>(stream));
 }

@@ -10,10 +10,9 @@
 // explicit __fadd_rn / __fmul_rn (the sources are also built with
 // -fmad=false), so inlining into two kernels cannot change the bits.
 //
-// Element type: K1 reads fp32 or bf16 rows, K2 fp32 pages.  Every load
-// converts to fp32 through to_f32 (the identity for fp32, so the fp32
-// instantiation is the same arithmetic as before the template) and all
-// arithmetic stays fp32; store_row rounds to the output type once.
+// Element type: K1 reads fp32 rows, K2 fp32 pages (bf16 attention runs
+// on the tensor cores in K7/K8, outside this contract).  Loads go
+// through to_f32, the identity for fp32.
 //
 // Layout: one warp owns one query row.  Lane t holds the row's elements
 // d = t, t + 32, ... of the scaled query and of the accumulator, so a
@@ -23,7 +22,6 @@
 // values, in key order.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -37,18 +35,11 @@ constexpr int kMaxBlock = kWarp * kMaxBlockChunks;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <class T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct RowState {
   float m;                    // running max of the scores seen

@@ -6,15 +6,18 @@ JAX package runs as a TPU kernel, or as a lax kernel on the serving path,
 is a hand-written CUDA kernel here (``csrc/``), with its plain PyTorch
 version beside it:
 
-* :func:`flash_attention` forward — kernel K1 (``csrc/flash_attention.cu``),
-  the forward of the TPU flash kernel ``_pallas_attention``, fp32 or bf16,
-  with the logsumexp the backward needs; plain version
-  :func:`flash_forward_plain`, the blockwise loop of ``_flash_forward``.
-* :func:`flash_attention` backward — kernel K4
-  (``csrc/flash_attention_backward.cu``), the VJP of the same TPU kernel;
-  plain version :func:`flash_backward_plain`, ``_flash_backward``.  The
-  two halves meet in a ``torch.autograd.Function``, the port's form of
-  ``_flash_fn``'s custom VJP.
+* :func:`flash_attention` forward, the forward of the TPU flash kernel
+  ``_pallas_attention`` with the logsumexp the backward needs: kernel K1
+  (``csrc/flash_attention.cu``, SIMT) for fp32 inputs and K7
+  (``csrc/flash_attention_sm90.cu``, wgmma and TMA) for bf16 ones; plain
+  version :func:`flash_forward_plain`, the blockwise loop of
+  ``_flash_forward``.
+* :func:`flash_attention` backward, the VJP of the same TPU kernel:
+  kernel K4 (``csrc/flash_attention_backward.cu``) for fp32 and K8
+  (``csrc/flash_attention_backward_sm90.cu``) for bf16; plain version
+  :func:`flash_backward_plain`, ``_flash_backward``.  The two halves meet
+  in a ``torch.autograd.Function``, the port's form of ``_flash_fn``'s
+  custom VJP.
 * :func:`paged_attention` — kernel K2 (``csrc/paged_attention.cu``),
   ``decode_attention`` fused with the page-table gather that feeds it;
   plain version :func:`paged_attention_plain`, the gather followed by
@@ -32,6 +35,9 @@ contract.  Sliding windows and quantized KV pages are ported in later
 slices and raise here.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -217,16 +223,14 @@ def flash_backward_plain(q, k, v, out, lse, g, causal, scale, block):
     return (dq * scale).to(q.dtype), dk, dv
 
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SM90_WIDTHS = (64, 128, 256)  # head dims K7/K8 are instantiated for
 
 
-def _kernel_rows(who, t, d, block, *tensors):
-    """Check the CUDA kernels' preconditions and flatten each (..., T, D)
-    tensor to contiguous (n_bh, T, D) rows.  Returns (rows, bf16 flag)."""
+def _check_inputs(who, tensors):
     first = tensors[0]
-    if first.dtype not in _KERNEL_DTYPES:
-        raise MXNetError("%s: %s inputs; the CUDA kernel takes float32 or "
-                         "bfloat16" % (who, first.dtype))
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise MXNetError("%s: %s inputs; the CUDA kernels take float32 (K1, "
+                         "K4) or bfloat16 (K7, K8)" % (who, first.dtype))
     for x in tensors:
         if x.dtype != first.dtype or x.device != first.device:
             raise MXNetError("%s: inputs differ in dtype or device (%s on "
@@ -236,19 +240,117 @@ def _kernel_rows(who, t, d, block, *tensors):
             raise MXNetError("%s: shapes %r and %r must share one (..., T, "
                              "D) shape" % (who, tuple(first.shape),
                                            tuple(x.shape)))
+
+
+def _kernel_rows(who, t, d, block, *tensors):
+    """Check the fp32 kernels' (K1, K4) preconditions and flatten each
+    (..., T, D) tensor to contiguous (n_bh, T, D) rows."""
     if d > _MAX_HEAD_DIM or not 1 <= block <= _MAX_BLOCK:
         raise MXNetError("%s: head_dim %d (max %d) or block %d (max %d) out "
                          "of the kernel's range"
                          % (who, d, _MAX_HEAD_DIM, block, _MAX_BLOCK))
-    rows = [x.reshape(-1, t, d).contiguous() for x in tensors]
-    return rows, _KERNEL_DTYPES[first.dtype]
+    return [x.reshape(-1, t, d).contiguous() for x in tensors]
+
+
+def sm90_width(d):
+    """The head dim K7/K8 run a (..., D) call at: the least instantiated
+    width >= D (the 128-byte swizzle rows of the tiles hold 64 bf16, so
+    64 is the least)."""
+    for w in _SM90_WIDTHS:
+        if d <= w:
+            return w
+    raise MXNetError("flash_attention: bf16 head_dim %d above the tensor-core "
+                     "kernels' %d" % (d, _SM90_WIDTHS[-1]))
+
+
+def _sm90_operands(t, d, *tensors):
+    """Each bf16 (..., T, D) tensor as K7/K8 read it through a 4-D TMA map:
+    an (N, H, T, Dp) view, Dp = ``sm90_width(D)``.  A view whose D is
+    contiguous and whose other strides are multiples of 8 elements (16
+    bytes) is read where it lies — the heads of a fused QKV projection
+    need no copy; any other tensor, or one that needs zero columns (they
+    add nothing to q.k or dO.v; the output's are dropped), is copied.
+    Returns (views, N, H, Dp, the views' (n, h, t) strides as a ctypes
+    array)."""
+    dp = sm90_width(d)
+    lead = tensors[0].shape[:-2]
+    h = lead[-1] if lead else 1
+    n = math.prod(lead) // max(h, 1)
+    views, strides = [], []
+    for x in tensors:
+        x4 = x.reshape(n, h, t, d)
+        if dp != d:
+            x4 = torch.nn.functional.pad(x4, (0, dp - d))
+        elif not _tma_readable(x4):
+            x4 = x4.contiguous()
+            if x4.data_ptr() % 16:
+                x4 = x4.clone()
+        views.append(x4)
+        # a size-1 dim's stride is free: give it the contiguous one
+        strides += [st if size > 1 else contiguous
+                    for st, size, contiguous in zip(
+                        x4.stride()[:3], x4.shape[:3],
+                        (h * t * dp, t * dp, dp))]
+    return views, n, h, dp, (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _tma_readable(x4):
+    return (x4.stride(-1) == 1 and x4.data_ptr() % 16 == 0
+            and all(st > 0 and st % 8 == 0
+                    for st, size in zip(x4.stride()[:3], x4.shape[:3])
+                    if size > 1))
+
+
+def _flash_forward_sm90(q, k, v, causal, scale, with_lse):
+    """Kernel K7, the bf16 forward on the tensor cores: (out, lse or
+    None).  It picks its own tiles (128 queries a CTA, 64 or 128 keys a
+    step), so the caller's ``block`` does not reach it."""
+    t, d = q.shape[-2], q.shape[-1]
+    (q4, k4, v4), n, h, dp, strides = _sm90_operands(t, d, q, k, v)
+    out = torch.empty((n * h, t, dp), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((n * h, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            _cuda.launch("flash_attention_sm90", q4.data_ptr(), k4.data_ptr(),
+                         v4.data_ptr(), out.data_ptr(),
+                         lse.data_ptr() if with_lse else None, n, h, t, dp,
+                         strides, float(scale), int(bool(causal)),
+                         _cuda.stream_of(q))
+    out = out[..., :d].reshape(q.shape)
+    return out, (lse.reshape(q.shape[:-1] + (1,)) if with_lse else None)
+
+
+def _flash_backward_sm90(q, k, v, out, lse, g, causal, scale):
+    """Kernel K8, the bf16 backward on the tensor cores: (dq, dk, dv)."""
+    t, d = q.shape[-2], q.shape[-1]
+    (q4, k4, v4, o4, g4), n, h, dp, strides = _sm90_operands(
+        t, d, q, k, v, out, g)
+    lse = lse.reshape(n * h, t).float().contiguous()
+    dq, dk, dv = (torch.empty((n * h, t, dp), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if dq.numel():
+        # scratch: lse * log2(e) and delta, rows padded to 128
+        rows = torch.empty(2 * n * h * (-(-t // 128) * 128),
+                           dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            _cuda.launch("flash_attention_backward_sm90", q4.data_ptr(),
+                         k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+                         lse.data_ptr(), g4.data_ptr(), dq.data_ptr(),
+                         dk.data_ptr(), dv.data_ptr(), rows.data_ptr(), n, h,
+                         t, dp, strides, float(scale), int(bool(causal)),
+                         _cuda.stream_of(q))
+    return tuple(x[..., :d].reshape(q.shape) for x in (dq, dk, dv))
 
 
 def _flash_forward_cuda(q, k, v, causal, scale, block, with_lse):
-    """Kernel K1: (out, lse or None)."""
+    """The forward on the card, by dtype: K7 for bf16, K1 for fp32 (out,
+    lse or None).  No fallback: another dtype or shape raises."""
+    _check_inputs("flash_attention", (q, k, v))
+    if q.dtype == torch.bfloat16:
+        return _flash_forward_sm90(q, k, v, causal, scale, with_lse)
     t, d = q.shape[-2], q.shape[-1]
-    (q3, k3, v3), bf16 = _kernel_rows("flash_attention", t, d, block,
-                                      q, k, v)
+    q3, k3, v3 = _kernel_rows("flash_attention", t, d, block, q, k, v)
     out = torch.empty_like(q3)
     lse = (torch.empty(q3.shape[:-1], dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -258,16 +360,20 @@ def _flash_forward_cuda(q, k, v, causal, scale, block, with_lse):
                          v3.data_ptr(), out.data_ptr(),
                          lse.data_ptr() if with_lse else None, q3.shape[0],
                          t, d, float(scale), int(bool(causal)), int(block),
-                         bf16, _cuda.stream_of(q))
+                         _cuda.stream_of(q))
     out = out.reshape(q.shape)
     return out, (lse.reshape(q.shape[:-1] + (1,)) if with_lse else None)
 
 
 def _flash_backward_cuda(q, k, v, out, lse, g, causal, scale, block):
-    """Kernel K4: (dq, dk, dv)."""
+    """The backward on the card, by dtype: K8 for bf16, K4 for fp32 (dq,
+    dk, dv)."""
+    _check_inputs("flash_attention_backward", (q, k, v, out, g))
+    if q.dtype == torch.bfloat16:
+        return _flash_backward_sm90(q, k, v, out, lse, g, causal, scale)
     t, d = q.shape[-2], q.shape[-1]
-    (q3, k3, v3, o3, g3), bf16 = _kernel_rows(
-        "flash_attention_backward", t, d, block, q, k, v, out, g)
+    q3, k3, v3, o3, g3 = _kernel_rows("flash_attention_backward", t, d,
+                                      block, q, k, v, out, g)
     lse = lse.reshape(q3.shape[:-1]).float().contiguous()
     dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
     if dq.numel():
@@ -279,14 +385,14 @@ def _flash_backward_cuda(q, k, v, out, lse, g, causal, scale, block):
                          lse.data_ptr(), g3.data_ptr(), dq.data_ptr(),
                          dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                          q3.shape[0], t, d, float(scale),
-                         int(bool(causal)), bf16, _cuda.stream_of(q))
+                         int(bool(causal)), _cuda.stream_of(q))
     return tuple(x.reshape(q.shape) for x in (dq, dk, dv))
 
 
 def flash_attention_backward(q, k, v, out, lse, g, causal, scale, block):
     """Gradients (dq, dk, dv) of :func:`flash_attention` from the saved
-    forward: kernel K4 on CUDA tensors, :func:`flash_backward_plain` on
-    CPU or meta tensors."""
+    forward: kernel K4 (fp32) or K8 (bf16) on CUDA tensors,
+    :func:`flash_backward_plain` on CPU or meta tensors."""
     if q.is_cuda:
         return _flash_backward_cuda(q, k, v, out, lse, g, causal, scale,
                                     block)
@@ -322,14 +428,18 @@ def flash_attention(q, k, v, causal=True, scale=None, block=None, mi=False,
                     window=0):
     """Blockwise online-softmax attention over (..., T, D), fp32 or bf16.
 
-    On CUDA tensors the forward is kernel K1, whose per-row arithmetic is
-    fixed (M-invariant whatever ``mi`` says), and the backward kernel K4;
-    on CPU tensors the plain versions, where ``mi`` selects the
-    M-invariant matmul form as in the JAX package.  Differentiable
-    through a recompute backward when autograd records (the forward then
-    also keeps the logsumexp); without a gradient the kernel writes no
-    logsumexp.  An explicit ``block`` is honoured verbatim (serving
-    bit-exactness needs the accumulation width fixed across T)."""
+    On CUDA tensors fp32 runs kernel K1 forward, whose per-row arithmetic
+    is fixed (M-invariant whatever ``mi`` says), and K4 backward; bf16
+    runs the tensor-core kernels K7 and K8, which round probabilities to
+    bf16 for their products as the TPU kernel does and choose their own
+    tiles (head_dim <= 256, zero-padded to 64, 128 or 256).  On CPU
+    tensors the plain versions, where ``mi`` selects the M-invariant
+    matmul form as in the JAX package.  Differentiable through a
+    recompute backward when autograd records (the forward then also keeps
+    the logsumexp); without a gradient the kernel writes no logsumexp.
+    An explicit ``block`` is honoured verbatim by K1 and the plain
+    versions (serving bit-exactness needs the accumulation width fixed
+    across T)."""
     _no_window(window, "flash_attention")
     d = q.shape[-1]
     t = k.shape[-2]
@@ -356,9 +466,10 @@ def dot_product_attention(q, k, v, causal=True, scale=None, impl=None,
                           block=None, window=0):
     """Attention by the implementation ``MXNET_ATTN_IMPL`` (or the explicit
     ``impl``) selects: ``reference`` materializes the scores;
-    ``auto`` and ``flash`` run :func:`flash_attention` — kernels K1 and K4
-    on CUDA tensors, where the JAX package's ``auto`` picks its TPU flash
-    kernel, and the plain blockwise versions elsewhere."""
+    ``auto`` and ``flash`` run :func:`flash_attention` — kernels K1/K4
+    (fp32) or K7/K8 (bf16) on CUDA tensors, where the JAX package's
+    ``auto`` picks its TPU flash kernel, and the plain blockwise versions
+    elsewhere."""
     impl = (impl or attention_impl()).strip().lower()
     if impl not in _IMPLS:
         raise MXNetError("attention impl %r not in %s" % (impl, _IMPLS))

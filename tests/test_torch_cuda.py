@@ -6,8 +6,10 @@ that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: atol 1e-5 between an attention kernel and its plain version
-(fp32, unit-normal inputs, the reductions run in other orders); for the
+Tolerance: atol 1e-5 between an fp32 attention kernel and its plain
+version (unit-normal inputs, the reductions run in other orders); for
+the bf16 tensor-core kernels K7/K8, the derived bound of
+``mxnet_tpu_torch/testing/attention_sm90.py``; for the
 projection, the worst-case bound of two fp32 summation orders; and
 bit-equality where the serving contract demands it (row-count
 invariance, decode == reference).  The rtc kernels (``rtc.CudaKernel``,
@@ -21,6 +23,7 @@ from mxnet_tpu_torch import _cuda, serve
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as A
 from mxnet_tpu_torch.ops import linear as L
+from mxnet_tpu_torch.testing import attention_sm90 as sm90
 
 pytestmark = pytest.mark.cuda
 
@@ -147,15 +150,19 @@ def test_serve_decode_bitexact_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# training slice: K1 in bf16 with lse, K4, and one TrainStep
+# training slice: bf16 forward with lse (K7), the backward (K4 fp32, K8
+# bf16), and one TrainStep
 # ---------------------------------------------------------------------------
 #
 # Tolerance for bf16 results: each side rounds an fp32 value to bf16
 # once, and the fp32 values differ by reduction order, so two results
 # may sit one bf16 step apart: |diff| <= 2^-7 |want| + 1e-4 max|want|
 # (the second term covers gradient entries that cancel toward zero in
-# fp32 before the rounding).  lse and fp32 gradients: atol 2e-5 (fp32
-# sums over up to 64 terms of order 1 in other orders).
+# fp32 before the rounding).  K7/K8 also round P and dS to bf16 before
+# their tensor-core products, which adds 2^-8 times the same contraction
+# over absolute values (testing/attention_sm90.py, TOLERANCE_NOTE).  lse
+# and fp32 gradients: atol 2e-5 (fp32 sums over up to 64 terms of order
+# 1 in other orders).
 
 def _bf16_close(got, want):
     got, want = got.float(), want.float()
@@ -164,18 +171,29 @@ def _bf16_close(got, want):
         (got - want).abs().max().item()
 
 
+def _sm90_close(got, want, bound):
+    err, ratio = sm90.violation(got, want, bound)
+    assert ratio <= 1.0, (err, ratio)
+
+
 @pytest.mark.parametrize("t,d,causal,block", [(37, 64, True, 16),
                                               (37, 64, False, 16),
                                               (5, 128, True, 128)])
 def test_flash_forward_bf16_with_lse_matches_plain(dev, t, d, causal, block):
+    """bf16 runs K7, the tensor-core forward."""
     q, k, v = (_randn(dev, 2, 3, t, d, seed=s).bfloat16() for s in range(3))
     scale = 1.0 / d ** 0.5
+    before = dict(_cuda.launches)
     got_out, got_lse = A._flash_forward_cuda(q, k, v, causal, scale, block,
                                              True)
+    assert _cuda.launches["flash_attention_sm90"] == \
+        before["flash_attention_sm90"] + 1
+    assert _cuda.launches["flash_attention"] == before["flash_attention"]
     want_out, want_lse = A.flash_forward_plain(q, k, v, causal, scale,
                                                block)
     assert got_out.dtype == torch.bfloat16
-    _bf16_close(got_out, want_out)
+    _sm90_close(got_out, want_out,
+                sm90.forward_bound(q, k, v, want_out, causal, scale))
     torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=2e-5)
 
 
@@ -185,19 +203,90 @@ def test_flash_backward_kernel_matches_plain(dev, dtype, t, causal):
     d, block, scale = 64, 16, 0.125
     q, k, v, g = (_randn(dev, 2, 2, t, d, seed=s).to(dtype)
                   for s in range(4))
+    """fp32 runs K4, bf16 K8."""
     out, lse = A.flash_forward_plain(q, k, v, causal, scale, block)
-    before = _cuda.launches["flash_attention_backward"]
+    name = ("flash_attention_backward" if dtype == torch.float32
+            else "flash_attention_backward_sm90")
+    before = dict(_cuda.launches)
     got = A.flash_attention_backward(q, k, v, out, lse, g, causal, scale,
                                      block)
-    assert _cuda.launches["flash_attention_backward"] == before + 1
+    assert {n: _cuda.launches[n] - before[n] for n in
+            ("flash_attention_backward", "flash_attention_backward_sm90")
+            if _cuda.launches[n] != before[n]} == {name: 1}
     want = A.flash_backward_plain(q, k, v, out, lse, g, causal, scale,
                                   block)
-    for a, b in zip(got, want):
+    bounds = sm90.backward_bounds(q, k, v, out, lse, g, want, causal, scale)
+    for a, b, bound in zip(got, want, bounds):
         assert a.dtype == dtype
         if dtype == torch.float32:
             torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
         else:
-            _bf16_close(a, b)
+            _sm90_close(a, b, bound)
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("t", [5, 37, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_kernels_match_plain_rerun_bitwise_and_are_linear(dev, t, d,
+                                                               causal):
+    """K7 and K8 at ragged T and at head dims that pad (16, 80) or not,
+    against the plain versions inside the derived bound; K8 gives the
+    same bits on a rerun and exactly twice its result at 2 g."""
+    q, k, v, g = (_randn(dev, 2, 3, t, d, seed=s).bfloat16()
+                  for s in range(4))
+    scale = 1.0 / d ** 0.5
+    before = dict(_cuda.launches)
+    out, lse = A._flash_forward_cuda(q, k, v, causal, scale, 128, True)
+    want_out, want_lse = A.flash_forward_plain(q, k, v, causal, scale, 128)
+    _sm90_close(out, want_out,
+                sm90.forward_bound(q, k, v, want_out, causal, scale))
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+    got = A._flash_backward_cuda(q, k, v, want_out, want_lse, g, causal,
+                                 scale, 128)
+    want = A.flash_backward_plain(q, k, v, want_out, want_lse, g, causal,
+                                  scale, 128)
+    for a, b, bound in zip(got, want, sm90.backward_bounds(
+            q, k, v, want_out, want_lse, g, want, causal, scale)):
+        assert a.shape == q.shape and a.dtype == torch.bfloat16
+        _sm90_close(a, b, bound)
+    again = A._flash_backward_cuda(q, k, v, want_out, want_lse, g, causal,
+                                   scale, 128)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    twice = A._flash_backward_cuda(q, k, v, want_out, want_lse, 2 * g,
+                                   causal, scale, 128)
+    assert all(torch.equal(2 * a, b) for a, b in zip(got, twice))
+    assert _cuda.launches["flash_attention_sm90"] == \
+        before["flash_attention_sm90"] + 1
+    assert _cuda.launches["flash_attention_backward_sm90"] == \
+        before["flash_attention_backward_sm90"] + 3
+    assert _cuda.launches["flash_attention"] == before["flash_attention"]
+
+
+def test_sm90_kernels_take_strided_views_and_raise_above_256(dev):
+    """The strided (n, h, T, D) heads the attention op cuts from its fused
+    projection, and a strided cotangent, reach K7/K8's tensor maps where
+    they lie and give the plain versions' results; a bf16 head_dim above
+    256 raises instead of falling back."""
+    qkv = _randn(dev, 2, 40, 3, 4, 64).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    g = _randn(dev, 2, 40, 4, 64, seed=5).bfloat16().transpose(1, 2)
+    assert not (q.is_contiguous() or g.is_contiguous())
+    views = A._sm90_operands(40, 64, q, k, v, g)[0]
+    assert [x.data_ptr() for x in views] == [x.data_ptr()
+                                             for x in (q, k, v, g)]
+    out, lse = A._flash_forward_cuda(q, k, v, True, 0.125, 128, True)
+    want, want_lse = A.flash_forward_plain(q, k, v, True, 0.125, 128)
+    _sm90_close(out, want, sm90.forward_bound(q, k, v, want, True, 0.125))
+    got = A._flash_backward_cuda(q, k, v, want, want_lse, g, True, 0.125,
+                                 128)
+    wants = A.flash_backward_plain(q, k, v, want, want_lse, g, True, 0.125,
+                                   128)
+    for a, b, bound in zip(got, wants, sm90.backward_bounds(
+            q, k, v, want, want_lse, g, wants, True, 0.125)):
+        _sm90_close(a, b, bound)
+    big = _randn(dev, 1, 1, 8, 264).bfloat16()
+    with pytest.raises(MXNetError, match="head_dim 264"):
+        A.flash_attention(big, big, big)
 
 
 def test_flash_attention_autograd_runs_both_kernels(dev):
@@ -216,7 +305,7 @@ def test_flash_attention_autograd_runs_both_kernels(dev):
 
 
 def test_train_step_kernels_match_reference_impl(dev, monkeypatch):
-    """One bf16 TrainStep through K1/K4 against the same step under
+    """One bf16 TrainStep through K7/K8 against the same step under
     MXNET_ATTN_IMPL=reference, from one state: the parameter update of
     every tensor within 5e-2 relative L2 (the two attention paths round
     to bf16 at other places; see chip_smoke.py's train-parity phase)."""
@@ -239,10 +328,11 @@ def test_train_step_kernels_match_reference_impl(dev, monkeypatch):
         params, aux, states = step.init_state(shapes, seed=0)
         before = dict(_cuda.launches)
         new, _, _, outs = step(params, aux, states, batch, None)
-        k1 = _cuda.launches["flash_attention"] - before["flash_attention"]
-        k4 = (_cuda.launches["flash_attention_backward"]
-              - before["flash_attention_backward"])
-        assert (k1, k4) == ((2, 2) if impl == "auto" else (0, 0))
+        ran = {n: _cuda.launches[n] - before[n] for n in before
+               if n.startswith("flash") and _cuda.launches[n] != before[n]}
+        assert ran == ({"flash_attention_sm90": 2,
+                        "flash_attention_backward_sm90": 2}
+                       if impl == "auto" else {})
         assert bool(torch.isfinite(outs[0]).all())
         updates[impl] = {n: (new[n] - params[n]).float() for n in params}
     for n, want in updates["reference"].items():
