@@ -23,9 +23,21 @@ a checkout that holds ``mxnet_tpu_torch/``):
    TB/s and operations over the peak for the inputs' type: 67 TFLOP/s
    fp32 outside the tensor cores, 989 TFLOP/s bf16 dense, from the H100
    SXM data sheet).  Timings are CUDA-event means over launches on a
-   cold L2.  Then one ``sass`` line (tensor-core instructions in each
-   kernel library, from ``cuobjdump --dump-sass``: K7 and K8 must show
-   HGMMA) and one ``ptxas`` line (registers and spills of K7/K8).
+   cold L2, each started behind a spin of the device so that the window
+   holds the call's device work and not the host's launch path.
+   Serving's decode kernels K2 (paged attention: decode over 8 slots at
+   18 and at 64 pages, and a 256-row prefill; the yardstick is SDPA over
+   the gathered context, masked to each row's horizon, checked against
+   the plain version) and K3 (every projection shape at M = 1, 8 and
+   256) must give the same bits when run again, and their lines add the
+   effective bandwidth (the bound's bytes over the kernel's time) beside
+   the card's 3.35 TB/s, the kernel's and the library's times in the
+   window without the spin (``*_ms_with_launch``), and their host launch
+   paths alone (``*_host_ms``: calls enqueued back to back).  Before
+   them, one ``sass`` line (tensor-core instructions in each kernel
+   library, from ``cuobjdump --dump-sass``: K7 and K8 must show HGMMA)
+   and two ``ptxas`` lines (registers and spills of K7/K8, then of K3
+   and K2).
 3. invariance — rows of the exact projection (K3) and of LayerNorm at
    M = 256 are bit-identical to the same rows computed alone.
 4. serve — the transformer LM at the width of ``bench_transformer.py``'s
@@ -107,6 +119,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 dense tensor cores
+# the device spin before each timed call: 0.5 ms at the H100's 1.98 GHz
+# boost clock, longer than the host takes to launch one wrapper
+SPIN_CYCLES = 1_000_000
 ATTN_ATOL = 1e-5
 ATTN_NOTE = ("atol 1e-5: fp32 on both sides; the D = 128 score dots and "
              "the per-block sums run in other orders, ~100 units of "
@@ -188,7 +203,29 @@ def kernel_sass(build_dir):
     return counts
 
 
-def ptxas_report(build_dir, stems=SM90_STEMS):
+def kernel_name(symbol):
+    """A kernel's name and integer template arguments from its mangled
+    symbol (``_ZN12_GLOBAL__N_113linear_kernelILi64E...`` ->
+    ``linear_kernel<64,...>``)."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    i = 3 if symbol.startswith("_ZN") else 2
+    name = symbol
+    while True:
+        n = re.match(r"\d+", symbol[i:])
+        if not n:
+            break
+        i += n.end()
+        name = symbol[i:i + int(n.group())]
+        i += int(n.group())
+    args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", symbol[i:])
+    if args:
+        name += "<%s>" % ",".join(re.findall(r"L[a-z]+(-?\d+)E",
+                                             args.group(1)))
+    return name
+
+
+def ptxas_report(build_dir, stems):
     """Registers and spill bytes of every kernel of ``stems``, from the
     ``-Xptxas -v`` log the build keeps beside each library."""
     out = {}
@@ -198,12 +235,7 @@ def ptxas_report(build_dir, stems=SM90_STEMS):
             for line in f:
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
-                    base = re.search(r"\d(flash_(?:fwd|bwd)_[a-z0-9_]*"
-                                     r"[a-z0-9])(I(?:Li\d+E)+E)?",
-                                     m.group(1))
-                    args = re.findall(r"Li(\d+)E", base.group(2) or "")
-                    name = base.group(1) + ("<%s>" % ",".join(args)
-                                            if args else "")
+                    name = kernel_name(m.group(1))
                     out[name] = {}
                     continue
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -384,7 +416,7 @@ def profile_phase(sess, steps=4):
     """Device time by kernel over ``steps`` decode steps of a full batch
     (every slot at a 250-token prompt) and over one 256-row prefill, with
     the device's idle share of each window."""
-    groups = (("mi_linear", ("linear_kernel",)),
+    groups = (("mi_linear", ("linear_kernel", "linear_stream_kernel")),
               ("paged_attention", ("paged_attention_kernel",)),
               ("flash_attention", ("flash_forward_kernel",)))
     rs = np.random.RandomState(1)
@@ -1113,17 +1145,27 @@ def main():
                                                                 here))
 
     log("sass", tensor_core_instructions=kernel_sass(build_dir))
-    log("ptxas", note="registers a thread at launch (setmaxnreg then gives "
-        "the consumer warpgroups 240) and spill bytes",
-        kernels=ptxas_report(build_dir))
+    log("ptxas", note="registers a thread at launch (in K7/K8 setmaxnreg "
+        "then gives the consumer warpgroups 240) and spill bytes",
+        kernels=ptxas_report(build_dir, SM90_STEMS))
+    log("ptxas", note="registers a thread and spill bytes of serving's "
+        "decode kernels, K3 (linear) and K2 (paged_attention)",
+        kernels=ptxas_report(build_dir, ("linear", "paged_attention")))
 
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = {}
     errs = dict.fromkeys(list(_cuda.KERNELS) + list(RTC_KERNELS), 0.0)
 
-    def time_ms(fn, target_ms=300.0):
+    def time_ms(fn, target_ms=300.0, spin=True):
         """Mean CUDA-event time of ``fn`` per call, L2 flushed before
-        every call (outside the timed window)."""
+        every call (outside the timed window).  A spin of the device
+        (``torch.cuda._sleep``, ~0.5 ms) after the flush holds the start
+        event back until the host has enqueued the call, so the window
+        holds the call's device work, not the host's launch path (a
+        call that launches many kernels still waits on the host between
+        them).  ``spin=False`` leaves the spin out, so the window also
+        holds whatever of the host's launch path the flush does not
+        cover."""
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1134,6 +1176,8 @@ def main():
         pairs = []
         for _ in range(reps):
             flush_buf.zero_()
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1142,6 +1186,19 @@ def main():
             pairs.append((a, b))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def host_ms(fn, reps=50):
+        """Host time per call of ``fn``'s launch path: ``reps`` calls
+        enqueued back to back, the clock stopped before the device is
+        waited for."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
 
     def device_ms(fn, key, reps=20):
         """Device time per call of the kernels whose name holds ``key``,
@@ -1154,7 +1211,8 @@ def main():
         return prof["device_ms_by_group"][key] / reps
 
     def record(name, case, err, ok, tolerance, kernel, plain, library,
-               nbytes, flops, peak=FP32_FLOP_PER_S, device_key=None):
+               nbytes, flops, peak=FP32_FLOP_PER_S, device_key=None,
+               bandwidth=False):
         if not ok:
             raise AssertionError("%s %s: max error %.3g outside the "
                                  "tolerance (%s)" % (name, case, err,
@@ -1170,6 +1228,17 @@ def main():
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         if device_key:
             row["kernel_device_ms"] = device_ms(kernel, device_key)
+        if bandwidth:  # bytes the bound counts over the kernel's time
+            row["effective_gb_s"] = nbytes / row["kernel_ms"] / 1e6
+            row["bound_gb_s"] = HBM_BYTES_PER_S / 1e9
+            # the same calls in the window without the spin, which holds
+            # the host's launch path where it is the longer, and that
+            # launch path alone
+            row["kernel_ms_with_launch"] = time_ms(kernel, spin=False)
+            row["kernel_host_ms"] = host_ms(kernel)
+            if library:
+                row["library_ms_with_launch"] = time_ms(library, spin=False)
+                row["library_host_ms"] = host_ms(library)
         log("kernel", **row)
         rows[(name, case)] = row
 
@@ -1335,54 +1404,80 @@ def main():
                nbytes=4 * 8 * n * h * t * d + 4 * n * h * t,
                flops=10 * d * pairs)
 
-    # K2: decode (8 slots, one query each; slot 7 idle) and prefill (one
+    # K2: decode (8 slots, one query each; slot 7 idle), decode at a long
+    # context (8 slots near 1024 tokens, 64 pages each) and prefill (one
     # slot, a 256-row bucket at offset 32 with per-row horizons)
-    page, max_pages, h, d = 16, 18, 16, 128
-    n_pages = 8 * max_pages
-    k_pool = randn(n_pages + 1, page, h, d)
-    v_pool = randn(n_pages + 1, page, h, d)
+    page, h, d = 16, 16, 128
     rs = np.random.RandomState(5)
-    tables = torch.from_numpy(rs.permutation(n_pages).reshape(
-        8, max_pages).astype(np.int32)).to(dev)
-    lens = rs.randint(24, max_pages * page + 1, size=8)
-    lens[7] = 0
-    cases = [("decode-S8-Q1", randn(8, h, 1, d), tables,
-              torch.from_numpy(lens.astype(np.int32)).to(dev))]
-    horizons = (32 + np.arange(256) + 1).astype(np.int32).reshape(1, 256)
-    cases.append(("prefill-S1-Q256-offset32", randn(1, h, 256, d),
-                  tables[:1].contiguous(), torch.from_numpy(horizons).to(dev)))
-    def gathered_sdpa(q, tab, hor):
-        """SDPA over the decode case's context already gathered into (S,
-        H, L, D) for the active slots, L = the longest slot, shorter slots
-        masked; the gather itself is not timed."""
-        if tab.shape[0] != 8:
-            return None
-        live = (hor > 0).nonzero().flatten()
+    cases = []
+    for max_pages, lo, idle in ((18, 24, True), (64, 64 * page - 63, False)):
+        n_pages = 8 * max_pages
+        pools = tuple(randn(n_pages + 1, page, h, d) for _ in range(2))
+        tables = torch.from_numpy(rs.permutation(n_pages).reshape(
+            8, max_pages).astype(np.int32)).to(dev)
+        lens = rs.randint(lo, max_pages * page + 1, size=8)
+        if idle:
+            lens[7] = 0
+        case = "decode-S8-Q1" + ("" if max_pages == 18 else "-64pages")
+        cases.append((case, pools, randn(8, h, 1, d), tables,
+                      torch.from_numpy(lens.astype(np.int32)).to(dev)))
+        if max_pages == 18:
+            horizons = (32 + np.arange(256) + 1).astype(np.int32)
+            cases.append(("prefill-S1-Q256-offset32", pools,
+                          randn(1, h, 256, d), tables[:1].contiguous(),
+                          torch.from_numpy(horizons.reshape(1, 256)).to(dev)))
+
+    def gathered_sdpa(q, pools, tab, hor):
+        """SDPA over a case's context already gathered into (S, H, L, D),
+        L = the longest horizon, each query row masked to its own
+        horizon: the active slots at decode (hor (S,)), slot 0's rows at
+        prefill (hor (1, Q)).  The gather itself is not timed."""
         L = int(hor.max())
+        keys = torch.arange(L, device=dev)
+        if hor.dim() == 2:  # prefill: one slot, a horizon a query row
+            live = torch.zeros(1, dtype=torch.long, device=dev)
+            mask = keys < hor[0][:, None]  # (Q, L)
+        else:
+            live = (hor > 0).nonzero().flatten()
+            mask = keys < hor[live].reshape(-1, 1, 1, 1)  # (S, 1, 1, L)
         kc, vc = (pool[tab[live].long()].reshape(len(live), -1, h, d)
-                  [:, :L].permute(0, 2, 1, 3).contiguous()
-                  for pool in (k_pool, v_pool))
-        mask = (torch.arange(L, device=dev)[None, :] < hor[live][:, None]) \
-            .reshape(len(live), 1, 1, L)
+                  [:, :L].permute(0, 2, 1, 3).contiguous() for pool in pools)
         ql = q[live].contiguous()
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
+        return live, lambda: torch.nn.functional.scaled_dot_product_attention(
             ql, kc, vc, attn_mask=mask, scale=1.0 / d ** 0.5)
 
-    for case, q, tab, hor in cases:
+    for case, (k_pool, v_pool), q, tab, hor in cases:
         got = A.paged_attention(q, k_pool, v_pool, tab, hor)
+        if not torch.equal(got, A.paged_attention(q, k_pool, v_pool, tab,
+                                                  hor)):
+            raise AssertionError("paged_attention %s: a rerun gave other "
+                                 "bits" % case)
         want = A.paged_attention_plain(q, k_pool, v_pool, tab, hor)
-        if case.startswith("decode") and got[7].abs().max().item() != 0.0:
+        if case == "decode-S8-Q1" and got[7].abs().max().item() != 0.0:
             raise AssertionError("paged_attention: idle slot is not 0")
         hn = hor.cpu().numpy()
         per_slot = hn.max(axis=-1) if hn.ndim == 2 else hn
         nbytes = 4 * (2 * q.numel() + tab.numel() + hor.numel()
                       + 2 * int(per_slot.sum()) * h * d)
         err = (got - want).abs().max().item()
-        record("paged_attention", case, err, err <= ATTN_ATOL, ATTN_NOTE,
+        # the yardstick must compute the same function: a wrong gather or
+        # mask would be off by far more than fp32 roundoff
+        live, library = gathered_sdpa(q, (k_pool, v_pool), tab, hor)
+        lib_err = (library() - want[live]).abs().max().item()
+        log("library_check", kernel="paged_attention", case=case,
+            library="gathered SDPA", max_abs_err=lib_err)
+        if lib_err > 1e-3:
+            raise AssertionError("paged_attention %s: the gathered SDPA is "
+                                 "%.3g off the plain version" % (case,
+                                                                 lib_err))
+        record("paged_attention", case, err, err <= ATTN_ATOL,
+               ATTN_NOTE + "; rerun bit-equal",
                lambda: A.paged_attention(q, k_pool, v_pool, tab, hor),
                lambda: A.paged_attention_plain(q, k_pool, v_pool, tab, hor),
-               gathered_sdpa(q, tab, hor), nbytes=nbytes,
-               flops=4 * d * h * int(hn.sum()))
+               library, nbytes=nbytes,
+               flops=4 * d * h * int(hn.sum()), bandwidth=True)
+    del cases, got, want
+    torch.cuda.empty_cache()
 
     # K3: every projection shape of the path at decode and prefill rows.
     # Tolerance: both sides sum C products in fp32 in different orders,
@@ -1392,18 +1487,21 @@ def main():
                      (2048, 8192), (32768, 2048)):
             x, w, b = randn(m, c), 0.02 * randn(f, c), 0.02 * randn(f)
             got = L.mi_linear(x, w, b)
+            if not torch.equal(got, L.mi_linear(x, w, b)):
+                raise AssertionError("mi_linear M%d-F%d-C%d: a rerun gave "
+                                     "other bits" % (m, f, c))
             want = L.mi_linear_plain(x, w, b)
             bound = (LINEAR_SLACK * c * 2.0 ** -24
                      * (x.abs() @ w.abs().t() + b.abs()))
             diff = (got - want).abs()
             record("mi_linear", "M%d-F%d-C%d" % (m, f, c),
                    diff.max().item(), bool((diff <= bound).all()),
-                   LINEAR_NOTE,
+                   LINEAR_NOTE + "; rerun bit-equal",
                    lambda: L.mi_linear(x, w, b),
                    lambda: L.mi_linear_plain(x, w, b),
                    lambda: torch.nn.functional.linear(x, w, b),
                    nbytes=4 * (m * c + f * c + f + m * f),
-                   flops=2 * m * f * c)
+                   flops=2 * m * f * c, bandwidth=True)
 
     # K5/K6: BatchNorm's channel sums at ResNet-50's shapes at batch 256
     # (the stem's bn0, bn_data, a stage-1 and a stage-4 map), one

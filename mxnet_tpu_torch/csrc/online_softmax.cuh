@@ -20,6 +20,13 @@
 // visited in two passes: scores (one warp-wide dot per visible key,
 // identical on every lane), then probabilities and the weighted sum of
 // values, in key order.
+//
+// The pieces of that arithmetic are separate functions (lane_dot,
+// warp_sum, rescale, block_prob, fold), so that K2 can spread one row's
+// keys over many warps and still run exactly these operations: a score
+// depends on its key alone, the running max after a block is a prefix
+// max, a block's probability and value sums depend only on its keys and
+// that max, and only the fold of the blocks into (l, acc) is serial.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,24 +75,61 @@ __device__ __forceinline__ void load_scaled_query(float (&qs)[kMaxDPerLane],
   }
 }
 
-// Dot of the scaled query with one key row.  Each lane sums its own
-// elements in increasing d, then an xor butterfly adds the lanes.  Float
-// addition is commutative, so both partners of every butterfly step get
-// the same bits and every lane ends with the identical score.
-template <class T>
-__device__ __forceinline__ float row_dot(const float (&qs)[kMaxDPerLane],
-                                         const T* __restrict__ k, int D,
-                                         int lane) {
+// Lane ``lane``'s share of a dot product: its elements d = lane + 32 i,
+// in increasing i, from +0, each product and add rounded on its own.
+// ``k(i)`` gives the key's element lane + 32 i (read only where d < D).
+template <int N, class Key>
+__device__ __forceinline__ float lane_dot(const float (&qs)[N], const Key& k,
+                                          int D, int lane) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxDPerLane; ++i) {
-    const int d = lane + kWarp * i;
-    if (d < D) s = __fadd_rn(s, __fmul_rn(qs[i], to_f32(k[d])));
-  }
+  for (int i = 0; i < N; ++i)
+    if (lane + kWarp * i < D) s = __fadd_rn(s, __fmul_rn(qs[i], k(i)));
+  return s;
+}
+
+// The xor butterfly 16, 8, 4, 2, 1 over the warp.  Float addition is
+// commutative, so both partners of every step get the same bits and
+// every lane ends with the identical sum.
+__device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1)
     s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
   return s;
+}
+
+// Dot of the scaled query with one key row: lane_dot, then warp_sum.
+template <class T>
+__device__ __forceinline__ float row_dot(const float (&qs)[kMaxDPerLane],
+                                         const T* __restrict__ k, int D,
+                                         int lane) {
+  return warp_sum(lane_dot(
+      qs, [&](int i) { return to_f32(k[lane + kWarp * i]); }, D, lane));
+}
+
+// The running max after a block whose visible scores peak at ``bmax``
+// (-inf when none is visible), the shift its probabilities take, and the
+// factor that rescales the state merged before it (0 while nothing was
+// seen: the guards of online_block_merge).
+struct Rescale {
+  float m, safe, corr;
+};
+
+__device__ __forceinline__ Rescale rescale(float m, float bmax) {
+  const float new_m = fmaxf(m, bmax);
+  const float safe = isfinite(new_m) ? new_m : 0.f;
+  const float corr = isfinite(m) ? expf(__fsub_rn(m, safe)) : 0.f;
+  return Rescale{new_m, safe, corr};
+}
+
+// A key's probability; a masked key (score -inf) gives 0.
+__device__ __forceinline__ float block_prob(float s, float safe) {
+  return isfinite(s) ? expf(__fsub_rn(s, safe)) : 0.f;
+}
+
+// One step of the serial fold over blocks: x * corr + the block's sum.
+__device__ __forceinline__ float fold(float x, float corr, float part) {
+  return __fadd_rn(__fmul_rn(x, corr), part);
 }
 
 // Merge one block of B keys into the row.  ``rows(j, kp, vp)`` says
@@ -115,9 +159,7 @@ __device__ __forceinline__ void merge_block(RowState& st,
       bmax = fmaxf(bmax, s);
     }
   }
-  const float new_m = fmaxf(st.m, bmax);
-  const float safe = isfinite(new_m) ? new_m : 0.f;
-  const float corr = isfinite(st.m) ? expf(__fsub_rn(st.m, safe)) : 0.f;
+  const Rescale rs = rescale(st.m, bmax);
   // pass 2: probabilities (one expf per lane), then the weighted sum of
   // the visible keys' values in key order
   float psum = 0.f;
@@ -127,9 +169,8 @@ __device__ __forceinline__ void merge_block(RowState& st,
 #pragma unroll
   for (int c = 0; c < kMaxBlockChunks; ++c) {
     if (c * kWarp >= B) break;
-    const bool vis = isfinite(sc[c]);
-    const float p = vis ? expf(__fsub_rn(sc[c], safe)) : 0.f;
-    unsigned mask = __ballot_sync(kFull, vis);
+    const float p = block_prob(sc[c], rs.safe);
+    unsigned mask = __ballot_sync(kFull, isfinite(sc[c]));
     while (mask) {
       const int t = __ffs(mask) - 1;
       mask &= mask - 1;
@@ -143,11 +184,11 @@ __device__ __forceinline__ void merge_block(RowState& st,
       }
     }
   }
-  st.l = __fadd_rn(__fmul_rn(st.l, corr), psum);
+  st.l = fold(st.l, rs.corr, psum);
 #pragma unroll
   for (int i = 0; i < kMaxDPerLane; ++i)
-    st.acc[i] = __fadd_rn(__fmul_rn(st.acc[i], corr), pv[i]);
-  st.m = new_m;
+    st.acc[i] = fold(st.acc[i], rs.corr, pv[i]);
+  st.m = rs.m;
 }
 
 // out = acc / max(l, 1e-20): a row that saw no key (an idle decode slot)

@@ -7,70 +7,323 @@
 // slot) and prefill (S = 1, Q = bucket rows, per-row horizons
 // offset + j + 1).
 //
-// Bound on an H100: bytes.  Each visible key and value row is read once
-// per (slot, head) and is used by only Q queries, so at decode the work
-// is ~0.5 flop per byte, far below the card's fp32 balance point; the
-// least time is the visible K/V bytes over 3.35 TB/s.
+// Bound on an H100: bytes at decode, operations at prefill.  Each
+// visible key and value row is read once per (slot, head) and is used by
+// only Q queries, so at decode the work is ~0.5 flop per byte, far below
+// the card's fp32 balance point, and the least time is the visible K/V
+// bytes over 3.35 TB/s; a 256-row prefill bucket uses each row ~140
+// times, and its 4 D flops a (row, visible key) over 67 TFLOP/s bound it.
 //
-// Design: the kernel reads layer i's pages through the page table and
-// never materialises the gathered (S, H, Tcap, D) context the JAX
-// package builds.  One warp per (slot, head, query row); it visits all
-// max_pages table entries in order, one page (block = page_size keys)
-// at a time, with the validity mask "position < horizon" — keys past the
-// horizon are never loaded, so a fully masked page costs no memory
-// traffic and is an exact no-op in the merge.  The merge is
-// online_softmax.cuh's, shared with flash_attention.cu, so a decode row
-// equals the matching row of the full-context forward bit for bit.  A
-// slot with horizon 0 sees no key and gives 0.
+// The bits are online_softmax.cuh's, the same as K1's (serving's oracle
+// is K1 with block = page): per key the warp dot of lane_dot and
+// warp_sum; per page the block max in key order, rescale, block_prob,
+// and the probability and value sums in key order; then the fold of the
+// pages in order.  Only the fold is serial: a score depends on its key
+// alone, the running max after page b is the prefix max of the block
+// maxima, and page b's sums depend only on its keys and that max.  So
+// the kernel spreads a row's pages over the warps of a CTA without
+// changing one operation:
+//
+//   1. scores: a warp per page loads the page's key rows into registers
+//      (16 keys at once, every load in flight together) and forms each
+//      visible key's score for every query row of the tile; the lane of
+//      a row then takes the page's block max in key order;
+//   2. sums: a warp per page scans the block maxima into the prefix max
+//      (rescale), loads the page's value rows, and forms the probability
+//      sum and the value sum of each row in key order;
+//   3. fold: the threads, one per (row, element), fold the pages in page
+//      order into (l, acc) from m = -inf, l = 0, acc = 0.
+//
+// Each key and value row is read by one CTA and, at decode (one query
+// row a CTA), used once, so staging pages through a shared-memory ring
+// would add a trip through shared memory per byte and save no read from
+// memory.  A warp holds a 16-key slice in registers instead, its loads
+// issued together (16 warps x 8 KB in flight a CTA at D = 128); at
+// prefill the slice serves every row of the tile from registers.
+//
+// Pages are taken in chunks that fit shared memory; the running max
+// carries from chunk to chunk.  A CTA owns one (slot, head) and a tile of
+// query rows: one row at decode (S x H CTAs of 16 warps each load a
+// slot's pages), 16 rows at prefill, where every loaded page serves all
+// the rows of the tile.  The kernel reads each page through the table
+// and never materialises the gathered context the JAX package builds;
+// keys past every row's horizon are never loaded.  The pages past the
+// tile's horizons are masked for every row: each folds with the
+// correction rescale(m, -inf) gives, 1 for a finite m and 0 for -inf,
+// and adds 0; x * c + 0 is the same after one such fold as after many,
+// so the kernel folds them as one.  A slot with horizon 0 gives 0.
 #include "error.cuh"
 #include "online_softmax.cuh"
+#include "per_device.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+using mxt::kFull;
+using mxt::kWarp;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * mxt::kWarp)
-paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k_pool,
-                       const float* __restrict__ v_pool,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ lengths,
-                       float* __restrict__ out, int n_rows, int H, int Q,
-                       int D, int page, int max_pages, int per_row,
-                       float scale) {
-  const int lane = threadIdx.x % mxt::kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / mxt::kWarp;
-  if (row >= n_rows) return;  // uniform over the warp
-  const int qi = row % Q;
-  const int h = (row / Q) % H;
-  const int s = row / (Q * H);
-  const int horizon = per_row ? lengths[s * Q + qi] : lengths[s];
-  const int* table = tables + static_cast<size_t>(s) * max_pages;
-  float qs[mxt::kMaxDPerLane];
-  mxt::load_scaled_query(qs, q + static_cast<size_t>(row) * D, D, scale,
-                         lane);
-  mxt::RowState st;
-  mxt::row_init(st);
-  for (int b = 0; b < max_pages; ++b) {
-    const int start = b * page;
-    const size_t pg = start < horizon ? table[b] : 0;
-    auto rows = [&](int j, const float*& kp, const float*& vp) {
-      if (start + j >= horizon) return false;
-      const size_t off = ((pg * page + j) * H + h) * static_cast<size_t>(D);
-      kp = k_pool + off;
-      vp = v_pool + off;
-      return true;
-    };
-    mxt::merge_block(st, qs, D, page, lane, rows);
+constexpr int kKeys = 16;                  // keys a warp holds at once
+constexpr int kPrefillRows = 16;           // query rows a CTA shares
+constexpr int kSmemBudget = 96 * 1024;     // bytes, sets the chunk length
+constexpr int kSmemMax = 227 * 1024;
+
+struct Params {
+  const float* q;
+  const float* k_pool;
+  const float* v_pool;
+  const int* tables;
+  const int* lengths;
+  float* out;
+  int H, Q, D, page, max_pages, per_row, tiles, chunk;
+  float scale;
+};
+
+// Offsets (in 4-byte words) of a CTA's shared arrays.  Per tile row: the
+// scaled query and the accumulator (D each), l, the running max after
+// the previous chunk (two, alternating), the horizon; per row and page
+// of the chunk: the scores, block max, correction, probability sum and
+// value sum (D).
+struct Layout {
+  int qs, acc, l, mrun, hz, sc, bmax, corr, psum, pv, words;
+  __host__ __device__ Layout(int rows, int D, int page, int chunk) {
+    qs = 0;
+    acc = qs + rows * D;
+    l = acc + rows * D;
+    mrun = l + rows;
+    hz = mrun + 2 * rows;
+    sc = hz + rows;
+    bmax = sc + rows * chunk * page;
+    corr = bmax + rows * chunk;
+    psum = corr + rows * chunk;
+    pv = psum + rows * chunk;
+    words = pv + rows * chunk * D;
   }
-  mxt::store_row(st, out + static_cast<size_t>(row) * D, D, lane);
+};
+
+// Loads one 16-key slice of a page's rows: key j (j < n) from
+// base + j * stride, lane elements d = lane + 32 i (0 past D or n).
+template <int DPL>
+__device__ __forceinline__ void load_keys(float (&kr)[kKeys][DPL],
+                                          const float* __restrict__ base,
+                                          size_t stride, int n, int D,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j)
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + kWarp * i;
+      kr[j][i] = (j < n && d < D) ? base[j * stride + d] : 0.f;
+    }
+}
+
+// QT query rows a CTA, DPL elements of a row a lane, NW warps.
+template <int QT, int DPL, int NW>
+__global__ void __launch_bounds__(NW * kWarp)
+paged_attention_kernel(const Params p) {
+  constexpr int kThreads = NW * kWarp;
+  extern __shared__ float smem[];
+  const Layout L(QT, p.D, p.page, p.chunk);
+  float* qs = smem + L.qs;
+  float* acc = smem + L.acc;
+  float* lsum = smem + L.l;
+  float* mrun = smem + L.mrun;
+  int* hz = reinterpret_cast<int*>(smem + L.hz);
+  float* sc = smem + L.sc;
+  float* bmax = smem + L.bmax;
+  float* corr = smem + L.corr;
+  float* psum = smem + L.psum;
+  float* pv = smem + L.pv;
+
+  const int D = p.D, page = p.page, chunk = p.chunk;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int sh = blockIdx.x / p.tiles;  // s * H + h
+  const int h = sh % p.H;
+  const int s = sh / p.H;
+  const int r0 = (blockIdx.x % p.tiles) * QT;
+  const int rows = min(QT, p.Q - r0);
+  const int cap = p.max_pages * page;
+
+  for (int r = tid; r < rows; r += kThreads) {
+    const int n = p.per_row ? p.lengths[s * p.Q + r0 + r] : p.lengths[s];
+    hz[r] = min(max(n, 0), cap);
+    lsum[r] = 0.f;
+    mrun[r] = -INFINITY;
+  }
+  const float* qrow = p.q + (static_cast<size_t>(sh) * p.Q + r0) * D;
+  for (int e = tid; e < rows * D; e += kThreads) {
+    qs[e] = __fmul_rn(qrow[e], p.scale);  // load_scaled_query's rounding
+    acc[e] = 0.f;
+  }
+  __syncthreads();
+  int hmax = 0;
+  for (int r = 0; r < rows; ++r) hmax = max(hmax, hz[r]);
+  const int npages = (hmax + page - 1) / page;  // pages some row sees
+  const int* table = p.tables + static_cast<size_t>(s) * p.max_pages;
+  const size_t key_stride = static_cast<size_t>(p.H) * D;
+  const size_t page_words = static_cast<size_t>(page) * key_stride;
+
+  int cur = 0;  // which half of mrun holds the max before this chunk
+  for (int c0 = 0; c0 < npages; c0 += chunk) {
+    const int nb = min(chunk, npages - c0);
+    // 1. scores, then each row's block max in key order
+    for (int bl = warp; bl < nb; bl += NW) {
+      const int start = (c0 + bl) * page;
+      const float* kp = p.k_pool + table[c0 + bl] * page_words + h * D;
+      for (int kc = 0; kc < page; kc += kKeys) {
+        float kr[kKeys][DPL];
+        load_keys(kr, kp + kc * key_stride, key_stride,
+                  min(kKeys, min(page, hmax - start) - kc), D, lane);
+        for (int r = 0; r < rows; ++r) {
+          const int vis = hz[r] - start - kc;  // keys of the slice r sees
+          float mine = -INFINITY;
+          if (vis > 0) {
+            float qv[DPL];
+#pragma unroll
+            for (int i = 0; i < DPL; ++i) {
+              const int d = lane + kWarp * i;
+              qv[i] = d < D ? qs[r * D + d] : 0.f;
+            }
+#pragma unroll
+            for (int j = 0; j < kKeys; ++j) {
+              const float sj = mxt::warp_sum(mxt::lane_dot(
+                  qv, [&](int i) { return kr[j][i]; }, D, lane));
+              if (lane == j && j < vis) mine = sj;
+            }
+          }
+          if (lane < kKeys && kc + lane < page)
+            sc[(r * chunk + bl) * page + kc + lane] = mine;
+        }
+      }
+      __syncwarp();
+      for (int r = lane; r < rows; r += kWarp) {
+        const float* sr = sc + (r * chunk + bl) * page;
+        float bm = -INFINITY;  // masked keys are -inf: fmaxf keeps bm
+        for (int j = 0; j < page; ++j) bm = fmaxf(bm, sr[j]);
+        bmax[r * chunk + bl] = bm;
+      }
+    }
+    __syncthreads();
+    // 2. the prefix max, then probability and value sums in key order
+    for (int bl = warp; bl < nb; bl += NW) {
+      const int start = (c0 + bl) * page;
+      float safe = 0.f;  // lane r: row r's shift on this page
+      for (int r = lane; r < rows; r += kWarp) {
+        float m = mrun[cur * QT + r];
+        for (int j = 0; j < bl; ++j) m = fmaxf(m, bmax[r * chunk + j]);
+        const mxt::Rescale rs = mxt::rescale(m, bmax[r * chunk + bl]);
+        corr[r * chunk + bl] = rs.corr;
+        safe = rs.safe;
+        if (bl == nb - 1) mrun[(cur ^ 1) * QT + r] = rs.m;
+      }
+      const float* vp = p.v_pool + table[c0 + bl] * page_words + h * D;
+      for (int kc = 0; kc < page; kc += kKeys) {
+        float vr[kKeys][DPL];
+        load_keys(vr, vp + kc * key_stride, key_stride,
+                  min(kKeys, min(page, hmax - start) - kc), D, lane);
+        for (int r = 0; r < rows; ++r) {
+          const int at = r * chunk + bl;
+          const float shift = __shfl_sync(kFull, safe, r);
+          const float sl = (lane < kKeys && kc + lane < page)
+                               ? sc[at * page + kc + lane] : -INFINITY;
+          const float pr = mxt::block_prob(sl, shift);
+          const unsigned vis = __ballot_sync(kFull, isfinite(sl));
+          float ps = kc ? psum[at] : 0.f;
+          float acc_v[DPL];
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + kWarp * i;
+            acc_v[i] = (kc && d < D) ? pv[at * D + d] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < kKeys; ++j) {
+            if (!(vis >> j & 1u)) continue;  // uniform over the warp
+            const float pt = __shfl_sync(kFull, pr, j);
+            ps = __fadd_rn(ps, pt);
+#pragma unroll
+            for (int i = 0; i < DPL; ++i)
+              if (lane + kWarp * i < D)
+                acc_v[i] = __fadd_rn(acc_v[i], __fmul_rn(pt, vr[j][i]));
+          }
+          if (lane == 0) psum[at] = ps;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + kWarp * i;
+            if (d < D) pv[at * D + d] = acc_v[i];
+          }
+        }
+        __syncwarp();  // lane 0's psum, read by every lane at the next kc
+      }
+    }
+    __syncthreads();
+    // 3. the fold, in page order (the next chunk's scores may overlap it:
+    // they write only sc and bmax)
+    for (int e = tid; e < rows * D; e += kThreads) {
+      const int r = e / D, d = e % D;
+      float a = acc[e];
+      for (int bl = 0; bl < nb; ++bl)
+        a = mxt::fold(a, corr[r * chunk + bl], pv[(r * chunk + bl) * D + d]);
+      acc[e] = a;
+    }
+    for (int r = tid; r < rows; r += kThreads) {
+      float x = lsum[r];
+      for (int bl = 0; bl < nb; ++bl)
+        x = mxt::fold(x, corr[r * chunk + bl], psum[r * chunk + bl]);
+      lsum[r] = x;
+    }
+    cur ^= 1;
+  }
+  __syncthreads();
+  // the pages past every horizon (one fold stands for all), then
+  // store_row's division
+  float* orow = p.out + (static_cast<size_t>(sh) * p.Q + r0) * D;
+  for (int e = tid; e < rows * D; e += kThreads) {
+    const int r = e / D;
+    float a = acc[e], x = lsum[r];
+    if (npages < p.max_pages) {
+      const float c = mxt::rescale(mrun[cur * QT + r], -INFINITY).corr;
+      a = mxt::fold(a, c, 0.f);
+      x = mxt::fold(x, c, 0.f);
+    }
+    orow[e] = __fdiv_rn(a, fmaxf(x, 1e-20f));
+  }
+}
+
+// Decode (one row a CTA) runs 16 warps, so a slot's pages take fewer
+// rounds of loads; prefill tiles, and rows past D = 128, 8 warps (the
+// registers of a 16-key slice, and two CTAs a SM).
+template <int QT, int DPL, int NW = (QT == 1 && DPL <= 4) ? 16 : 8>
+int launch(Params p, int S, cudaStream_t stream) {
+  p.tiles = (p.Q + QT - 1) / QT;
+  const int fixed = Layout(QT, p.D, p.page, 0).words;
+  const int per_page = Layout(QT, p.D, p.page, 1).words - fixed;
+  p.chunk = max(1, min(p.max_pages, (kSmemBudget / 4 - fixed) / per_page));
+  const size_t bytes = 4u * Layout(QT, p.D, p.page, p.chunk).words;
+  if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<bool> opted[mxt::kMaxDevices];
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = mxt::opt_in_smem(
+        paged_attention_kernel<QT, DPL, NW>, kSmemMax, opted);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  paged_attention_kernel<QT, DPL, NW>
+      <<<S * p.H * p.tiles, NW * kWarp, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int QT>
+int launch_rows(const Params& p, int S, cudaStream_t stream) {
+  if (p.D <= 32) return launch<QT, 1>(p, S, stream);
+  if (p.D <= 64) return launch<QT, 2>(p, S, stream);
+  if (p.D <= 128) return launch<QT, 4>(p, S, stream);
+  return launch<QT, 8>(p, S, stream);
 }
 
 }  // namespace
 
 // q, out: (S, H, Q, D); k_pool, v_pool: one layer's (pages + 1, page, H, D)
 // pool; tables: (S, max_pages) int32; lengths: (S,) int32, or (S, Q) when
-// per_row.  All contiguous on the current device.  Returns
+// per_row.  All contiguous on the current device; D <= 256.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int mxt_paged_attention(const void* q, const void* k_pool,
                                    const void* v_pool, const void* tables,
@@ -78,13 +331,14 @@ extern "C" int mxt_paged_attention(const void* q, const void* k_pool,
                                    int H, int Q, int D, int page,
                                    int max_pages, int per_row, float scale,
                                    void* stream) {
-  const int n_rows = S * H * Q;
-  const int grid = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  paged_attention_kernel<<<grid, kWarpsPerBlock * mxt::kWarp, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<float*>(out), n_rows, H,
-      Q, D, page, max_pages, per_row, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (D > mxt::kMaxHeadDim || page > mxt::kMaxBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k_pool),
+           static_cast<const float*>(v_pool),
+           static_cast<const int*>(tables), static_cast<const int*>(lengths),
+           static_cast<float*>(out), H, Q, D, page, max_pages, per_row, 0, 0,
+           scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  return Q == 1 ? launch_rows<1>(p, S, st)
+                : launch_rows<kPrefillRows>(p, S, st);
 }

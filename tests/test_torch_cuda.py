@@ -98,6 +98,59 @@ def test_paged_row_equals_flash_row_bitwise(dev):
     assert torch.equal(row[0, :, 0], full[0, :, t - 1])
 
 
+def _paged_sequence(dev, page, h, d, n_pages, max_pages):
+    """q, k, v of one (1, h, n_pages * page, d) sequence, its K1 rows
+    (block = page), and pools holding it through a shuffled table of
+    ``max_pages`` entries; every other pool page is NaN, which no visible
+    key may read."""
+    t = n_pages * page
+    q, k, v = (_randn(dev, 1, h, t, d, seed=10 + s) for s in range(3))
+    full = A.flash_attention(q, k, v, causal=True, block=page)
+    rs = np.random.RandomState(page + h + d)
+    ids = rs.permutation(max_pages + 3)[:max_pages]
+    k_pool = torch.full((max_pages + 4, page, h, d), float("nan"),
+                        device=dev)
+    v_pool = k_pool.clone()
+    for b in range(n_pages):
+        k_pool[ids[b]] = k[0, :, b * page:(b + 1) * page].transpose(0, 1)
+        v_pool[ids[b]] = v[0, :, b * page:(b + 1) * page].transpose(0, 1)
+    table = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    return q, full, k_pool, v_pool, table
+
+
+# serving's geometry, and the odd geometries of the tests above
+@pytest.mark.parametrize("page,h,d", [(16, 16, 128), (8, 4, 64),
+                                      (16, 2, 128)])
+def test_paged_decode_and_prefill_equal_flash_rows_bitwise(dev, page, h, d):
+    n_pages = 64
+    q, full, k_pool, v_pool, table = _paged_sequence(dev, page, h, d,
+                                                     n_pages, n_pages + 2)
+    # decode, 8 slots over the same pages: horizons of none, one key, a
+    # page edge and the key after it, and up to all 64 pages
+    hz = [0, 1, page, page + 1, 2 * page, 17 * page + 3,
+          n_pages * page - 1, n_pages * page]
+    tables = table.expand(8, -1).contiguous()
+    lengths = torch.tensor(hz, dtype=torch.int32, device=dev)
+    qd = torch.stack([q[0, :, max(n - 1, 0)] for n in hz])[:, :, None]
+    before = _cuda.launches["paged_attention"]
+    out = A.paged_attention(qd.contiguous(), k_pool, v_pool, tables,
+                            lengths)
+    assert _cuda.launches["paged_attention"] == before + 1
+    assert torch.count_nonzero(out[0]) == 0
+    for i, n in enumerate(hz[1:], 1):
+        assert torch.equal(out[i, :, 0], full[0, :, n - 1]), n
+    # prefill: per-row horizons offset + j + 1, a full and a ragged tile
+    for offset, nq in ((32, 256), (5, 37)):
+        rows = q[:, :, offset:offset + nq].contiguous()
+        horizons = torch.arange(offset + 1, offset + nq + 1,
+                                dtype=torch.int32, device=dev)[None]
+        out = A.paged_attention(rows, k_pool, v_pool, table[None],
+                                horizons)
+        assert torch.equal(out[0], full[0, :, offset:offset + nq])
+        assert torch.equal(out, A.paged_attention(rows, k_pool, v_pool,
+                                                  table[None], horizons))
+
+
 @pytest.mark.parametrize("m,f,c", [(1, 70, 33), (8, 96, 64),
                                    (40, 130, 200)])
 def test_mi_linear_kernel_matches_plain_and_is_row_invariant(dev, m, f, c):
@@ -115,13 +168,50 @@ def test_mi_linear_kernel_matches_plain_and_is_row_invariant(dev, m, f, c):
                                got[r:r + 1])
 
 
+# every projection of the serving path, and two shapes off the tiles (F
+# not a multiple of the 16-feature slab; C past a 128-column stage, and C
+# odd, which the tiled kernel takes)
+@pytest.mark.parametrize("f,c", [(6144, 2048), (2048, 2048), (8192, 2048),
+                                 (2048, 8192), (32768, 2048), (70, 200),
+                                 (70, 33)])
+def test_mi_linear_rows_do_not_depend_on_m(dev, f, c):
+    x = _randn(dev, 300, c, seed=4)
+    w, b = 0.02 * _randn(dev, f, c, seed=5), 0.02 * _randn(dev, f, seed=6)
+    full = L.mi_linear(x[3:259], w, b)
+    assert torch.equal(full, L.mi_linear(x[3:259], w, b))
+    for m in (1, 7, 8, 16, 17, 64, 256):
+        got = L.mi_linear(x[3:3 + m], w, b)
+        assert torch.equal(got, full[:m]), m
+        assert torch.equal(got, L.mi_linear(x[3:3 + m], w, b)), m
+    mag = x[3:11].abs() @ w.abs().t() + b.abs()
+    diff = (full[:8] - L.mi_linear_plain(x[3:11], w, b)).abs()
+    assert bool((diff <= 2 * c * 2.0 ** -24 * mag).all())
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     x = _randn(dev, 4, 8).double()
     with pytest.raises(MXNetError, match="float32"):
         L.mi_linear(x, x)
+    with pytest.raises(MXNetError, match="does not take"):
+        L.mi_linear(x.float(), _randn(dev, 3, 5))
     q = _randn(dev, 1, 1, 8, 8)
     with pytest.raises(MXNetError, match="window"):
         A.flash_attention(q, q, q, window=2)
+    pool = _randn(dev, 3, 8, 1, 8)
+    tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    lengths = torch.ones(1, dtype=torch.int32, device=dev)
+    q = _randn(dev, 1, 1, 1, 8)
+    with pytest.raises(MXNetError, match="float32"):
+        A.paged_attention(q.double(), pool, pool, tables, lengths)
+    with pytest.raises(MXNetError, match="int32"):
+        A.paged_attention(q, pool, pool, tables.long(), lengths)
+    with pytest.raises(MXNetError, match="out of the kernel's range"):
+        big = _randn(dev, 3, 8, 1, 320)
+        A.paged_attention(_randn(dev, 1, 1, 1, 320), big, big, tables,
+                          lengths)
+    with pytest.raises(MXNetError, match="out of the kernel's range"):
+        wide = _randn(dev, 3, 256, 1, 8)
+        A.paged_attention(q, wide, wide, tables, lengths)
 
 
 def test_serve_decode_bitexact_on_the_card(dev):
