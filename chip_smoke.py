@@ -11,8 +11,12 @@ a checkout that holds ``mxnet_tpu_torch/``):
 1. card — the card's name and power limit from ``nvidia-smi``, then the
    build of every kernel from ``mxnet_tpu_torch/csrc`` (build seconds).
 2. kernels — each hand-written kernel against its plain PyTorch version
-   at the serving and training paths' shapes (BatchNorm's K5/K6 at
-   ResNet-50's at batch 256; the bf16 tensor-core attention K7/K8 at the
+   at the serving and training paths' shapes (the fp32 flash forward K1
+   at the oracle's block 16 and fp32 training's block 128; its backward
+   K4 at fp32 training's n1 h16 T1024 D128 causal, rerun bit-equal,
+   linear in g, and no less accurate than half SDPA's fp32 backward
+   against fp64 truth; BatchNorm's K5/K6 at ResNet-50's at batch 256;
+   the bf16 tensor-core attention K7/K8 at the
    training path's n8 h16 T1024 D128 causal and at 30 ragged and
    head-dim cases, each rerun bit-equal and linear in g, and at the main
    shape no less accurate than SDPA against fp64 truth), with a stated
@@ -36,8 +40,8 @@ a checkout that holds ``mxnet_tpu_torch/``):
    paths alone (``*_host_ms``: calls enqueued back to back).  Before
    them, one ``sass`` line (tensor-core instructions in each kernel
    library, from ``cuobjdump --dump-sass``: K7 and K8 must show HGMMA)
-   and two ``ptxas`` lines (registers and spills of K7/K8, then of K3
-   and K2).
+   and three ``ptxas`` lines (registers and spills of K7/K8, of K3 and
+   K2, and of K1 and K4).
 3. invariance — rows of the exact projection (K3) and of LayerNorm at
    M = 256 are bit-identical to the same rows computed alone.
 4. serve — the transformer LM at the width of ``bench_transformer.py``'s
@@ -45,8 +49,9 @@ a checkout that holds ``mxnet_tpu_torch/``):
    1024; random weights from seed 0) serves 16 requests through the
    continuous-batching scheduler.  Every request's first-token logits,
    and every token's logits of two whole streams, must equal the port's
-   ``reference_last_logits`` bit for bit.  Launch counts are reset just
-   before this phase and read just after; every kernel must have run.
+   ``reference_last_logits`` bit for bit (``oracle_s``: the wall time of
+   those checks, K1 in each).  Launch counts are reset just before this
+   phase and read just after; every kernel must have run.
 5. train — the same LM trains through ``models.transformer.get_symbol``
    -> ``fused.TrainStep(optimizer="sgd", compute_dtype="bfloat16")`` ->
    ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
@@ -61,7 +66,8 @@ a checkout that holds ``mxnet_tpu_torch/``):
    8, where both bf16 steps are also held against the fp32 reference
    step and the kernel path must be no less accurate than the
    reference.  The fp32 step runs K1/K4, the bf16 one K7/K8; launches
-   are counted over each.
+   are counted over each.  The fp32 kernel step is then timed (host
+   clock, synced) and profiled for K1's and K4's device time.
 7. resnet — ResNet-50 (``models.resnet.get_symbol(num_classes=1000,
    num_layers=50, image_shape=(3, 224, 224))``, NCHW, ``bench.py``'s
    model at full width) trains through ``mx.mod.Module(sym,
@@ -132,6 +138,22 @@ LSE_ATOL = 5e-5
 SM90_FP64 = 1.25
 SM90_FP64_NOTE = ("max and mean |error| against an fp64 materialised "
                   "attention and its gradients, each <= 1.25 x SDPA's")
+# K4 against fp64 truth at the training shape: max and mean |error| of
+# dq, dk, dv each at most 2x SDPA's fp32 backward's
+K4_FP64 = 2.0
+K4_FP64_NOTE = ("max and mean |error| of dq, dk, dv against an fp64 "
+                "materialised attention's gradients, each <= 2 x SDPA's "
+                "fp32 backward's")
+# K4 against the plain version at n1 h16 T1024 D128, from the fp64
+# comparison at this shape (the k4_accuracy line; NVIDIA H100 80GB HBM3,
+# 700 W): K4's dq, dk, dv lay within 2.9e-6 of fp64 truth and the plain
+# version's within 7.6e-6 (its dV a single FMA chain over 1024 queries),
+# so the two lie within 1.1e-5 of each other; 2e-5 leaves room for
+# other inputs
+K4_T1024_ATOL = 2e-5
+K4_T1024_NOTE = ("atol 2e-5: K4 within 2.9e-6 and the plain version "
+                 "within 7.6e-6 of fp64 truth at this shape (k4_accuracy "
+                 "line), within 1.1e-5 of each other")
 BWD_ATOL = 2e-5
 BWD_NOTE = ("atol 2e-5: fp32 on both sides, sums over up to 37 terms of "
             "order 1 in other orders")
@@ -206,7 +228,8 @@ def kernel_sass(build_dir):
 def kernel_name(symbol):
     """A kernel's name and integer template arguments from its mangled
     symbol (``_ZN12_GLOBAL__N_113linear_kernelILi64E...`` ->
-    ``linear_kernel<64,...>``)."""
+    ``linear_kernel<64,...>``), also those inside a class argument
+    (``...dq_kernelINS_3CfgILi4EEEEEv...`` -> ``dq_kernel<4>``)."""
     if not symbol.startswith("_Z"):
         return symbol
     i = 3 if symbol.startswith("_ZN") else 2
@@ -218,10 +241,10 @@ def kernel_name(symbol):
         i += n.end()
         name = symbol[i:i + int(n.group())]
         i += int(n.group())
-    args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", symbol[i:])
+    args = (re.findall(r"L[a-z]+(-?\d+)E", symbol[i:])
+            if symbol[i:i + 1] == "I" else [])
     if args:
-        name += "<%s>" % ",".join(re.findall(r"L[a-z]+(-?\d+)E",
-                                             args.group(1)))
+        name += "<%s>" % ",".join(args)
     return name
 
 
@@ -264,15 +287,16 @@ def sm90_invariants(A, q, k, v, out, lse, g, causal, scale, got):
         raise AssertionError("K8: the result at 2 g is not twice that at g")
 
 
-def fp64_accuracy(q, k, v, g, scale, kernel, library):
+def fp64_accuracy(q, k, v, g, scale, kernel, library, plain=None):
     """Max and mean |error| of ``kernel`` and ``library`` (each (out, dq,
-    dk, dv) of causal attention over (n, h, T, D) bf16 inputs) against an
-    fp64 materialised attention and its gradients, one batch row at a
-    time; with the kernel's error over the library's."""
+    dk, dv) of causal attention over (n, h, T, D) inputs) against an fp64
+    materialised attention and its gradients, one batch row at a time;
+    with the kernel's error over the library's, and the ``plain``
+    version's errors where it is given."""
     import torch
 
     names = ("out", "dq", "dk", "dv")
-    sums = {name: [0.0, 0.0, 0.0, 0.0] for name in names}
+    sums = {name: [0.0] * 6 for name in names}
     t = q.shape[-2]
     mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     for i in range(q.shape[0]):
@@ -285,18 +309,22 @@ def fp64_accuracy(q, k, v, g, scale, kernel, library):
         truth = (o, scale * (ds @ k64), scale * (ds.transpose(-1, -2) @ q64),
                  p.transpose(-1, -2) @ g64)
         for j, name in enumerate(names):
-            for side, res in ((0, kernel), (2, library)):
+            for side, res in ((0, kernel), (2, library), (4, plain)):
+                if res is None:
+                    continue
                 e = (res[j][i].double() - truth[j]).abs()
                 sums[name][side] = max(sums[name][side], e.max().item())
                 sums[name][side + 1] += e.sum().item()
         del p, o, ds, truth
     count = q.numel()
     out = {}
-    for name, (kmax, ksum, lmax, lsum) in sums.items():
+    for name, (kmax, ksum, lmax, lsum, pmax, psum) in sums.items():
         out[name] = dict(kernel_max=kmax, kernel_mean=ksum / count,
                          sdpa_max=lmax, sdpa_mean=lsum / count,
                          max_ratio=kmax / max(lmax, 1e-30),
                          mean_ratio=ksum / max(lsum, 1e-30))
+        if plain is not None:
+            out[name].update(plain_max=pmax, plain_mean=psum / count)
     return out
 
 
@@ -352,6 +380,9 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     if any(len(r.tokens) != sconf.max_new for r in done):
         raise AssertionError("a request stopped short of max_new")
     checked = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_oracle = time.perf_counter()
     for sid, st in enumerate(streams):
         for seq, logits in st["checks"][:None if sid < whole_streams else 1]:
             if not np.isfinite(logits).all():
@@ -367,6 +398,7 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
             checked += 1
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t_oracle
     sess.prefill, sess.step = prefill_fn, step_fn
     return sess, dict(requests=n_requests, completed=summary["completed"],
                 tokens=summary["total_tokens"],
@@ -375,7 +407,8 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
                 ttft_p99_ms=summary["ttft_p99_s"] * 1e3,
                 decode_step_ms_mean=float(np.mean(step_ms)),
                 decode_steps=len(step_ms), makespan_s=makespan,
-                bitexact_logits_checked=checked)
+                bitexact_logits_checked=checked, oracle_s=oracle_s,
+                oracle_ms_per_check=oracle_s * 1e3 / max(checked, 1))
 
 
 def profiled_window(fn, groups):
@@ -549,9 +582,13 @@ def train_phase(dev, cfg, batch, steps=5):
     return stats, launches
 
 
-def step_update(dev, cfg, batch, compute_dtype, impl, bf16_exact=False):
+def step_update(dev, cfg, batch, compute_dtype, impl, bf16_exact=False,
+                timing=None):
     """The parameter update (new - old, in fp32) of one step from
-    ``init_state(seed=0)`` under ``MXNET_ATTN_IMPL=impl``."""
+    ``init_state(seed=0)`` under ``MXNET_ATTN_IMPL=impl``.  With a dict
+    ``timing`` (on the card), three more steps from the same state are
+    timed on the host clock (synced) and one is profiled, the flash
+    kernels' device time by kernel put into it."""
     import torch
 
     saved = os.environ.get("MXNET_ATTN_IMPL")
@@ -562,7 +599,23 @@ def step_update(dev, cfg, batch, compute_dtype, impl, bf16_exact=False):
         new, _, _, outs = step(params, aux, states, data, None)
         if not bool(torch.isfinite(outs[0]).all()):
             raise AssertionError("%s: non-finite outputs" % impl)
-        return {n: (new[n] - params[n]).float() for n in new}
+        update = {n: (new[n] - params[n]).float() for n in new}
+        if timing is not None:
+            del new, outs
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(params, aux, states, data, None)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prof = profiled_window(
+                lambda: step(params, aux, states, data, None),
+                (("flash_attention", ("flash_forward_kernel",)),
+                 ("flash_attention_backward", ("flash_bwd_",))))
+            timing.update(step_ms=ms, step_ms_mean=float(np.mean(ms)),
+                          profiled_step=prof)
+        return update
     finally:
         if saved is None:
             os.environ.pop("MXNET_ATTN_IMPL", None)
@@ -593,9 +646,12 @@ def parity_phase(dev, cfg, batch, compute_dtype):
     the fp32 reference step on the same (bf16-exact) token ids, the
     truth that says how much of the difference is bf16's own."""
     bf16 = compute_dtype is not None
-    kern = step_update(dev, cfg, batch, compute_dtype, "auto", bf16)
+    timing = {} if dev.type == "cuda" and not bf16 else None
+    kern = step_update(dev, cfg, batch, compute_dtype, "auto", bf16, timing)
     ref = step_update(dev, cfg, batch, compute_dtype, "reference", bf16)
     out = dict(kernel_vs_reference=spread(rel_l2(kern, ref)))
+    if timing:
+        out["kernel_step"] = timing
     if bf16:
         truth = step_update(dev, cfg, batch, None, "reference", True)
         kern_err, ref_err = rel_l2(kern, truth), rel_l2(ref, truth)
@@ -1151,6 +1207,10 @@ def main():
     log("ptxas", note="registers a thread and spill bytes of serving's "
         "decode kernels, K3 (linear) and K2 (paged_attention)",
         kernels=ptxas_report(build_dir, ("linear", "paged_attention")))
+    log("ptxas", note="registers a thread and spill bytes of the fp32 flash "
+        "kernels, K1 (flash_attention) and K4 (flash_attention_backward)",
+        kernels=ptxas_report(build_dir, ("flash_attention",
+                                         "flash_attention_backward")))
 
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = {}
@@ -1252,9 +1312,11 @@ def main():
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    # K1: causal flash forward; the serving oracle's block is the page
+    # K1: causal flash forward; the serving oracle's block is the page,
+    # fp32 training's 128
     for n, h, t, d, causal, block in ((1, 16, 256, 128, True, 16),
                                       (1, 16, 1024, 128, True, 16),
+                                      (1, 16, 1024, 128, True, 128),
                                       (1, 2, 37, 16, True, 16),
                                       (1, 2, 37, 16, False, 16)):
         q, k, v = randn(n, h, t, d), randn(n, h, t, d), randn(n, h, t, d)
@@ -1377,7 +1439,59 @@ def main():
         tolerance=SM90.TOLERANCE_NOTE, worst_error_over_bound=worst,
         rerun_bitequal=True, linear_in_g=True)
 
-    # K4 in fp32 at a small ragged shape (37 = 2 blocks of 16 + 5)
+    # K4 in fp32 at fp32 training's shape, against the plain version and,
+    # beside SDPA's fp32 backward, against fp64 truth; reruns bit-equal,
+    # K4(2g) == 2 K4(g)
+    n, h, t, d, block = 1, 16, 1024, 128, 128
+    scale = 1.0 / d ** 0.5
+    q, k, v, g = (randn(n, h, t, d) for _ in range(4))
+    out, lse = A._flash_forward_cuda(q, k, v, True, scale, block, True)
+    got = A._flash_backward_cuda(q, k, v, out, lse, g, True, scale, block)
+    want = A.flash_backward_plain(q, k, v, out, lse, g, True, scale, block)
+    again = A._flash_backward_cuda(q, k, v, out, lse, g, True, scale, block)
+    twice = A._flash_backward_cuda(q, k, v, out, lse, 2 * g, True, scale,
+                                   block)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K4: a rerun gave other bits")
+    if not all(torch.equal(2 * a, b) for a, b in zip(got, twice)):
+        raise AssertionError("K4: the result at 2 g is not twice that at g")
+    pairs = n * h * t * (t + 1) // 2
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=scale)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    record("flash_attention_backward", "n1-h16-T1024-D128-causal-fp32", err,
+           err <= K4_T1024_ATOL,
+           K4_T1024_NOTE + "; rerun bit-equal; K4(2g) == 2 K4(g)",
+           lambda: A._flash_backward_cuda(q, k, v, out, lse, g, True, scale,
+                                          block),
+           lambda: A.flash_backward_plain(q, k, v, out, lse, g, True, scale,
+                                          block),
+           lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
+                                       retain_graph=True),
+           nbytes=4 * 8 * n * h * t * d + 4 * n * h * t,
+           flops=10 * d * pairs)
+    sdpa_grads = torch.autograd.grad(sdpa_out, (qs, ks, vs), g)
+    acc = fp64_accuracy(q, k, v, g, scale, (out,) + tuple(got),
+                        (sdpa_out.detach(),) + tuple(sdpa_grads),
+                        plain=(out,) + tuple(want))
+    log("k4_accuracy", case="n1-h16-T1024-D128-causal-fp32", bound=K4_FP64,
+        tolerance=K4_FP64_NOTE,
+        # the kernel row's bound counts 10 D flops a visible pair; dQ's
+        # recompute of q.k and dO.v makes K4's own work 14 D
+        bound_ms_with_recompute=14 * d * pairs / FP32_FLOP_PER_S * 1e3,
+        **acc)
+    bad = [name for name, r in acc.items() if name != "out" and (
+        r["max_ratio"] > K4_FP64 or r["mean_ratio"] > K4_FP64)]
+    if bad:
+        raise AssertionError("K4 less accurate than SDPA's fp32 backward "
+                             "against fp64 in %r: %r" % (bad, acc))
+    del q, k, v, g, out, lse, got, want, again, twice, sdpa_out, qs, ks, vs
+    del sdpa_grads
+    torch.cuda.empty_cache()
+
+    # K4 in fp32 at a small ragged shape (37 = 2 blocks of 16 + 5), a
+    # correctness case
     for causal in (True, False):
         n, h, t, d, block = 1, 2, 37, 16, 16
         scale = 1.0 / d ** 0.5
@@ -1757,7 +1871,7 @@ def main():
         raise AssertionError("JAX or the JAX package was imported: %r"
                              % bad[:5])
     main_case = {"flash_attention": "n1-h16-T1024-D128-causal-b16",
-                 "flash_attention_backward": "n1-h2-T37-D16-causal-fp32",
+                 "flash_attention_backward": "n1-h16-T1024-D128-causal-fp32",
                  "flash_attention_sm90": "n8-h16-T1024-D128-causal-lse",
                  "flash_attention_backward_sm90": "n8-h16-T1024-D128-causal",
                  "paged_attention": "decode-S8-Q1",

@@ -11,10 +11,13 @@ process with the same sources reuses the libraries.  nvcc's output
 library as ``lib<source>.log``.
 
 Flags are per source (:func:`nvcc_flags`).  The exact sources — K1, K2,
-K3, K4 (``online_softmax.cuh``'s users and the projection), the
-BatchNorm sums and run-time ``rtc`` kernels — build with ``-fmad=false``,
-so that no add and multiply are contracted behind serving's bit-exactness
-contract.  The Hopper kernels K7/K8 (``*_sm90.cu``) build without it.
+K3 (``online_softmax.cuh``'s users and the projection), the BatchNorm
+sums and run-time ``rtc`` kernels — build with ``-fmad=false``, so that
+no add and multiply are contracted behind serving's bit-exactness
+contract.  The backward kernels K4 and K8 and the Hopper forward K7 build
+without it (:data:`SOURCE_FLAGS`): none has a bit contract, and
+contraction into FMA is fixed at compile time, so their reruns still
+give the same bits.
 
 Every C entry launches on the stream it is handed (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``;
@@ -52,7 +55,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "build", "mxnet_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 FAST_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
-SOURCE_FLAGS = {"flash_attention_sm90": FAST_FLAGS,
+SOURCE_FLAGS = {"flash_attention_backward": FAST_FLAGS,
+                "flash_attention_sm90": FAST_FLAGS,
                 "flash_attention_backward_sm90": FAST_FLAGS}
 
 _P = ctypes.c_void_p

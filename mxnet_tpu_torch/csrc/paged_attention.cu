@@ -152,7 +152,7 @@ paged_attention_kernel(const Params p) {
   }
   const float* qrow = p.q + (static_cast<size_t>(sh) * p.Q + r0) * D;
   for (int e = tid; e < rows * D; e += kThreads) {
-    qs[e] = __fmul_rn(qrow[e], p.scale);  // load_scaled_query's rounding
+    qs[e] = __fmul_rn(qrow[e], p.scale);  // K1's scaled query, rounded once
     acc[e] = 0.f;
   }
   __syncthreads();
@@ -275,7 +275,7 @@ paged_attention_kernel(const Params p) {
   }
   __syncthreads();
   // the pages past every horizon (one fold stands for all), then
-  // store_row's division
+  // K1's division
   float* orow = p.out + (static_cast<size_t>(sh) * p.Q + r0) * D;
   for (int e = tid; e < rows * D; e += kThreads) {
     const int r = e / D;

@@ -1,8 +1,10 @@
 """Emulation, on CPU float32 tensors, of the two orders in which the
 paged-attention kernel K2 can run one query row's online softmax.
 
-``merge_sequential`` is ``csrc/online_softmax.cuh``'s ``merge_block``
-applied block after block, as K1 (and K2 before its redesign) runs it.
+``merge_sequential`` is the order one warp gives a query row, block
+after block, as K1 and K2 ran it before their redesigns (the pieces are
+``csrc/online_softmax.cuh``'s; the tiled K1 keeps this order:
+``testing/flash_order.py``).
 ``merge_split`` is the order of the redesigned K2
 (``csrc/paged_attention.cu``): every score first, then the block maxima
 and their prefix max, then each block's probability and value sums
@@ -51,11 +53,11 @@ def scores(q, k):
     return lanes[:, 0]
 
 
-def _rescale(m, bmax):
+def _rescale(m, bmax, exp=_exp):
     """``online_softmax.cuh::rescale``: (new max, shift, correction)."""
     new_m = torch.fmax(m, bmax)
     safe = torch.where(torch.isfinite(new_m), new_m, _f32(0.0))
-    corr = torch.where(torch.isfinite(m), _exp(m - safe), _f32(0.0))
+    corr = torch.where(torch.isfinite(m), exp(m - safe), _f32(0.0))
     return new_m, safe, corr
 
 
@@ -63,9 +65,11 @@ def _fold(x, corr, part):
     return x * corr + part
 
 
-def merge_sequential(q, k, v, horizon, page):
-    """``merge_block`` over the ``len(k) // page`` blocks in order, keys
-    at positions >= ``horizon`` masked; returns (out (D,), l)."""
+def merge_sequential(q, k, v, horizon, page, exp=_exp):
+    """The one-warp-a-row online softmax over the blocks of ``page`` keys
+    of ``k`` in order, keys at positions >= ``horizon`` masked; returns
+    (out (D,), l).  ``exp`` is the shared exp (on the card, a kernel's
+    ``expf``, to hold a kernel's rows to these bits)."""
     m = _f32(_NEG_INF)
     l = _f32(0.0)
     acc = torch.zeros(v.shape[1], dtype=torch.float32)
@@ -77,12 +81,12 @@ def merge_sequential(q, k, v, horizon, page):
             s = scores(q, k[start + j:start + j + 1])[0]
             sc[j] = s
             bmax = torch.fmax(bmax, s)
-        m, safe, corr = _rescale(m, bmax)
+        m, safe, corr = _rescale(m, bmax, exp)
         psum = _f32(0.0)
         pv = torch.zeros_like(acc)
         for j in range(page):
             if torch.isfinite(sc[j]):
-                p = _exp(sc[j] - safe)
+                p = exp(sc[j] - safe)
                 psum = psum + p
                 pv = pv + p * v[start + j]
         l = _fold(l, corr, psum)

@@ -142,14 +142,18 @@ def test_kernel_path_raises_on_shapes_it_does_not_take(dtype, d):
 
 
 def test_exact_sources_keep_fmad_false_and_sm90_sources_drop_it():
+    """The exact sources build with -fmad=false; the sm90 kernels and the
+    fp32 backward K4 (no bit contract) build without it."""
     stems = {stem for stem, _, _ in _cuda.KERNELS.values()}
-    assert {"flash_attention_sm90", "flash_attention_backward_sm90"} < stems
+    fast = {"flash_attention_sm90", "flash_attention_backward_sm90",
+            "flash_attention_backward"}
+    assert fast < stems
     for stem in stems:
         flags = _cuda.nvcc_flags(stem)
         assert "arch=compute_90a,code=sm_90a" in flags
-        assert ("-fmad=false" in flags) == ("sm90" not in stem), stem
-    for stem in ("flash_attention", "flash_attention_backward",
-                 "paged_attention", "linear", "batch_norm"):
+        assert ("-fmad=false" in flags) == (stem not in fast), stem
+    for stem in ("flash_attention", "paged_attention", "linear",
+                 "batch_norm"):
         assert "-fmad=false" in _cuda.nvcc_flags(stem)
     assert "-fmad=false" in _cuda.NVCC_FLAGS  # run-time (rtc) sources
 

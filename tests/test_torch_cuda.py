@@ -7,7 +7,9 @@ that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: atol 1e-5 between an fp32 attention kernel and its plain
-version (unit-normal inputs, the reductions run in other orders); for
+version (unit-normal inputs, the reductions run in other orders), and
+K4_ATOL for the fp32 backward up to T = 1024, stated from its fp64
+comparison; for
 the bf16 tensor-core kernels K7/K8, the derived bound of
 ``mxnet_tpu_torch/testing/attention_sm90.py``; for the
 projection, the worst-case bound of two fp32 summation orders; and
@@ -24,10 +26,16 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as A
 from mxnet_tpu_torch.ops import linear as L
 from mxnet_tpu_torch.testing import attention_sm90 as sm90
+from mxnet_tpu_torch.testing import paged_order
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
+# K4 (fp32) against the plain version up to T = 1024: at n1 h16 T1024
+# D128 K4's gradients lay within 2.9e-6 of fp64 truth and the plain
+# version's within 7.6e-6 (chip_smoke.py's k4_accuracy line, NVIDIA H100
+# 80GB HBM3, 700 W), so the two within 1.1e-5 of each other
+K4_ATOL = 2e-5
 
 
 @pytest.fixture
@@ -96,6 +104,52 @@ def test_paged_row_equals_flash_row_bitwise(dev):
                             tables, torch.tensor([t], dtype=torch.int32,
                                                  device=dev))
     assert torch.equal(row[0, :, 0], full[0, :, t - 1])
+
+
+def _card_expf():
+    """``expf`` as the exact kernels compute it: a run-time kernel built
+    with their flags, one value a call, for ``merge_sequential``."""
+    from mxnet_tpu_torch import rtc
+
+    k = rtc.CudaKernel("if (threadIdx.x == 0) y[0] = expf(x[0]);",
+                       [((1,), "float32")], ["x", "y"], grid=1, block=32,
+                       name="card_expf")
+
+    def exp(x):
+        (y,) = k(x.reshape(1).cuda())
+        return y.handle.cpu().reshape(x.shape)
+
+    return exp
+
+
+# T ragged, at a tile edge and the training length; 64 heads give 32-row
+# tiles at T = 200 and 1024, one head 16-row tiles
+@pytest.mark.parametrize("t", [37, 200, 1024])
+@pytest.mark.parametrize("d", [40, 128])
+@pytest.mark.parametrize("block", [16, 128])
+def test_flash_rows_equal_merge_sequential_bitwise(dev, t, d, block):
+    """K1 rows equal the one-warp-a-row order (``paged_order.
+    merge_sequential`` with the card's expf) bit for bit, at the first
+    row, tile edges and the last row, causal and not; the rows of head 0
+    are the same bits whether the launch has 64 heads or one (other tile
+    heights), and a rerun repeats them."""
+    exp = _card_expf()
+    q, k, v = (_randn(dev, 64, t, d, seed=20 + s) for s in range(3))
+    scale = 1.0 / d ** 0.5
+    rows = sorted({r for r in (0, 15, 16, 31, 32, 63, 64, t - 1) if r < t})
+    for causal in (True, False):
+        full = A.flash_attention(q, k, v, causal=causal, block=block)
+        assert torch.equal(full, A.flash_attention(q, k, v, causal=causal,
+                                                   block=block))
+        one = A.flash_attention(q[:1], k[:1], v[:1], causal=causal,
+                                block=block)
+        assert torch.equal(one[0], full[0])
+        qs = q[0].cpu() * torch.tensor(scale)
+        kc, vc = k[0].cpu(), v[0].cpu()
+        for r in rows if causal else rows[::3]:
+            want, _ = paged_order.merge_sequential(
+                qs[r], kc, vc, r + 1 if causal else t, block, exp)
+            assert torch.equal(full[0, r].cpu(), want), (causal, r)
 
 
 def _paged_sequence(dev, page, h, d, n_pages, max_pages):
@@ -312,6 +366,34 @@ def test_flash_backward_kernel_matches_plain(dev, dtype, t, causal):
             torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
         else:
             _sm90_close(a, b, bound)
+
+
+@pytest.mark.parametrize("d", [16, 40, 64, 128, 256])
+@pytest.mark.parametrize("t", [37, 200, 1024])
+def test_flash_backward_fp32_matches_plain_rerun_bitwise_and_is_linear(
+        dev, t, d):
+    """K4 (fp32) at ragged T and the training length, every head-dim
+    class, causal and not: within K4_ATOL of the plain version, the same
+    bits when run again, and exactly twice its result at 2 g."""
+    q, k, v, g = (_randn(dev, 2, 2, t, d, seed=30 + s) for s in range(4))
+    scale = 1.0 / d ** 0.5
+    for causal in (True, False):
+        out, lse = A.flash_forward_plain(q, k, v, causal, scale, 16)
+        before = _cuda.launches["flash_attention_backward"]
+        got = A.flash_attention_backward(q, k, v, out, lse, g, causal,
+                                         scale, 16)
+        assert _cuda.launches["flash_attention_backward"] == before + 1
+        want = A.flash_backward_plain(q, k, v, out, lse, g, causal, scale,
+                                      16)
+        for a, b in zip(got, want):
+            assert a.shape == q.shape and a.dtype == torch.float32
+            torch.testing.assert_close(a, b, rtol=0, atol=K4_ATOL)
+        again = A.flash_attention_backward(q, k, v, out, lse, g, causal,
+                                           scale, 16)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        twice = A.flash_attention_backward(q, k, v, out, lse, 2 * g,
+                                           causal, scale, 16)
+        assert all(torch.equal(2 * a, b) for a, b in zip(got, twice))
 
 
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 256])

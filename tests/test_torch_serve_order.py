@@ -2,8 +2,8 @@
 
 Spreading one query row's pages over warps — every score, then the
 block maxima and their prefix max, then each page's probability and
-value sums, then the serial fold — runs the same fp32 operations as
-``merge_block`` page after page, so the two orders give the same bits
+value sums, then the serial fold — runs the same fp32 operations as one
+warp merging the row page after page, so the two orders give the same bits
 (``mxnet_tpu_torch/testing/paged_order.py`` emulates both with separate
 fp32 products and sums, the lane butterfly and one shared exp).  Both
 are also held against the JAX package's ``decode_attention`` on the
