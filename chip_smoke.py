@@ -30,10 +30,12 @@ a checkout that holds ``mxnet_tpu_torch/``):
    cold L2, each started behind a spin of the device so that the window
    holds the call's device work and not the host's launch path.
    Serving's decode kernels K2 (paged attention: decode over 8 slots at
-   18 and at 64 pages, and a 256-row prefill; the yardstick is SDPA over
-   the gathered context, masked to each row's horizon, checked against
-   the plain version) and K3 (every projection shape at M = 1, 8 and
-   256) must give the same bits when run again, and their lines add the
+   18 and at 64 pages, a 256-row prefill, and the speculative verify's 8
+   slots x 5 rows at per-row horizons over ~250 tokens; the yardstick is
+   SDPA over the gathered context, masked to each row's horizon, checked
+   against the plain version) and K3 (every projection shape at M = 1,
+   8, 40 — the verify's rows — and 256) must give the same bits when run
+   again, and their lines add the
    effective bandwidth (the bound's bytes over the kernel's time) beside
    the card's 3.35 TB/s, the kernel's and the library's times in the
    window without the spin (``*_ms_with_launch``), and their host launch
@@ -42,16 +44,31 @@ a checkout that holds ``mxnet_tpu_torch/``):
    library, from ``cuobjdump --dump-sass``: K7 and K8 must show HGMMA)
    and three ``ptxas`` lines (registers and spills of K7/K8, of K3 and
    K2, and of K1 and K4).
-3. invariance — rows of the exact projection (K3) and of LayerNorm at
-   M = 256 are bit-identical to the same rows computed alone.
+3. invariance — rows of the exact projection (K3) at M = 256 are
+   bit-identical to the same rows computed alone (M = 1) and forty at a
+   time (M = 40, the verify's rows) at every projection shape, and
+   LayerNorm's rows to the same rows alone.
 4. serve — the transformer LM at the width of ``bench_transformer.py``'s
    default model (8 layers, d_model 2048, 16 heads, vocab 32768, max_len
    1024; random weights from seed 0) serves 16 requests through the
-   continuous-batching scheduler.  Every request's first-token logits,
-   and every token's logits of two whole streams, must equal the port's
-   ``reference_last_logits`` bit for bit (``oracle_s``: the wall time of
-   those checks, K1 in each).  Launch counts are reset just before this
-   phase and read just after; every kernel must have run.
+   continuous-batching scheduler, every entry point of the session a CUDA
+   graph captured once in ``__init__`` (``capture_s``, ``graph_pool_mb``).
+   Every request's first-token logits, and every token's logits of two
+   whole streams, must equal the port's ``reference_last_logits`` bit for
+   bit (``oracle_s``: the wall time of those checks, K1 in each).  Launch
+   counts are reset just before this phase and read just after; every
+   kernel must have run, and the launches over the scheduler's run must
+   equal each graph's replays times the launches it recorded at capture.
+   The profile line then gives a full batch's decode steps three ways
+   (``sess.step()``, the graph's replays alone, and the eager decode
+   function on the same buffers) and one 256-row prefill.
+4b. spec — the same 16 requests on speculative sessions (``spec_k`` 4)
+   with the drafts ``layers:8`` (the identity draft), ``layers:2`` and
+   ``ngram``: every request's stream must equal the serve phase's, the
+   identity draft must accept every proposal, and the launches must be
+   the graphs' replays.  Each line gives the acceptance rate, tokens per
+   verify step, the spec step's host ms, a profiled window of two spec
+   steps of a full batch, and the verify and draft graphs' device ms.
 5. train — the same LM trains through ``models.transformer.get_symbol``
    -> ``fused.TrainStep(optimizer="sgd", compute_dtype="bfloat16")`` ->
    ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
@@ -113,6 +130,7 @@ a checkout that holds ``mxnet_tpu_torch/``):
 11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import re
@@ -328,26 +346,57 @@ def fp64_accuracy(q, k, v, g, scale, kernel, library, plain=None):
     return out
 
 
+def seeded_requests(cfg, n_requests, prompt_lens, max_new, arrival_gap_s):
+    """The serve and spec phases' traffic: ``n_requests`` greedy requests
+    of numpy-seeded prompts, ``arrival_gap_s`` apart."""
+    from mxnet_tpu_torch import serve
+
+    rs = np.random.RandomState(0)
+    return [serve.Request(rid=i, prompt=rs.randint(
+                1, cfg.vocab_size,
+                size=int(rs.randint(prompt_lens[0], prompt_lens[1] + 1))
+            ).tolist(), max_new=max_new, arrival_s=arrival_gap_s * i)
+            for i in range(n_requests)]
+
+
+def replayed_launches(sess, launched):
+    """Hold the kernel launches counted over a run (``launched``) against
+    the session's graph replays in that run times the launches each graph
+    recorded at capture; they must be equal (on the CPU both are empty).
+    Returns the replays by entry point.  Resets the session's replay
+    counts."""
+    rep = sess.graph_report()
+    want = {}
+    for name, per in rep["launches_per_replay"].items():
+        for kernel, n in per.items():
+            want[kernel] = want.get(kernel, 0) + rep["replays"][name] * n
+    got = {k: n for k, n in launched.items() if n}
+    if got != want:
+        raise AssertionError("kernel launches %r are not the graphs' "
+                             "replays x their launches %r" % (got, want))
+    for exe in sess.executables.values():
+        exe.replays = 0
+    return rep["replays"]
+
+
 def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
                 arrival_gap_s=0.05):
     """Serve ``n_requests`` greedy requests of numpy-seeded prompts through
     the continuous-batching scheduler on a session over ``init_params(cfg,
-    seed=0)``, then hold every request's first-token logits, and every
-    token's logits of ``whole_streams`` streams, against
-    ``reference_last_logits`` bit for bit.  Returns the phase's numbers."""
+    seed=0)`` (on the card: its entry points captured as CUDA graphs),
+    then hold every request's first-token logits, and every token's
+    logits of ``whole_streams`` streams, against ``reference_last_logits``
+    bit for bit.  Returns the session, the phase's numbers and each
+    request's token stream."""
     import torch
 
-    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch import _cuda, serve
 
     sess = serve.InferenceSession(serve.init_params(cfg, seed=0, device=dev),
                                   num_heads=cfg.num_heads, config=sconf,
                                   device=dev)
-    rs = np.random.RandomState(0)
-    reqs = [serve.Request(rid=i, prompt=rs.randint(
-                1, cfg.vocab_size,
-                size=int(rs.randint(prompt_lens[0], prompt_lens[1] + 1))
-            ).tolist(), max_new=sconf.max_new, arrival_s=arrival_gap_s * i)
-            for i in range(n_requests)]
+    reqs = seeded_requests(cfg, n_requests, prompt_lens, sconf.max_new,
+                           arrival_gap_s)
 
     # record what a client sees: per stream, each transcript beside the
     # logits that chose its next token
@@ -372,7 +421,10 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
         return toks, logits
 
     sess.prefill, sess.step = prefill, step
+    before = dict(_cuda.launches)
     done, makespan = serve.Scheduler(sess, policy="continuous").run(reqs)
+    replays = replayed_launches(sess, {k: n - before[k] for k, n
+                                       in _cuda.launches.items()})
     summary = serve.summarize(done, makespan)
     failed = [r.rid for r in done if r.failed]
     if failed or summary["completed"] != n_requests:
@@ -400,6 +452,7 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
         torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t_oracle
     sess.prefill, sess.step = prefill_fn, step_fn
+    graphs = sess.graph_report()
     return sess, dict(requests=n_requests, completed=summary["completed"],
                 tokens=summary["total_tokens"],
                 tokens_per_s=summary["tokens_per_sec"],
@@ -408,7 +461,12 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
                 decode_step_ms_mean=float(np.mean(step_ms)),
                 decode_steps=len(step_ms), makespan_s=makespan,
                 bitexact_logits_checked=checked, oracle_s=oracle_s,
-                oracle_ms_per_check=oracle_s * 1e3 / max(checked, 1))
+                oracle_ms_per_check=oracle_s * 1e3 / max(checked, 1),
+                capture_s=graphs["capture_s"],
+                graph_pool_mb=(graphs["graph_pool_bytes"] or 0) / 2.0 ** 20,
+                replays=replays,
+                launches_per_replay=graphs["launches_per_replay"]), \
+        {r.rid: list(r.tokens) for r in done}
 
 
 def profiled_window(fn, groups):
@@ -445,33 +503,137 @@ def profiled_window(fn, groups):
                 device_ms_by_group=by, top_kernels_ms=dict(top))
 
 
+SERVE_GROUPS = (("mi_linear", ("linear_kernel", "linear_stream_kernel")),
+                ("paged_attention", ("paged_attention_kernel",)),
+                ("flash_attention", ("flash_forward_kernel",)))
+
+
+def replay_ms(exe, reps=20):
+    """CUDA-event mean of ``reps`` back-to-back replays of ``exe``'s graph
+    over the inputs its last call left in its buffers: the graph's device
+    time without the host's part of a step (the weights, ~2 GB a decode
+    step, dwarf the 50 MB L2, so no flush)."""
+    import torch
+
+    exe.graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        exe.graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def fill_slots(sess, prompt_len=250, seed=1):
+    """Admit and prefill a request of ``prompt_len`` seeded tokens into
+    every slot; returns the prompts, one more than the slots."""
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(1, sess.model.vocab_size, size=prompt_len).tolist()
+               for _ in range(sess.config.slots + 1)]
+    for prompt in prompts[:-1]:
+        sess.prefill(sess.try_alloc(prompt_len, sess.config.max_new), prompt)
+    return prompts
+
+
 def profile_phase(sess, steps=4):
     """Device time by kernel over ``steps`` decode steps of a full batch
-    (every slot at a 250-token prompt) and over one 256-row prefill, with
-    the device's idle share of each window."""
-    groups = (("mi_linear", ("linear_kernel", "linear_stream_kernel")),
-              ("paged_attention", ("paged_attention_kernel",)),
-              ("flash_attention", ("flash_forward_kernel",)))
-    rs = np.random.RandomState(1)
-    prompts = [rs.randint(1, sess.model.vocab_size, size=250).tolist()
-               for _ in range(sess.config.slots + 1)]
-    slots = [sess.try_alloc(250, sess.config.max_new)
-             for _ in range(sess.config.slots)]
-    for slot, prompt in zip(slots, prompts):
-        sess.prefill(slot, prompt)
+    (every slot at a 250-token prompt) — the replayed graph through
+    ``sess.step()``, the graph's replays alone, and the eager decode
+    function on the same buffers (the yardstick the graph replaces) —
+    and over one 256-row prefill, with the device's idle share of each
+    window."""
+    prompts = fill_slots(sess)
     sess.step()  # warm
+    exe = sess.executables["decode"]
 
     def decode():
         for _ in range(steps):
             sess.step()
 
-    out = {"decode_steps": steps, "decode": profiled_window(decode, groups)}
-    sess.release(slots[-1])
+    def eager():  # the last step again: the same rows, the same bits
+        for _ in range(steps):
+            exe.fn(**exe.inputs)
+
+    out = {"decode_steps": steps,
+           "decode": profiled_window(decode, SERVE_GROUPS),
+           "decode_eager": profiled_window(eager, SERVE_GROUPS),
+           "decode_replay_ms": replay_ms(exe)}
+    eager()  # warm again after the profiler
+    slot = sess.active_slots()[-1]
+    sess.release(slot)
     slot = sess.try_alloc(250, sess.config.max_new)
     out["prefill_256"] = profiled_window(
-        lambda: sess.prefill(slot, prompts[-1]), groups)
+        lambda: sess.prefill(slot, prompts[-1]), SERVE_GROUPS)
     for slot in sess.active_slots():
         sess.release(slot)
+    return out
+
+
+def spec_phase(dev, cfg, params, sconf, reqs, want, steps=2):
+    """Serve ``reqs`` again on a speculative session (``sconf``'s
+    ``spec_k`` and ``draft``) over the serve phase's ``params``: every
+    request's stream must equal ``want`` (the serve phase's), the launches
+    must be the graphs' replays, and the identity draft (all the target's
+    layers) must accept every proposal.  Then ``steps`` spec steps of a
+    full batch at 250-token prompts are profiled and the verify and draft
+    graphs timed alone.  Returns the phase's numbers."""
+    from mxnet_tpu_torch import _cuda, serve
+
+    sess = serve.InferenceSession(params, num_heads=cfg.num_heads,
+                                  config=sconf, device=dev)
+    step_ms = []
+    spec_fn = sess.spec_step
+
+    def spec_step(limits=None):
+        t0 = time.perf_counter()
+        out = spec_fn(limits)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sess.spec_step = spec_step
+    before = dict(_cuda.launches)
+    done, makespan = serve.Scheduler(sess, policy="continuous").run(reqs)
+    replays = replayed_launches(sess, {k: n - before[k] for k, n
+                                       in _cuda.launches.items()})
+    got = {r.rid: list(r.tokens) for r in done}
+    if any(r.failed for r in done) or got != want:
+        bad = [r.rid for r in done if r.failed or got[r.rid] != want[r.rid]]
+        raise AssertionError("spec draft %s: streams of requests %r differ "
+                             "from the serve phase's" % (sconf.draft, bad))
+    rep = sess.spec_report()
+    if sconf.draft == "layers:%d" % cfg.num_layers \
+            and rep["acceptance_rate"] != 1.0:
+        raise AssertionError("the identity draft accepted %r, not all"
+                             % rep["acceptance_rate"])
+    summary = serve.summarize(done, makespan)
+    sess.spec_step = spec_fn
+    graphs = sess.graph_report()
+    out = dict(draft=sconf.draft, spec_k=sconf.spec_k, requests=len(reqs),
+               streams_equal_serve=True, tokens=summary["total_tokens"],
+               tokens_per_s=summary["tokens_per_sec"],
+               ttft_p50_ms=summary["ttft_p50_s"] * 1e3,
+               ttft_p99_ms=summary["ttft_p99_s"] * 1e3,
+               makespan_s=makespan, spec_steps=len(step_ms),
+               spec_step_ms_mean=float(np.mean(step_ms)),
+               capture_s=graphs["capture_s"],
+               graph_pool_mb=(graphs["graph_pool_bytes"] or 0) / 2.0 ** 20,
+               replays=replays,
+               launches_per_replay=graphs["launches_per_replay"], **rep)
+    if dev.type == "cuda":
+        fill_slots(sess)
+        sess.spec_step()  # warm
+        out["profile_steps"] = steps
+        out["profile"] = profiled_window(
+            lambda: [sess.spec_step() for _ in range(steps)], SERVE_GROUPS)
+        for name in ("verify", "draft"):
+            if name in sess.executables:
+                out["%s_replay_ms" % name] = replay_ms(
+                    sess.executables[name])
+        for slot in sess.active_slots():
+            sess.release(slot)
     return out
 
 
@@ -1540,17 +1702,24 @@ def main():
             cases.append(("prefill-S1-Q256-offset32", pools,
                           randn(1, h, 256, d), tables[:1].contiguous(),
                           torch.from_numpy(horizons.reshape(1, 256)).to(dev)))
+            # speculative verify: 8 slots, W = 5 rows each at horizons
+            # committed + j + 1 over a ~250-token context
+            committed = rs.randint(240, 251, size=(8, 1))
+            horizons = (committed + np.arange(5) + 1).astype(np.int32)
+            cases.append(("verify-S8-Q5", pools, randn(8, h, 5, d), tables,
+                          torch.from_numpy(horizons).to(dev)))
 
     def gathered_sdpa(q, pools, tab, hor):
         """SDPA over a case's context already gathered into (S, H, L, D),
         L = the longest horizon, each query row masked to its own
-        horizon: the active slots at decode (hor (S,)), slot 0's rows at
-        prefill (hor (1, Q)).  The gather itself is not timed."""
+        horizon: the active slots at decode (hor (S,)), every slot's rows
+        at prefill and verify (hor (S, Q)).  The gather itself is not
+        timed."""
         L = int(hor.max())
         keys = torch.arange(L, device=dev)
-        if hor.dim() == 2:  # prefill: one slot, a horizon a query row
-            live = torch.zeros(1, dtype=torch.long, device=dev)
-            mask = keys < hor[0][:, None]  # (Q, L)
+        if hor.dim() == 2:  # a horizon a query row
+            live = (hor.amax(-1) > 0).nonzero().flatten()
+            mask = keys < hor[live][:, None, :, None]  # (S, 1, Q, L)
         else:
             live = (hor > 0).nonzero().flatten()
             mask = keys < hor[live].reshape(-1, 1, 1, 1)  # (S, 1, 1, L)
@@ -1593,10 +1762,11 @@ def main():
     del cases, got, want
     torch.cuda.empty_cache()
 
-    # K3: every projection shape of the path at decode and prefill rows.
-    # Tolerance: both sides sum C products in fp32 in different orders,
-    # so each output may differ by at most 2 * C * 2^-24 * sum|x||w|.
-    for m in (1, 8, 256):
+    # K3: every projection shape of the path at decode rows, the
+    # speculative verify's 8 x 5 rows and prefill rows.  Tolerance: both
+    # sides sum C products in fp32 in different orders, so each output
+    # may differ by at most 2 * C * 2^-24 * sum|x||w|.
+    for m in (1, 8, 40, 256):
         for f, c in ((6144, 2048), (2048, 2048), (8192, 2048),
                      (2048, 8192), (32768, 2048)):
             x, w, b = randn(m, c), 0.02 * randn(f, c), 0.02 * randn(f)
@@ -1745,14 +1915,28 @@ def main():
         del x, xs, ce, p, p_want, got, want
 
     # -- 3. row-count invariance ------------------------------------------
-    x = randn(256, 2048)
-    for f in (6144, 8192, 32768):
-        w, b = 0.02 * randn(f, 2048), 0.02 * randn(f)
-        full = L.mi_linear(x, w, b)
+    # rows at M = 1 (decode's streaming kernel) and at M = 40 (the
+    # speculative verify's 8 slots x 5 rows, the tiled kernel) equal the
+    # same rows at M = 256, for every projection shape of a verify step
+    rows40 = 0
+    for f, c in ((6144, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
+                 (32768, 2048)):
+        xc = randn(256, c)
+        w, b = 0.02 * randn(f, c), 0.02 * randn(f)
+        full = L.mi_linear(xc, w, b)
         for r in range(0, 256, 5):
-            if not torch.equal(L.mi_linear(x[r:r + 1], w, b), full[r:r + 1]):
+            if not torch.equal(L.mi_linear(xc[r:r + 1], w, b),
+                               full[r:r + 1]):
                 raise AssertionError("mi_linear row %d differs at M=1 vs "
-                                     "M=256 (F=%d)" % (r, f))
+                                     "M=256 (F=%d, C=%d)" % (r, f, c))
+        for r in (0, 40, 107, 216):
+            if not torch.equal(L.mi_linear(xc[r:r + 40], w, b),
+                               full[r:r + 40]):
+                raise AssertionError("mi_linear rows %d..%d differ at M=40 "
+                                     "vs M=256 (F=%d, C=%d)"
+                                     % (r, r + 39, f, c))
+            rows40 += 40
+    x = randn(256, 2048)
     gamma, beta = 1 + 0.1 * randn(2048), 0.1 * randn(2048)
     from mxnet_tpu_torch.serve.model import _layer_norm
 
@@ -1762,8 +1946,9 @@ def main():
                            full[r:r + 1]):
             raise AssertionError("LayerNorm row %d differs at M=1 vs M=256"
                                  % r)
-    log("invariance", mi_linear_rows_checked=3 * len(range(0, 256, 5)),
-        layer_norm_rows_checked=256, bit_identical=True)
+    log("invariance", mi_linear_rows_checked=5 * len(range(0, 256, 5)),
+        mi_linear_m40_rows_checked=rows40, layer_norm_rows_checked=256,
+        bit_identical=True)
 
     # -- 4. serve at full width -------------------------------------------
     from mxnet_tpu_torch import serve
@@ -1775,8 +1960,8 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    sess, stats = serve_phase(dev, cfg, sconf, n_requests=16,
-                              prompt_lens=(24, 250))
+    sess, stats, streams = serve_phase(dev, cfg, sconf, n_requests=16,
+                                       prompt_lens=(24, 250))
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
     serve_kernels = ("flash_attention", "paged_attention", "mi_linear")
@@ -1786,7 +1971,25 @@ def main():
     log("serve", model="8L-d2048-h16-V32768",
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2.0 ** 30,
         launches=launches, **stats)
-    log("profile", **profile_phase(sess))
+    log("profile", nvidia_smi=smi, **profile_phase(sess))
+
+    # -- 4b. speculative decoding: the same traffic, three drafts ----------
+    for draft in ("layers:8", "layers:2", "ngram"):
+        torch.cuda.empty_cache()
+        _cuda.reset_launches()
+        spec = spec_phase(
+            dev, cfg, sess.params,
+            dataclasses.replace(sconf, spec_k=4, draft=draft),
+            seeded_requests(cfg, 16, (24, 250), sconf.max_new, 0.05),
+            streams)
+        spec_launches = dict(_cuda.launches)
+        if min(spec_launches[k] for k in ("paged_attention",
+                                          "mi_linear")) < 1:
+            raise AssertionError("a kernel never ran on the speculative "
+                                 "path: %r" % spec_launches)
+        for name, n in spec_launches.items():
+            launches[name] += n
+        log("spec", nvidia_smi=smi, launches=spec_launches, **spec)
     del sess
     torch.cuda.empty_cache()
 

@@ -24,7 +24,11 @@ stream), allocates nothing, and returns ``cudaGetLastError()``;
 :func:`launch` raises :class:`MXNetError` on a non-zero code.  The
 Python wrappers in ``ops/`` check device, dtype, shape and contiguity,
 allocate the outputs, and add one to :data:`launches` per kernel launch
-— the count that shows a run really went through the kernels.
+— the count that shows a run really went through the kernels.  A
+launch inside a CUDA-graph capture only records it: the serving session
+takes those counts back after each capture and adds them again at every
+replay of the graph (``serve/session.py``), so the count follows the
+launches that ran.
 
 :func:`build_source` is the same build for a source text handed over at
 run time (``rtc.CudaKernel``): one library per text, in

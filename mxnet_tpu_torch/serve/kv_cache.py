@@ -6,7 +6,10 @@ two fixed-shape pools on the session's device,
     k_pool, v_pool : (num_layers, num_pages + 1, page_size, H, D)
 
 and requests own *pages* (rows of the pool), recorded in a per-slot page
-table the kernels read directly, a plain (slots, max_pages) int32 array.
+table the kernels read directly, a plain (slots, table_width) int32 array:
+the reservable ``max_pages_per_slot`` columns plus ``table_pad`` columns
+that always hold the trash page, so that a speculative step's rows past
+a slot's reservation can never alias one of its real pages.
 
 The host bookkeeping is the JAX package's, unchanged: reservation
 admission (a request's whole worst case up front) or oversubscription
@@ -51,11 +54,13 @@ class PagedKVCache:
     """Fixed-pool paged KV cache for ``slots`` concurrent requests."""
 
     def __init__(self, num_layers, num_heads, head_dim, page_size,
-                 num_pages, slots, max_pages_per_slot, prefix_pages=0,
-                 device=None):
+                 num_pages, slots, max_pages_per_slot, table_pad=0,
+                 prefix_pages=0, device=None):
         if min(num_layers, num_heads, head_dim, page_size, num_pages,
                slots, max_pages_per_slot) < 1:
             raise MXNetError("PagedKVCache: all dimensions must be >= 1")
+        if table_pad < 0:
+            raise MXNetError("PagedKVCache: table_pad must be >= 0")
         if prefix_pages < -1:
             raise MXNetError("PagedKVCache: prefix_pages must be >= -1 "
                              "(-1 = unbounded retention, 0 = off)")
@@ -67,6 +72,9 @@ class PagedKVCache:
         self.num_pages = int(num_pages)
         self.slots = int(slots)
         self.max_pages_per_slot = int(max_pages_per_slot)
+        # all-trash columns past the reservable range: a clipped page
+        # index of a speculative row lands on trash, never on a real page
+        self.table_pad = int(table_pad)
         # prefix-cache retention cap: 0 disables the token-hash index,
         # -1 retains refcount-0 pages without bound, > 0 caps them LRU
         self.prefix_pages = int(prefix_pages)
@@ -80,7 +88,7 @@ class PagedKVCache:
         # already a valid heap)
         self._free_pages = list(range(self.num_pages))
         self._free_slots = list(range(self.slots))
-        self._tables = np.full((self.slots, self.max_pages_per_slot),
+        self._tables = np.full((self.slots, self.table_width),
                                self.trash_page, np.int32)
         self._pages_of = {}    # slot -> [page, ...] (prefix hits first)
         self._cached_len = {}  # slot -> tokens covered by mapped hits
@@ -94,6 +102,11 @@ class PagedKVCache:
         self.prefix_stats = {"lookups": 0, "hits": 0, "hit_pages": 0,
                              "hit_tokens": 0, "published_pages": 0,
                              "evicted_pages": 0, "cow_copies": 0}
+
+    @property
+    def table_width(self):
+        """Page-table columns: reservable pages + the all-trash pad."""
+        return self.max_pages_per_slot + self.table_pad
 
     # -- capacity ---------------------------------------------------------
     @property
@@ -412,7 +425,7 @@ class PagedKVCache:
 
     # -- kernel-facing views ----------------------------------------------
     def device_tables(self):
-        """The (slots, max_pages_per_slot) int32 page tables on the device,
+        """The (slots, table_width) int32 page tables on the device,
         uploaded only when the host copy changed since the last call."""
         if self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self._tables.copy()).to(

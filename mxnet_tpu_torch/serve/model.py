@@ -2,12 +2,14 @@
 
 Counterpart of ``mxnet_tpu/serve/model.py``: the same network as plain
 functions over one parameter dict under the training graph's names
-(``tok_embed_weight``, ``blk{i}_attn_in_weight`` ...), specialised three
+(``tok_embed_weight``, ``blk{i}_attn_in_weight`` ...), specialised five
 ways — the full-context reference forward, the bucketed prefill (full
-forward plus KV page writes) and the single-token decode step over every
-slot.  Op semantics follow the training kernels: ``FullyConnected``'s
-``(out, in)`` weight layout, ``LayerNorm`` at eps 1e-5, the head split
-``(n, t, h, d) -> (n, h, t, d)`` and the tanh-approximate GELU.
+forward plus KV page writes), the single-token decode step over every
+slot, and speculative decoding's two steps: the ``K + 1``-row verify and
+the draft's ``K + 1``-step proposal scan.  Op semantics follow the
+training kernels: ``FullyConnected``'s ``(out, in)`` weight layout,
+``LayerNorm`` at eps 1e-5, the head split ``(n, t, h, d) -> (n, h, t,
+d)`` and the tanh-approximate GELU.
 
 Bit-exactness contract: with ``exact=True`` every projection runs the
 M-invariant kernel K3 (:func:`..ops.linear.mi_linear`) and attention
@@ -18,9 +20,12 @@ full forward padded to the next ``page_size`` multiple with
 ``block = page_size`` — the attention-block geometry of the paged path.
 
 Where the JAX functions return donated copies of the KV pools, these
-update the pools in place and return only tokens and logits.  Hybrid
-window/SSM layers, KV quantization, weight quantization, the
-speculative verify and draft steps are ported in later slices.
+update the pools in place and return only tokens and logits.  Every
+argument that changes between calls is a tensor (prefill's ``length``
+and ``offset`` too) and nothing reads a value back to the host, so each
+function can be captured once as a CUDA graph and replayed over the same
+buffers (``session.py``).  Hybrid window/SSM layers, KV quantization and
+weight quantization are ported in later slices.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from ..ops.linear import mi_linear
 
 __all__ = ["ModelConfig", "exact_mode", "init_params", "params_from_numpy",
            "config_from_params", "full_forward", "prefill_forward",
-           "decode_step", "reference_last_logits"]
+           "decode_step", "verify_step", "draft_propose",
+           "reference_last_logits"]
 
 
 def exact_mode():
@@ -232,7 +238,8 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
 
     tokens: (1, Tb) chunk padded to the bucket length (a multiple of
     ``page_size``); ``length``: real tokens in this chunk; ``offset``:
-    absolute position of its first token; table_row: (max_pages,) int32
+    absolute position of its first token (both ints or 0-dim tensors on
+    the tokens' device); table_row: (max_pages,) int32
     page ids, entries past the slot's pages pointing at the trash page.
     Writes the chunk's K/V into ``k_pool``/``v_pool`` **in place** and
     attends row ``j`` over every key at or before its absolute position
@@ -241,7 +248,8 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
     index would alias the slot's last real page).  Returns
     ``(first_token, last_logits)`` at chunk row ``length - 1``; the LM
     head runs on that row alone, which M-invariance makes the same bits
-    as taking the row of the whole chunk's logits."""
+    as taking the row of the whole chunk's logits; the row is picked by
+    a device index, so no value goes to the host."""
     if exact is None:
         exact = exact_mode()
     _, t_b = tokens.shape
@@ -250,19 +258,17 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
                          % (t_b, page_size))
     h, d = cfg.num_heads, cfg.head_dim
     dev = tokens.device
-    max_pages = table_row.shape[0]
-    trash = k_pool.shape[1] - 1
+    length = torch.as_tensor(length, dtype=torch.long, device=dev)
+    offset = torch.as_tensor(offset, dtype=torch.long, device=dev)
     abs_pos = offset + torch.arange(t_b, device=dev)
     pos = abs_pos.clamp(0, cfg.max_len - 1)
     x = params["tok_embed_weight"][tokens.long()] \
         + params["pos_embed"][0][pos]
     horizons = (abs_pos + 1).to(torch.int32).reshape(1, t_b)
-    idx = abs_pos // page_size
-    pages = torch.where(idx < max_pages,
-                        table_row.long()[idx.clamp(0, max_pages - 1)],
-                        torch.full_like(idx, trash))
-    offsets = abs_pos % page_size
-    tables = table_row.reshape(1, max_pages)
+    pages, offsets = _write_rows(table_row.reshape(1, -1),
+                                 abs_pos.reshape(1, t_b), page_size,
+                                 k_pool.shape[1] - 1)
+    tables = table_row.reshape(1, -1)
     for i in range(cfg.num_layers):
         q, k, v = _qkv(params, i, x, exact)
         _kv_append(k_pool, i, pages, offsets, k.reshape(t_b, h, d))
@@ -271,8 +277,22 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
                               tables, horizons, mi=exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
-    last = _lm_head(params, x[0, length - 1], exact)
+    last = _lm_head(params, x[0].index_select(0, (length - 1).reshape(1)),
+                    exact)[0]
     return last.argmax(-1).to(torch.int32), last
+
+
+def _write_rows(tables, abs_pos, page_size, trash):
+    """(page, offset) of the KV rows at absolute positions ``abs_pos``
+    (S, R) through ``tables`` (S, max_pages), flattened to (S * R,).  A
+    row whose page index runs past the table goes to the trash page (a
+    clipped index would alias the slot's last real page)."""
+    max_pages = tables.shape[1]
+    idx = abs_pos.long() // page_size
+    pages = torch.where(idx < max_pages,
+                        tables.long().gather(1, idx.clamp(0, max_pages - 1)),
+                        torch.full_like(idx, trash))
+    return pages.reshape(-1), (abs_pos.long() % page_size).reshape(-1)
 
 
 def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
@@ -309,6 +329,74 @@ def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
         x = _block_mlp(params, i, x, exact)
     logits = _lm_head(params, x[:, 0], exact)
     return logits.argmax(-1).to(torch.int32), logits
+
+
+def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
+                page_size, exact=None):
+    """Speculative decoding's verify: every slot advances ``W = K + 1``
+    teacher-forced positions in one fixed-shape step.
+
+    tokens: (S, W) int — per slot, the last committed token followed by
+    the draft's K proposals; lengths: (S,) int32 committed KV rows (the
+    position of ``tokens[:, 0]``); tables: (S, max_pages) int32.  Writes
+    all W rows' KV at ``lengths .. lengths + W - 1`` **in place** (rows
+    past the table go to the trash page) and attends row ``j`` over
+    ``lengths + j + 1`` keys, the causal horizon as a per-row length.
+    Returns ``(greedy (S, W), logits (S, W, V))``, both on the device.
+
+    With ``exact=True`` every op is the M-invariant form of the matching
+    :func:`decode_step` op (K3 on S·W rows, K2 with per-row horizons, which
+    equals K1 and so the decode kernel row for row), so row ``j`` is bit
+    for bit the ``j``-th of W serial decode steps fed the same tokens —
+    which makes greedy acceptance an integer comparison."""
+    if exact is None:
+        exact = exact_mode()
+    s, w = tokens.shape
+    h, d = cfg.num_heads, cfg.head_dim
+    lengths = lengths.to(torch.int32)
+    abs_pos = lengths[:, None] + torch.arange(w, dtype=torch.int32,
+                                              device=lengths.device)
+    pos = abs_pos.long().clamp(0, cfg.max_len - 1)
+    x = params["tok_embed_weight"][tokens.long()] \
+        + params["pos_embed"][0][pos]                     # (S, W, C)
+    horizons = abs_pos + 1
+    pages, offsets = _write_rows(tables, abs_pos, page_size,
+                                 k_pool.shape[1] - 1)
+    for i in range(cfg.num_layers):
+        q, k, v = _qkv(params, i, x, exact)
+        _kv_append(k_pool, i, pages, offsets, k.reshape(s * w, h, d))
+        _kv_append(v_pool, i, pages, offsets, v.reshape(s * w, h, d))
+        att = paged_attention(_heads(q, s, w, h, d), k_pool[i], v_pool[i],
+                              tables, horizons, mi=exact)
+        x = _attn_out(params, i, x, att, exact)
+        x = _block_mlp(params, i, x, exact)
+    logits = _lm_head(params, x, exact)
+    return logits.argmax(-1).to(torch.int32), logits
+
+
+def draft_propose(params, tokens, n_feed, lengths, tables, k_pool, v_pool,
+                  cfg, page_size, exact=None):
+    """The draft model's ``W``-step scan, one call that both *ingests*
+    committed tokens and *proposes* continuations.
+
+    tokens: (S, W) int teacher tokens; n_feed: (S,) int — step ``j``
+    feeds ``tokens[:, j]`` while ``j < n_feed`` and the previous step's
+    greedy token after that (a ``torch.where`` on the device, so the loop
+    reads nothing back and is captured whole).  ``n_feed = 1`` proposes
+    (feed the last committed token, then run on); ``n_feed = W`` is pure
+    teacher forcing (prompt ingestion in W-token chunks).  Step ``j``
+    appends its KV at ``lengths + j`` **in place**.  Returns outs (S, W):
+    ``outs[:, j]`` is the greedy token after position ``lengths + j``."""
+    w = tokens.shape[1]
+    lengths = lengths.to(torch.int32)
+    prev = tokens[:, 0]
+    outs = []
+    for j in range(w):
+        tok = torch.where(n_feed > j, tokens[:, j], prev)
+        prev, _ = decode_step(params, tok, lengths + j, tables, k_pool,
+                              v_pool, cfg, page_size, exact)
+        outs.append(prev)
+    return torch.stack(outs, dim=1)
 
 
 def reference_last_logits(params, seq, cfg, page_size, exact=None):

@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/serve/scheduler.py``, which holds no JAX: the
 same policies, fault boundaries, preemption and tick form over the
-port's session.  The speculative step is a later slice of the port, so
-every boundary here is a one-token decode step.
+port's session.  A boundary is one decode step, or on a speculative
+session (``spec_k > 0``) one verify step that commits 1..K+1 tokens a
+request.
 
 Three policies, all running the *same* compiled executables so the
 bench comparison isolates scheduling:
@@ -71,7 +72,8 @@ parked list and replay through the same resume path preemption uses.
 
 Fault sites (``testing/faults.py``): every admit / decode-step /
 response boundary crosses ``serve_queue`` plus a phase-specific site
-(``serve_admit`` / ``serve_decode`` / ``serve_respond``), and the
+(``serve_admit`` / ``serve_decode``, ``serve_verify`` on a speculative
+session / ``serve_respond``), and the
 preemption machinery adds ``serve_evict`` (before a victim's pages are
 released) and
 ``serve_resume`` (before a parked request re-prefills).  A fault fails
@@ -408,9 +410,11 @@ class Scheduler(object):
             return self.outstanding
 
         # 2) per-request step boundaries (deterministic slot order)
+        spec = getattr(sess.config, "spec_k", 0) > 0
+        site = "serve_verify" if spec else "serve_decode"
         for slot in sorted(active):
             req = active[slot]
-            if not self._boundary(req, slot, "serve_decode"):
+            if not self._boundary(req, slot, site):
                 del active[slot]
 
         if not active:
@@ -423,9 +427,10 @@ class Scheduler(object):
         # request is never evicted (it can always finish: one
         # request's worst case fits the pool by construction).
         if oversub:
+            rows = sess.config.spec_window if spec else 1
             wm = max(int(getattr(sess.config, "watermark", 0)), 0)
             while (len(active) > 1
-                   and sess.pages_short(1) + wm
+                   and sess.pages_short(rows) + wm
                    > sess.cache.reclaimable_pages):
                 victim_slot = max(
                     active, key=lambda s: (active[s].arrival_s,
@@ -442,14 +447,31 @@ class Scheduler(object):
         if not active:
             return self.outstanding
 
-        # 3) one fixed-shape decode step advances every survivor
-        step_tokens, _ = sess.step()
-        for slot in sorted(active):
-            req = active[slot]
-            req.tokens.append(step_tokens[slot])
-            if (len(req.tokens) >= req.max_new
-                    or step_tokens[slot] == req.eos_id):
-                self._finish(req, slot, active, now)
+        # 3) one fixed-shape step advances every survivor — by one
+        # token (decode) or by 1..K+1 committed tokens (verify)
+        if spec:
+            limits = {slot: active[slot].max_new
+                      - len(active[slot].tokens) for slot in active}
+            committed = sess.spec_step(limits=limits)
+            for slot in sorted(active):
+                req = active[slot]
+                for tok in committed[slot]:
+                    req.tokens.append(tok)
+                    if (len(req.tokens) >= req.max_new
+                            or tok == req.eos_id):
+                        # EOS inside the speculated window: the
+                        # committed tail past it is dropped, exactly
+                        # where non-speculative decode would stop
+                        self._finish(req, slot, active, now)
+                        break
+        else:
+            step_tokens, _ = sess.step()
+            for slot in sorted(active):
+                req = active[slot]
+                req.tokens.append(step_tokens[slot])
+                if (len(req.tokens) >= req.max_new
+                        or step_tokens[slot] == req.eos_id):
+                    self._finish(req, slot, active, now)
 
         return self.outstanding
 

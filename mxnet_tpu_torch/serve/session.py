@@ -1,39 +1,67 @@
-"""InferenceSession: bucketed prefill and one decode step over the paged
-KV cache.
+"""InferenceSession: bucketed prefill, one decode step and speculative
+decoding over the paged KV cache, every entry point captured once as a
+CUDA graph.
 
 Counterpart of ``mxnet_tpu/serve/session.py``.  The JAX session compiles
-one prefill executable per sequence-length bucket plus one fixed-shape
-decode executable up front; PyTorch runs eagerly, so here the same set
-is a table of entry points under the same names (``sess.executables``:
-``decode``, ``prefill_<bucket>``), each running the hand-written kernels
-of ``csrc/`` on the card: K3 for every projection, K2 for attention over
-the pages.  A failing call raises — there is no silent retry.
+every executable it will ever run in ``__init__`` (``_Executable``,
+``_aot``, ``_compile_all``): one prefill per sequence-length bucket, one
+fixed-shape decode step and, with speculative decoding on (``spec_k >
+0``), one ``K + 1``-row verify and — for a draft model — one draft scan,
+dispatched over donated pool buffers.  Here each is a CUDA graph
+(:class:`_Executable`): on a CUDA device ``__init__`` runs every entry
+point once on a side stream (the kernels build and load there), then
+captures each over fixed input buffers, all graphs in one memory pool; a
+call copies its inputs into those buffers and replays, and the replay
+writes the KV pools in place.  ``sess.executables`` names exactly these
+for the session's life: ``decode``, ``prefill_<bucket>`` per bucket,
+``verify``, and ``draft`` for a draft model.  A capture that fails
+raises; nothing runs the eager functions on the card in its place.  On
+the CPU the same names run the eager functions over the same buffers.
+Every projection runs K3 and attention K2 (``csrc/``).
+
+A replay's outputs are the graph's own tensors: the graphs share one
+pool and replay in series on one stream, so an output is valid until
+the next replay of any entry point, and every caller here reads what it
+needs (tokens, logits) before that.
+
+Speculative decoding (``spec_k``, ``draft``): a draft proposes ``spec_k``
+tokens a slot, one verify runs all ``W = K + 1`` rows through the
+target, and greedy acceptance commits the longest agreeing prefix.
+Verify row ``j`` equals the ``j``-th serial decode step bit for bit, so
+acceptance is an integer comparison and the output equals
+non-speculative decode token for token; the rejected suffix rolls back
+through :meth:`PagedKVCache.truncate`, in the draft's cache too.  Drafts:
+``ngram`` (prompt lookup on the host, the default), ``layers:N`` (the
+target's first N blocks) or explicit ``draft_params``.
 
 Prefix caching (``prefix_pages``), chunked prefill at page-aligned
 offsets, and oversubscription with on-demand page growth carry over
 from the JAX session unchanged; they are host bookkeeping around the
-same two functions.  Speculative decoding, hybrid window/SSM stacks,
-weight and KV quantization, autotune and checkpoint loading are ported
-in later slices: their ``ServeConfig`` fields raise.
+same entry points.  Hybrid window/SSM stacks, weight and KV quantization,
+autotune and checkpoint loading (a checkpoint-directory draft too) are
+ported in later slices: their ``ServeConfig`` values raise.
 
 Env knobs: ``MXNET_SERVE_SLOTS``, ``MXNET_SERVE_PAGE``,
 ``MXNET_SERVE_BUCKETS``, ``MXNET_SERVE_MAX_NEW``, ``MXNET_SERVE_PAGES``,
-``MXNET_SERVE_EXACT``, ``MXNET_SERVE_PREFIX_PAGES``,
-``MXNET_SERVE_OVERSUB``, ``MXNET_SERVE_WATERMARK``,
-``MXNET_SERVE_TTFT_SLO_MS`` — the JAX package's names.
+``MXNET_SERVE_EXACT``, ``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_DRAFT``,
+``MXNET_SERVE_PREFIX_PAGES``, ``MXNET_SERVE_OVERSUB``,
+``MXNET_SERVE_WATERMARK``, ``MXNET_SERVE_TTFT_SLO_MS`` — the JAX
+package's names.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..base import MXNetError, get_env, later_slice, resolve_device
 from .kv_cache import PagedKVCache
-from .model import config_from_params, decode_step, exact_mode, \
-    params_from_numpy, prefill_forward
+from .model import config_from_params, decode_step, draft_propose, \
+    exact_mode, params_from_numpy, prefill_forward, verify_step
 
 __all__ = ["ServeConfig", "InferenceSession"]
 
@@ -55,10 +83,13 @@ class ServeConfig:
     ``buckets`` are padded prefill lengths (each a multiple of
     ``page_size``); ``max_new`` caps tokens generated per request;
     ``num_pages`` sizes the shared KV pool (default: full reservation
-    capacity for ``slots`` worst-case requests).  ``spec_k``, ``draft``,
-    ``quant``, ``kv_quant``, ``window`` and ``layers`` keep the JAX
-    package's fields; any value but the default is a later slice of the
-    port and raises, naming the field.
+    capacity for ``slots`` worst-case requests); ``spec_k`` > 0 turns
+    on speculative decoding with K draft proposals per step and
+    ``draft`` picks the proposer (``""``/``"ngram"`` host prompt-lookup,
+    ``"layers:N"`` the target's first N blocks; a checkpoint directory is
+    a later slice of the port).  ``quant``, ``kv_quant``, ``window`` and
+    ``layers`` keep the JAX package's fields; any value but the default
+    is a later slice of the port and raises, naming the field.
     """
 
     slots: int = 4
@@ -67,8 +98,8 @@ class ServeConfig:
     max_new: int = 32
     num_pages: int = 0  # 0 = slots * max_pages_per_slot
     exact: bool = True
-    spec_k: int = 0
-    draft: str = ""
+    spec_k: int = 0  # 0 = speculative decoding off
+    draft: str = ""  # "", "ngram" or "layers:N"
     quant: str = ""
     kv_quant: str = ""
     prefix_pages: int = 0  # 0 = prefix cache off; -1 = unbounded retention
@@ -104,7 +135,7 @@ class ServeConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "buckets", _parse_buckets(self.buckets))
-        for name in ("spec_k", "draft", "quant", "kv_quant", "window"):
+        for name in ("quant", "kv_quant", "window"):
             val = getattr(self, name)
             if val:
                 raise later_slice("ServeConfig.%s" % name, val)
@@ -115,6 +146,8 @@ class ServeConfig:
         if self.slots < 1 or self.page_size < 1 or self.max_new < 1:
             raise MXNetError("ServeConfig: slots/page_size/max_new must "
                              "be >= 1")
+        if self.spec_k < 0:
+            raise MXNetError("ServeConfig: spec_k must be >= 0")
         if self.prefix_pages < -1:
             raise MXNetError("ServeConfig: prefix_pages must be >= -1")
         if self.watermark < 0:
@@ -136,6 +169,108 @@ class ServeConfig:
     def pool_pages(self):
         return self.num_pages or self.slots * self.max_pages_per_slot
 
+    @property
+    def spec_window(self):
+        """Verify rows per speculative step: the last committed token
+        plus the K proposals."""
+        return self.spec_k + 1
+
+    @property
+    def spec_pad_pages(self):
+        """All-trash page-table columns appended past the reservable
+        range.  A verify/draft step writes up to ``spec_k`` rows beyond
+        a slot's committed horizon; near the end of a request those can
+        cross the reservation boundary, and the draft's page-index clip
+        must then land on trash instead of aliasing the slot's last real
+        page."""
+        return -(-self.spec_k // self.page_size) if self.spec_k else 0
+
+
+class _Executable(object):
+    """One entry point of the session: ``fn`` over fixed-shape input
+    buffers (``inputs``, name -> tensor).
+
+    On a CUDA device :func:`_capture` records ``fn`` once as ``graph``
+    with its ``outputs`` and the kernel ``launches`` one replay makes; a
+    call copies its arguments into the buffers and replays, counting the
+    replay and the launches it makes.  On the CPU a call runs ``fn``
+    eagerly over the same buffers."""
+
+    def __init__(self, name, fn, inputs):
+        self.name = name
+        self.fn = fn
+        self.inputs = inputs
+        self.graph = None
+        self.outputs = None
+        self.launches = {}  # kernel -> launches a replay makes
+        self.replays = 0
+
+    def __call__(self, **values):
+        for key, val in values.items():
+            buf = self.inputs[key]
+            val = torch.as_tensor(val)
+            if tuple(val.shape) != tuple(buf.shape):
+                raise MXNetError("%s: %s of shape %r, the executable takes "
+                                 "%r" % (self.name, key, tuple(val.shape),
+                                         tuple(buf.shape)))
+            buf.copy_(val)
+        if self.graph is None:
+            return self.fn(**self.inputs)
+        self.graph.replay()
+        self.replays += 1
+        for kernel, n in self.launches.items():
+            _cuda.launches[kernel] += n
+        return self.outputs
+
+
+def _capture(exes, device):
+    """Capture every executable of ``exes`` as a CUDA graph, all into one
+    memory pool.  Each runs once first on a side stream, PyTorch's rule
+    before a capture: the kernels build and load there, and nothing a
+    capture cannot hold (an nvcc run, a library load, a first
+    ``cudaFuncSetAttribute``) is left for it.  The warm-up writes only the
+    trash page (the buffers hold all-trash tables).  A capture records
+    launches and runs none, so the counts it added are taken back and
+    kept as the executable's launches a replay.  Returns ``(seconds,
+    pool bytes)``: the seconds include the warm-up, and the pool's size
+    is the growth of the memory PyTorch reserves on ``device`` across the
+    captures (the warm-up's cached blocks released first)."""
+    t0 = time.perf_counter()
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for exe in exes:
+                exe.fn(**exe.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        pool = torch.cuda.graph_pool_handle()
+        for exe in exes:
+            before = dict(_cuda.launches)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=pool):
+                    outputs = exe.fn(**exe.inputs)
+            except RuntimeError as exc:
+                raise MXNetError("InferenceSession: capturing %r as a CUDA "
+                                 "graph failed: %s" % (exe.name, exc)) \
+                    from exc
+            finally:
+                counted = dict(_cuda.launches)
+                _cuda.launches.update(before)
+            exe.launches = {k: n - before.get(k, 0)
+                            for k, n in counted.items()
+                            if n > before.get(k, 0)}
+            exe.graph, exe.outputs = graph, outputs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return (time.perf_counter() - t0,
+                torch.cuda.memory_reserved() - reserved)
+
+
+
 
 class InferenceSession(object):
     """Serving session for the built-in transformer LM.
@@ -143,9 +278,19 @@ class InferenceSession(object):
     ``params`` is a flat name -> array dict (numpy arrays or tensors)
     under the training parameter names; it is held as float32 on
     ``device`` (default: the card — without one, pass ``device="cpu"``).
+    On a CUDA device every entry point is captured as a CUDA graph here,
+    once; steady-state serving only replays.
+
+    With ``config.spec_k > 0`` the session also hosts a draft proposer:
+    pass ``draft_params`` (+ ``draft_num_heads``) explicitly, or let
+    ``config.draft`` resolve one (``"ngram"`` or ``"layers:N"``).  A
+    draft model gets its own :class:`PagedKVCache` (same slot and page
+    geometry, the draft's dims) that the session keeps in lockstep with
+    the target's.
     """
 
-    def __init__(self, params, num_heads, config=None, device=None):
+    def __init__(self, params, num_heads, config=None, device=None,
+                 draft_params=None, draft_num_heads=None):
         self.device = resolve_device(device, "InferenceSession")
         self.config = config or ServeConfig.from_env()
         cfg = self.config
@@ -157,29 +302,144 @@ class InferenceSession(object):
                 "the model's max_len %d"
                 % (max(cfg.buckets) + cfg.max_new, max(cfg.buckets),
                    cfg.max_new, self.model.max_len))
-        self.cache = PagedKVCache(
-            num_layers=self.model.num_layers,
-            num_heads=self.model.num_heads,
-            head_dim=self.model.head_dim,
+        self.cache = self._new_cache(self.model)
+        self._slot_tokens = {}  # slot -> next token to feed the decoder
+        self._slot_history = {}  # slot -> prompt + committed tokens
+        self._spec_stats = {"verify_steps": 0, "slot_steps": 0,
+                            "proposed": 0, "accepted": 0, "committed": 0}
+        self._resolve_draft(draft_params, draft_num_heads)
+        self._exes = self._build_executables()
+        self.capture_s = self.graph_pool_bytes = None
+        if self.device.type == "cuda":
+            self.capture_s, self.graph_pool_bytes = _capture(
+                list(self._exes.values()), self.device)
+
+    def _new_cache(self, model):
+        cfg = self.config
+        return PagedKVCache(
+            num_layers=model.num_layers,
+            num_heads=model.num_heads,
+            head_dim=model.head_dim,
             page_size=cfg.page_size,
             num_pages=cfg.pool_pages,
             slots=cfg.slots,
             max_pages_per_slot=cfg.max_pages_per_slot,
+            table_pad=cfg.spec_pad_pages,
             prefix_pages=cfg.prefix_pages,
             device=self.device)
-        self._slot_tokens = {}  # slot -> next token to feed the decoder
-        static = dict(cfg=self.model, page_size=cfg.page_size,
-                      exact=bool(cfg.exact))
-        self._exes = {"decode": functools.partial(decode_step, **static)}
+
+    def _resolve_draft(self, draft_params, draft_num_heads):
+        """Pick the speculative proposer — explicit params, the host-side
+        n-gram lookup or a layer-truncated copy of the target — and build
+        its mirrored cache."""
+        cfg = self.config
+        self.draft_params = None
+        self.draft_model = None
+        self.draft_cache = None
+        self._draft_mode = "off"
+        if not cfg.spec_k:
+            if draft_params is not None:
+                raise MXNetError(
+                    "draft_params given but spec_k == 0 — set "
+                    "ServeConfig.spec_k (MXNET_SERVE_SPEC_K) to enable "
+                    "speculative decoding")
+            return
+        if draft_params is None:
+            spec = cfg.draft or "ngram"
+            if spec == "ngram":
+                self._draft_mode = "ngram"
+                return
+            if not spec.startswith("layers:"):
+                raise MXNetError(
+                    "ServeConfig.draft=%r: a checkpoint-directory draft "
+                    "loads through checkpoint.py, which is ported in a "
+                    "later slice of the PyTorch port (use \"ngram\", "
+                    "\"layers:N\" or draft_params)" % (spec,))
+            try:
+                n = int(spec.split(":", 1)[1])
+            except ValueError:
+                raise MXNetError("ServeConfig.draft=%r: N of layers:N must "
+                                 "be an integer" % (spec,)) from None
+            draft_params = _layer_truncated(self.params, n)
+            draft_num_heads = draft_num_heads or self.model.num_heads
+        self._draft_mode = "model"
+        # a layers:N draft shares the target's tensors: same device, same
+        # dtype, so params_from_numpy hands them back as they are
+        self.draft_params = params_from_numpy(draft_params, self.device)
+        self.draft_model = config_from_params(
+            self.draft_params,
+            num_heads=draft_num_heads or self.model.num_heads)
+        if self.draft_model.vocab_size != self.model.vocab_size:
+            raise MXNetError(
+                "draft vocab %d != target vocab %d — a draft must share "
+                "the target's token space"
+                % (self.draft_model.vocab_size, self.model.vocab_size))
+        if max(cfg.buckets) + cfg.max_new > self.draft_model.max_len:
+            raise MXNetError(
+                "draft max_len %d cannot cover the serve worst case %d"
+                % (self.draft_model.max_len,
+                   max(cfg.buckets) + cfg.max_new))
+        self.draft_cache = self._new_cache(self.draft_model)
+
+    def _build_executables(self):
+        """Every entry point the session runs, each over its own
+        fixed-shape input buffers: tables start all-trash and lengths 0,
+        so a warm-up call writes nothing but the trash page."""
+        cfg, dev = self.config, self.device
+        s, w = cfg.slots, cfg.spec_window
+        i32, i64 = torch.int32, torch.int64
+
+        def buf(shape, dtype, fill=0):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+
+        def entry(fn, model, cache, params):
+            return functools.partial(
+                fn, params=params, k_pool=cache.k_pool, v_pool=cache.v_pool,
+                cfg=model, page_size=cfg.page_size, exact=bool(cfg.exact))
+
+        def step_inputs(cache, tokens_shape):
+            return dict(tokens=buf(tokens_shape, i64),
+                        lengths=buf((s,), i32),
+                        tables=buf((s, cache.table_width), i32,
+                                   cache.trash_page))
+
+        tgt = (self.model, self.cache, self.params)
+        exes = {"decode": _Executable(
+            "decode", entry(decode_step, *tgt), step_inputs(self.cache, (s,)))}
         for bucket in cfg.buckets:
-            self._exes["prefill_%d" % bucket] = functools.partial(
-                prefill_forward, **static)
+            name = "prefill_%d" % bucket
+            exes[name] = _Executable(name, entry(prefill_forward, *tgt), dict(
+                tokens=buf((1, bucket), i64), length=buf((), i64, 1),
+                offset=buf((), i64),
+                table_row=buf((self.cache.table_width,), i32,
+                              self.cache.trash_page)))
+        if cfg.spec_k:
+            exes["verify"] = _Executable("verify", entry(verify_step, *tgt),
+                                         step_inputs(self.cache, (s, w)))
+        if self._draft_mode == "model":
+            inputs = step_inputs(self.draft_cache, (s, w))
+            inputs["n_feed"] = buf((s,), i32)
+            exes["draft"] = _Executable("draft", entry(
+                draft_propose, self.draft_model, self.draft_cache,
+                self.draft_params), inputs)
+        return exes
 
     @property
     def executables(self):
-        """name -> entry point: ``decode`` plus one ``prefill_<bucket>``
-        per bucket, fixed for the session's lifetime."""
+        """name -> :class:`_Executable`: ``decode``, one ``prefill_<bucket>``
+        per bucket, plus ``verify`` (and ``draft``, for a draft model)
+        when ``spec_k > 0`` — fixed for the session's lifetime."""
         return dict(self._exes)
+
+    def graph_report(self):
+        """Capture seconds, the graphs' pool bytes, and per executable its
+        replays and the kernel launches one replay makes (all ``None``
+        and empty on the CPU, where nothing is captured)."""
+        return dict(capture_s=self.capture_s,
+                    graph_pool_bytes=self.graph_pool_bytes,
+                    replays={n: e.replays for n, e in self._exes.items()},
+                    launches_per_replay={n: dict(e.launches)
+                                         for n, e in self._exes.items()})
 
     # -- request lifecycle ------------------------------------------------
     def bucket_for(self, prompt_len):
@@ -212,8 +472,24 @@ class InferenceSession(object):
                 raise MXNetError(
                     "try_alloc: tokens length %d != prompt_len %d"
                     % (len(toks), prompt_len))
-        return self.cache.alloc(prompt_len, max_new, tokens=toks,
-                                oversub=self.config.oversub)
+        oversub = self.config.oversub
+        slot = self.cache.alloc(prompt_len, max_new, tokens=toks,
+                                oversub=oversub)
+        if slot is not None and self.draft_cache is not None:
+            # identical geometry and identical alloc/release/publish
+            # sequences keep the two caches' free lists and prefix
+            # indexes in lockstep
+            dslot = self.draft_cache.alloc(prompt_len, max_new,
+                                           tokens=toks, oversub=oversub)
+            if dslot != slot or (self.draft_cache.cached_len(dslot)
+                                 != self.cache.cached_len(slot)):
+                raise MXNetError(
+                    "draft cache desync: target slot %r (cached %d) vs "
+                    "draft slot %r (cached %d)"
+                    % (slot, self.cache.cached_len(slot), dslot,
+                       self.draft_cache.cached_len(dslot)
+                       if dslot is not None else -1))
+        return slot
 
     def _chunk_bucket(self, remaining):
         """Bucket for one prefill chunk: the smallest that fits, else the
@@ -229,14 +505,14 @@ class InferenceSession(object):
 
         Only the uncached suffix is computed (positions covered by prefix
         hits are skipped), in page-aligned chunks; afterwards the slot's
-        full prompt pages are published into the prefix index."""
-        prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        full prompt pages are published into the prefix index, and a
+        draft model ingests the prompt into its own cache."""
+        prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         p = int(prompt.shape[0])
         cached = self.cache.cached_len(slot)
         if not 0 <= cached < p:
             raise MXNetError("prefill: cached prefix %d outside prompt "
                              "of %d tokens" % (cached, p))
-        first = last_logits = None
         off = cached
         while off < p:
             bucket = self._chunk_bucket(p - off)
@@ -245,15 +521,45 @@ class InferenceSession(object):
             toks[0, :n] = prompt[off:off + n]
             self.cache.ensure_writable(slot, off, n)
             first, last_logits = self._exes["prefill_%d" % bucket](
-                self.params, torch.from_numpy(toks).to(self.device), n, off,
-                self.cache.table_row(slot), self.cache.k_pool,
-                self.cache.v_pool)
+                tokens=toks, length=n, offset=off,
+                table_row=self.cache.table_row(slot))
             off += n
             self.cache.lengths[slot] = off
         first = int(first)
+        last_logits = last_logits.cpu().numpy()
+        prompt_list = [int(t) for t in prompt]
         self._slot_tokens[slot] = first
-        self.cache.register_prefix(slot, [int(t) for t in prompt])
-        return first, last_logits.cpu().numpy()
+        self._slot_history[slot] = prompt_list + [first]
+        self.cache.register_prefix(slot, prompt_list)
+        if self._draft_mode == "model":
+            self._draft_ingest(slot, prompt)
+            self.draft_cache.register_prefix(slot, prompt_list)
+        return first, last_logits
+
+    def _draft_ingest(self, slot, prompt):
+        """Teacher-force the prompt through the draft executable in
+        W-token chunks, so that the draft cache holds the positions the
+        target prefill just wrote.  Rows a chunk writes past its feed,
+        and the rows written for the other slots (``n_feed`` 0), lie
+        beyond each slot's committed length: the next draft call
+        overwrites them before any horizon admits them.  Prefix hits skip
+        ingestion: the draft's hit pages already hold draft KV for the
+        same chain, and alloc left the length at the cached prefix."""
+        cfg = self.config
+        w = cfg.spec_window
+        p = int(prompt.shape[0])
+        cached = self.draft_cache.cached_len(slot)
+        self.draft_cache.ensure_writable(slot, cached, p - cached)
+        for off in range(cached, p, w):
+            chunk = prompt[off:off + w]
+            toks = np.zeros((cfg.slots, w), np.int64)
+            toks[slot, :len(chunk)] = chunk
+            n_feed = np.zeros((cfg.slots,), np.int32)
+            n_feed[slot] = len(chunk)
+            self._exes["draft"](tokens=toks, n_feed=n_feed,
+                                lengths=self.draft_cache.device_lengths(),
+                                tables=self.draft_cache.device_tables())
+            self.draft_cache.lengths[slot] = off + len(chunk)
 
     def step(self):
         """Advance every active slot one token with the decode step;
@@ -266,31 +572,137 @@ class InferenceSession(object):
         for slot, tok in self._slot_tokens.items():
             tokens[slot] = tok
         next_toks, logits = self._exes["decode"](
-            self.params, torch.from_numpy(tokens).to(self.device),
-            self.cache.device_lengths(), self.cache.device_tables(),
-            self.cache.k_pool, self.cache.v_pool)
+            tokens=tokens, lengths=self.cache.device_lengths(),
+            tables=self.cache.device_tables())
         next_np = next_toks.cpu().numpy()
+        logits = logits.cpu().numpy()
         out = {}
         for slot in list(self._slot_tokens):
             self.cache.lengths[slot] += 1
             tok = int(next_np[slot])
             self._slot_tokens[slot] = tok
+            if slot in self._slot_history:
+                self._slot_history[slot].append(tok)
             out[slot] = tok
-        return out, logits.cpu().numpy()
+        return out, logits
+
+    def spec_step(self, limits=None):
+        """One speculative step for every active slot: the draft proposes
+        K tokens, one verify runs all ``W = K + 1`` rows through the
+        target, and greedy acceptance commits the longest agreeing prefix
+        (1..W tokens — at least the target's own next token).
+
+        ``limits`` (slot -> int) caps the tokens a slot may commit this
+        step (the scheduler passes ``max_new - emitted``).  Returns slot
+        -> ``[committed tokens]``, the tokens the same number of
+        :meth:`step` calls would emit.  Both caches advance ``W`` rows
+        and roll the rejected suffix back with
+        :meth:`PagedKVCache.truncate`, so their lengths stay equal and
+        every kept row belongs to a committed token."""
+        cfg = self.config
+        if not cfg.spec_k:
+            raise MXNetError("spec_step on a session with spec_k == 0 — "
+                             "set MXNET_SERVE_SPEC_K / ServeConfig.spec_k")
+        out = {}
+        if not self._slot_tokens:
+            return out
+        w, k = cfg.spec_window, cfg.spec_k
+        active = sorted(self._slot_tokens)
+        self._pre_dispatch(w)
+        tokens = np.zeros((cfg.slots, w), np.int64)
+        for slot, tok in self._slot_tokens.items():
+            tokens[slot, 0] = tok
+        if self._draft_mode == "model":
+            proposals = self._exes["draft"](
+                tokens=tokens, n_feed=np.ones((cfg.slots,), np.int32),
+                lengths=self.draft_cache.device_lengths(),
+                tables=self.draft_cache.device_tables())
+            tokens[:, 1:] = proposals[:, :k].cpu().numpy()
+        else:
+            for slot in active:
+                tokens[slot, 1:] = self._ngram_propose(slot, k)
+        greedy, _ = self._exes["verify"](
+            tokens=tokens, lengths=self.cache.device_lengths(),
+            tables=self.cache.device_tables())
+        greedy = greedy.cpu().numpy()
+        self._spec_stats["verify_steps"] += 1
+        for slot in active:
+            limit = w
+            if limits is not None:
+                limit = max(1, min(w, int(limits.get(slot, w))))
+            # commit greedy[:c]: row 0 unconditionally, then one more
+            # per proposal the target's previous row agreed with
+            c = 1
+            while c < limit and tokens[slot, c] == greedy[slot, c - 1]:
+                c += 1
+            committed = [int(t) for t in greedy[slot, :c]]
+            for cache in (self.cache, self.draft_cache):
+                if cache is not None:
+                    cache.lengths[slot] += w
+                    cache.truncate(slot, w - c)
+            self._slot_tokens[slot] = committed[-1]
+            self._slot_history[slot].extend(committed)
+            # proposals past the commit limit never had a chance, so
+            # they don't count against the draft's acceptance rate
+            self._spec_stats["slot_steps"] += 1
+            self._spec_stats["proposed"] += limit - 1
+            self._spec_stats["accepted"] += c - 1
+            self._spec_stats["committed"] += c
+            out[slot] = committed
+        return out
+
+    def _ngram_propose(self, slot, k, max_n=3):
+        """Prompt-lookup draft: match the longest suffix n-gram of the
+        slot's history (prompt + committed tokens, ending at the pending
+        feed token) against an earlier occurrence and propose its
+        continuation; a short continuation pads with its last token, and
+        no match proposes the last token K times."""
+        hist = self._slot_history.get(slot) or [0]
+        for n in range(min(max_n, len(hist) - 1), 0, -1):
+            pat = hist[-n:]
+            for start in range(len(hist) - n - 1, -1, -1):
+                if hist[start:start + n] == pat:
+                    cont = hist[start + n:start + n + k]
+                    if cont:
+                        out = list(cont)
+                        while len(out) < k:
+                            out.append(out[-1])
+                        return out
+        return [hist[-1]] * k
+
+    def spec_report(self):
+        """Speculation counters: ``acceptance_rate`` = accepted /
+        proposed (proposals with a chance to commit), and
+        ``tokens_per_verify_step`` = committed tokens per slot per
+        verify (1..K+1)."""
+        rep = dict(self._spec_stats)
+        rep["acceptance_rate"] = (
+            rep["accepted"] / float(rep["proposed"])
+            if rep["proposed"] else 0.0)
+        rep["tokens_per_verify_step"] = (
+            rep["committed"] / float(rep["slot_steps"])
+            if rep["slot_steps"] else 0.0)
+        return rep
 
     def _pre_dispatch(self, rows):
         """Page upkeep before a step writes ``rows`` KV rows per active
-        slot: grow oversubscribed slots to cover them (a no-op under
-        reservation) and cross the copy-on-write guard."""
+        slot, in both caches: grow oversubscribed slots to cover them (a
+        no-op under reservation) and cross the copy-on-write guard."""
         for slot in sorted(self._slot_tokens):
-            n = int(self.cache.lengths[slot])
-            if self.config.oversub:
-                self.cache.append_pages(slot, n + rows)
-            self.cache.ensure_writable(slot, n, rows)
+            for cache in (self.cache, self.draft_cache):
+                if cache is None:
+                    continue
+                n = int(cache.lengths[slot])
+                if self.config.oversub:
+                    cache.append_pages(slot, n + rows)
+                cache.ensure_writable(slot, n, rows)
 
-    def pages_short(self, rows=1):
+    def pages_short(self, rows=None):
         """Fresh pages the next decode boundary must obtain across all
-        active slots — the scheduler's preemption probe."""
+        active slots — the scheduler's preemption probe.  ``rows``
+        defaults to the step's width (1, or the speculative window)."""
+        if rows is None:
+            rows = self.config.spec_window if self.config.spec_k else 1
         return sum(self.cache.pages_short(slot,
                                           int(self.cache.lengths[slot])
                                           + rows)
@@ -298,7 +710,33 @@ class InferenceSession(object):
 
     def release(self, slot):
         self._slot_tokens.pop(slot, None)
+        self._slot_history.pop(slot, None)
         self.cache.release(slot)
+        if self.draft_cache is not None:
+            self.draft_cache.release(slot)
 
     def active_slots(self):
         return sorted(self._slot_tokens)
+
+
+def _layer_truncated(params, n):
+    """A draft from the target's own weights: its first ``n`` decoder
+    blocks plus the shared embedding, final LayerNorm and head (the
+    self-speculative "layer skip" draft).  ``n`` equal to the full depth
+    gives the identity draft, which accepts every proposal."""
+    total = 0
+    while "blk%d_attn_in_weight" % total in params:
+        total += 1
+    n = int(n)
+    if not 1 <= n <= total:
+        raise MXNetError(
+            "draft layers:%d out of range (target has %d blocks)"
+            % (n, total))
+    keep = {"tok_embed_weight", "pos_embed", "final_ln_gamma",
+            "final_ln_beta", "lm_head_weight", "lm_head_bias"}
+    out = {}
+    for key, val in params.items():
+        if key in keep or (key.startswith("blk")
+                           and int(key[3:].split("_", 1)[0]) < n):
+            out[key] = val
+    return out

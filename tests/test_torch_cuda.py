@@ -14,7 +14,8 @@ the bf16 tensor-core kernels K7/K8, the derived bound of
 ``mxnet_tpu_torch/testing/attention_sm90.py``; for the
 projection, the worst-case bound of two fp32 summation orders; and
 bit-equality where the serving contract demands it (row-count
-invariance, decode == reference).  The rtc kernels (``rtc.CudaKernel``,
+invariance, decode == reference, and each of the serving session's CUDA
+graphs against the eager function it captured).  The rtc kernels (``rtc.CudaKernel``,
 compiled at run time) are held to the stated tolerance of each test.
 """
 import numpy as np
@@ -233,7 +234,7 @@ def test_mi_linear_rows_do_not_depend_on_m(dev, f, c):
     w, b = 0.02 * _randn(dev, f, c, seed=5), 0.02 * _randn(dev, f, seed=6)
     full = L.mi_linear(x[3:259], w, b)
     assert torch.equal(full, L.mi_linear(x[3:259], w, b))
-    for m in (1, 7, 8, 16, 17, 64, 256):
+    for m in (1, 7, 8, 16, 17, 40, 64, 256):
         got = L.mi_linear(x[3:3 + m], w, b)
         assert torch.equal(got, full[:m]), m
         assert torch.equal(got, L.mi_linear(x[3:3 + m], w, b)), m
@@ -291,6 +292,99 @@ def test_serve_decode_bitexact_on_the_card(dev):
                                               8)
             np.testing.assert_array_equal(logits[slot], ref.cpu().numpy())
             seq.append(toks[slot])
+
+
+def _spec_session(dev, **kw):
+    cfg = serve.ModelConfig(vocab_size=61, num_layers=2, d_model=64,
+                            num_heads=2, max_len=64)
+    conf = dict(slots=3, page_size=8, buckets=(8, 16), max_new=8,
+                spec_k=3, draft="layers:2")
+    conf.update(kw)
+    return serve.InferenceSession(serve.init_params(cfg, seed=3, device=dev),
+                                  num_heads=2,
+                                  config=serve.ServeConfig(**conf))
+
+
+def _replay_equals_eager(sess, name, **values):
+    """Replay ``name`` on ``values`` and run its eager function on the same
+    buffers from the same pools: outputs and written pools bit-equal."""
+    exe = sess.executables[name]
+    caches = [c for c in (sess.cache, sess.draft_cache) if c is not None]
+    saved = [(c.k_pool.clone(), c.v_pool.clone()) for c in caches]
+    got = [t.clone() for t in exe(**values)] if name != "draft" \
+        else [exe(**values).clone()]
+    after = [(c.k_pool.clone(), c.v_pool.clone()) for c in caches]
+    for c, (k, v) in zip(caches, saved):
+        c.k_pool.copy_(k)
+        c.v_pool.copy_(v)
+    want = exe.fn(**exe.inputs)
+    want = list(want) if name != "draft" else [want]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), name
+    for c, (k, v) in zip(caches, after):
+        assert torch.equal(c.k_pool, k) and torch.equal(c.v_pool, v), name
+
+
+def test_serve_graphs_replay_equal_eager_bitwise(dev):
+    """Every captured entry point — decode, each prefill bucket, verify and
+    draft — gives the eager function's outputs and pool writes bit for
+    bit: on live slots, again after its inputs change, and after the
+    speculative step's truncate."""
+    sess = _spec_session(dev)
+    assert sorted(sess.executables) == ["decode", "draft", "prefill_16",
+                                        "prefill_8", "verify"]
+    assert all(e.graph is not None for e in sess.executables.values())
+    assert sess.capture_s > 0 and sess.graph_pool_bytes > 0
+    rs = np.random.RandomState(3)
+    for n in (5, 13):
+        p = rs.randint(1, 61, size=n).tolist()
+        slot = sess.try_alloc(n, 8)
+        bucket = sess.bucket_for(n)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :n] = p
+        _replay_equals_eager(sess, "prefill_%d" % bucket, tokens=toks,
+                             length=n, offset=0,
+                             table_row=sess.cache.table_row(slot))
+        sess.prefill(slot, p)
+    for _ in range(2):
+        w = sess.config.spec_window
+        toks = rs.randint(1, 61, size=(3, w))
+        for cache, name in ((sess.cache, "verify"),
+                            (sess.draft_cache, "draft")):
+            extra = dict(n_feed=np.asarray([1, w, 2], np.int32)) \
+                if name == "draft" else {}
+            _replay_equals_eager(sess, name, tokens=toks,
+                                 lengths=cache.device_lengths(),
+                                 tables=cache.device_tables(), **extra)
+        _replay_equals_eager(sess, "decode", tokens=toks[:, 0],
+                             lengths=sess.cache.device_lengths(),
+                             tables=sess.cache.device_tables())
+        sess.spec_step()  # commits 1..W tokens, truncates the rest
+
+
+def test_serve_graph_launches_follow_replays(dev):
+    """A scheduler run's kernel launches are exactly the replays times the
+    launches each graph recorded at capture: K3 4 a layer + the head and
+    K2 once a layer, a step (the draft's W steps in one graph)."""
+    sess = _spec_session(dev)
+    per = sess.graph_report()["launches_per_replay"]
+    layers, w = 2, sess.config.spec_window
+    for name in ("decode", "verify", "prefill_8", "prefill_16"):
+        assert per[name] == {"mi_linear": 4 * layers + 1,
+                             "paged_attention": layers}, name
+    assert per["draft"] == {"mi_linear": w * (4 * layers + 1),
+                            "paged_attention": w * layers}
+    before = dict(_cuda.launches)
+    rs = np.random.RandomState(4)
+    reqs = [serve.Request(rid=i, prompt=rs.randint(1, 61, size=4 + 3 * i)
+                          .tolist(), max_new=8) for i in range(4)]
+    done, _ = serve.Scheduler(sess, policy="continuous").run(reqs)
+    assert all(not r.failed and len(r.tokens) == 8 for r in done)
+    rep = sess.graph_report()
+    assert rep["replays"]["verify"] > 0 and rep["replays"]["draft"] > 0
+    for kernel in ("mi_linear", "paged_attention"):
+        want = sum(rep["replays"][n] * per[n].get(kernel, 0) for n in per)
+        assert _cuda.launches[kernel] - before[kernel] == want, kernel
 
 
 # ---------------------------------------------------------------------------
@@ -778,3 +872,23 @@ def test_gluon_dataloader_prefetch_stages_onto_the_card(dev):
     with pytest.raises(ValueError, match="bad sample"):
         list(mx.gluon.data.DataLoader(Bad(), batch_size=2, prefetch=1,
                                       device=mx.gpu(0)))
+
+
+# last in the file: a capture that fails leaves no state behind, but no
+# other test should depend on that
+def test_serve_capture_failure_raises(dev, monkeypatch):
+    """A function that reads a value back to the host cannot be captured:
+    the session raises, and runs no eager step in the graph's place."""
+    from mxnet_tpu_torch.serve import session as S
+
+    decode = S.decode_step
+
+    def syncing(*args, **kw):
+        out = decode(*args, **kw)
+        out[0].cpu()
+        return out
+
+    monkeypatch.setattr(S, "decode_step", syncing)
+    with pytest.raises(MXNetError, match="capturing 'decode'"):
+        _spec_session(dev, spec_k=0, draft="")
+    torch.cuda.synchronize()

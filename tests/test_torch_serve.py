@@ -327,7 +327,7 @@ def test_entry_points_default_to_the_card(np_params, monkeypatch):
         tserve.init_params(cfg, seed=0)
 
 
-@pytest.mark.parametrize("field,value", [("spec_k", 1),
+@pytest.mark.parametrize("field,value", [("window", 16),
                                          ("kv_quant", "int8"),
                                          ("layers", "full,ssm")])
 def test_later_slice_fields_raise(field, value):
