@@ -35,7 +35,15 @@ a checkout that holds ``mxnet_tpu_torch/``):
    SDPA over the gathered context, masked to each row's horizon, checked
    against the plain version) and K3 (every projection shape at M = 1,
    8, 40 — the verify's rows — and 256) must give the same bits when run
-   again, and their lines add the
+   again; so must their quantized forms, each also bit-equal to its fp32
+   kernel on the dequantized inputs: K2q (the K2 cases over int8 and e4m3
+   pages quantized per row; yardstick SDPA over the dequantized context)
+   and K3q (int8 and e4m3 weights at M = 8 for every projection, and M =
+   40 and 256 at F6144 C2048; yardstick ``F.linear`` over the dequantized
+   weight; each line adds ``chain_floor_ms``, one output's chain of C
+   dependent FMAs at ~4 cycles each), and K9 (a decode step's 8 and a
+   prefill's 256 K and V rows quantized and appended, byte-equal to the
+   plain form; no PyTorch call computes it).  The K2/K3 lines add the
    effective bandwidth (the bound's bytes over the kernel's time) beside
    the card's 3.35 TB/s, the kernel's and the library's times in the
    window without the spin (``*_ms_with_launch``), and their host launch
@@ -69,6 +77,18 @@ a checkout that holds ``mxnet_tpu_torch/``):
    the graphs' replays.  Each line gives the acceptance rate, tokens per
    verify step, the spec step's host ms, a profiled window of two spec
    steps of a full batch, and the verify and draft graphs' device ms.
+4c. quant — the same model and traffic on quantized sessions, weights and
+   KV pages both: ``quant="int8", kv_quant="int8"`` and ``quant="fp8",
+   kv_quant="e4m3"``.  Every first token's logits and two whole streams
+   must equal ``reference_last_logits`` over the session's dequantized
+   params at its ``kv_quant``, bit for bit; the run's launches must be the
+   graphs' replays and go through K3q, K2q and K9 alone; the logits'
+   teacher-forced drift from the fp32 session's stays within
+   ``bench_serve.py``'s bounds (int8 0.25, fp8 1.0); at-rest params and a
+   KV page must shrink at least 3.9x.  Each line adds the serve line's
+   numbers and a ``quant_profile`` line the profile line's.  Then the
+   int8 session speculative (``spec_k`` 4, draft ``layers:2``): its streams
+   must equal the int8 session's (``quant_spec``).
 5. train — the same LM trains through ``models.transformer.get_symbol``
    -> ``fused.TrainStep(optimizer="sgd", compute_dtype="bfloat16")`` ->
    ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
@@ -141,6 +161,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
+SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock, data sheet
+CHAIN_CYCLES = 4            # latency of one dependent fp32 FMA
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 dense tensor cores
 # the device spin before each timed call: 0.5 ms at the H100's 1.98 GHz
@@ -380,21 +402,27 @@ def replayed_launches(sess, launched):
 
 
 def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
-                arrival_gap_s=0.05):
+                arrival_gap_s=0.05, params=None):
     """Serve ``n_requests`` greedy requests of numpy-seeded prompts through
-    the continuous-batching scheduler on a session over ``init_params(cfg,
-    seed=0)`` (on the card: its entry points captured as CUDA graphs),
-    then hold every request's first-token logits, and every token's
-    logits of ``whole_streams`` streams, against ``reference_last_logits``
-    bit for bit.  Returns the session, the phase's numbers and each
-    request's token stream."""
+    the continuous-batching scheduler on a session over ``params``
+    (default ``init_params(cfg, seed=0)``; on the card its entry points
+    are captured as CUDA graphs), then hold every request's first-token
+    logits, and every token's logits of ``whole_streams`` streams,
+    against ``reference_last_logits`` bit for bit — at the session's
+    precision: over its dequantized params and at its ``kv_quant``.
+    Returns the session, the phase's numbers (``run_launches``: the
+    kernel launches of the scheduler's run) and each request's token
+    stream."""
     import torch
 
     from mxnet_tpu_torch import _cuda, serve
 
-    sess = serve.InferenceSession(serve.init_params(cfg, seed=0, device=dev),
-                                  num_heads=cfg.num_heads, config=sconf,
-                                  device=dev)
+    if params is None:
+        params = serve.init_params(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    sess = serve.InferenceSession(params, num_heads=cfg.num_heads,
+                                  config=sconf, device=dev)
+    session_s = time.perf_counter() - t0
     reqs = seeded_requests(cfg, n_requests, prompt_lens, sconf.max_new,
                            arrival_gap_s)
 
@@ -423,8 +451,8 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     sess.prefill, sess.step = prefill, step
     before = dict(_cuda.launches)
     done, makespan = serve.Scheduler(sess, policy="continuous").run(reqs)
-    replays = replayed_launches(sess, {k: n - before[k] for k, n
-                                       in _cuda.launches.items()})
+    run_launches = {k: n - before[k] for k, n in _cuda.launches.items()}
+    replays = replayed_launches(sess, run_launches)
     summary = serve.summarize(done, makespan)
     failed = [r.rid for r in done if r.failed]
     if failed or summary["completed"] != n_requests:
@@ -435,13 +463,14 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_oracle = time.perf_counter()
+    oracle_params = sess.dequantized_params()
     for sid, st in enumerate(streams):
         for seq, logits in st["checks"][:None if sid < whole_streams else 1]:
             if not np.isfinite(logits).all():
                 raise AssertionError("non-finite logits in stream %d" % sid)
             ref = serve.reference_last_logits(
-                sess.params, seq, sess.model, sconf.page_size,
-                exact=sconf.exact).cpu().numpy()
+                oracle_params, seq, sess.model, sconf.page_size,
+                exact=sconf.exact, kv_quant=sconf.kv_quant).cpu().numpy()
             if not np.array_equal(logits, ref):
                 raise AssertionError(
                     "stream %d at length %d: logits differ from the "
@@ -451,6 +480,7 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t_oracle
+    del oracle_params
     sess.prefill, sess.step = prefill_fn, step_fn
     graphs = sess.graph_report()
     return sess, dict(requests=n_requests, completed=summary["completed"],
@@ -462,9 +492,10 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
                 decode_steps=len(step_ms), makespan_s=makespan,
                 bitexact_logits_checked=checked, oracle_s=oracle_s,
                 oracle_ms_per_check=oracle_s * 1e3 / max(checked, 1),
-                capture_s=graphs["capture_s"],
+                session_s=session_s, capture_s=graphs["capture_s"],
                 graph_pool_mb=(graphs["graph_pool_bytes"] or 0) / 2.0 ** 20,
-                replays=replays,
+                kv_pool_mb=sess.cache.pool_bytes() / 2.0 ** 20,
+                replays=replays, run_launches=run_launches,
                 launches_per_replay=graphs["launches_per_replay"]), \
         {r.rid: list(r.tokens) for r in done}
 
@@ -505,7 +536,10 @@ def profiled_window(fn, groups):
 
 SERVE_GROUPS = (("mi_linear", ("linear_kernel", "linear_stream_kernel")),
                 ("paged_attention", ("paged_attention_kernel",)),
-                ("flash_attention", ("flash_forward_kernel",)))
+                ("flash_attention", ("flash_forward_kernel",)),
+                ("mi_linear_q", ("linear_q_kernel", "linear_q_stream_kernel")),
+                ("paged_attention_q", ("paged_attention_q_kernel",)),
+                ("kv_append_quantized", ("kv_quant_kernel",)))
 
 
 def replay_ms(exe, reps=20):
@@ -635,6 +669,33 @@ def spec_phase(dev, cfg, params, sconf, reqs, want, steps=2):
         for slot in sess.active_slots():
             sess.release(slot)
     return out
+
+
+# bench_serve.py's bounds on a quantized session's teacher-forced logit
+# drift from the fp32 session's
+DRIFT_BOUND = {"int8": 0.25, "fp8": 1.0}
+BYTES_SHRINK = 3.9  # at-rest params and KV page bytes, fp32 over 1-byte
+
+
+def logit_drift(sess, qsess, prompt, steps=6):
+    """Largest |logit difference| of ``qsess`` from the fp32 ``sess`` over
+    one prompt's prefill and ``steps`` decode steps, the quantized session
+    fed the fp32 session's tokens (teacher forcing, as ``bench_serve.py``
+    measures it), so both score the same sequence."""
+    steps = min(steps, sess.config.max_new - 1)
+    bslot = sess.try_alloc(len(prompt), steps + 1)
+    qslot = qsess.try_alloc(len(prompt), steps + 1)
+    _, blog = sess.prefill(bslot, prompt)
+    _, qlog = qsess.prefill(qslot, prompt)
+    drift = float(np.abs(qlog - blog).max())
+    for _ in range(steps):
+        qsess._slot_tokens[qslot] = sess._slot_tokens[bslot]
+        _, blogs = sess.step()
+        _, qlogs = qsess.step()
+        drift = max(drift, float(np.abs(qlogs[qslot] - blogs[bslot]).max()))
+    sess.release(bslot)
+    qsess.release(qslot)
+    return drift
 
 
 def train_config(num_layers=8):
@@ -1367,8 +1428,10 @@ def main():
         "then gives the consumer warpgroups 240) and spill bytes",
         kernels=ptxas_report(build_dir, SM90_STEMS))
     log("ptxas", note="registers a thread and spill bytes of serving's "
-        "decode kernels, K3 (linear) and K2 (paged_attention)",
-        kernels=ptxas_report(build_dir, ("linear", "paged_attention")))
+        "decode kernels, K3 and K3q (linear), K2 and K2q (paged_attention) "
+        "and K9 (kv_quant)",
+        kernels=ptxas_report(build_dir, ("linear", "paged_attention",
+                                         "kv_quant")))
     log("ptxas", note="registers a thread and spill bytes of the fp32 flash "
         "kernels, K1 (flash_attention) and K4 (flash_attention_backward)",
         kernels=ptxas_report(build_dir, ("flash_attention",
@@ -1434,7 +1497,7 @@ def main():
 
     def record(name, case, err, ok, tolerance, kernel, plain, library,
                nbytes, flops, peak=FP32_FLOP_PER_S, device_key=None,
-               bandwidth=False):
+               bandwidth=False, extra=None):
         if not ok:
             raise AssertionError("%s %s: max error %.3g outside the "
                                  "tolerance (%s)" % (name, case, err,
@@ -1448,6 +1511,7 @@ def main():
                    library_ms=time_ms(library) if library else None,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row.update(extra or {})
         if device_key:
             row["kernel_device_ms"] = device_ms(kernel, device_key)
         if bandwidth:  # bytes the bound counts over the kernel's time
@@ -1759,6 +1823,48 @@ def main():
                lambda: A.paged_attention_plain(q, k_pool, v_pool, tab, hor),
                library, nbytes=nbytes,
                flops=4 * d * h * int(hn.sum()), bandwidth=True)
+
+    # K2q: the same cases over one-byte pages, the pools quantized per row
+    # (int8 and e4m3); bit-equal to K2 on the dequantized pools, reruns
+    # bit-equal, within ATTN_ATOL of the plain version
+    from mxnet_tpu_torch import quantize as Q
+
+    for mode in ("int8", "fp8"):
+        for case, pools, q, tab, hor in cases:
+            (kc, ks), (vc, vs) = (Q.kv_quantize_rows(p, mode) for p in pools)
+            deq = (Q.kv_dequantize(kc, ks), Q.kv_dequantize(vc, vs))
+            kw = dict(k_scale=ks, v_scale=vs)
+            got = A.paged_attention(q, kc, vc, tab, hor, **kw)
+            if not torch.equal(got, A.paged_attention(q, kc, vc, tab, hor,
+                                                      **kw)):
+                raise AssertionError("paged_attention_q %s %s: a rerun gave "
+                                     "other bits" % (mode, case))
+            if not torch.equal(got, A.paged_attention(q, *deq, tab, hor)):
+                raise AssertionError("paged_attention_q %s %s: not K2's bits "
+                                     "on the dequantized pools"
+                                     % (mode, case))
+            want = A.paged_attention_plain(q, kc, vc, tab, hor, **kw)
+            hn = hor.cpu().numpy()
+            per_slot = hn.max(axis=-1) if hn.ndim == 2 else hn
+            nbytes = (4 * (2 * q.numel() + tab.numel() + hor.numel())
+                      + 2 * int(per_slot.sum()) * (h * d + 4))
+            err = (got - want).abs().max().item()
+            live, library = gathered_sdpa(q, deq, tab, hor)
+            lib_err = (library() - want[live]).abs().max().item()
+            if lib_err > 1e-3:
+                raise AssertionError("paged_attention_q %s %s: the gathered "
+                                     "SDPA is %.3g off the plain version"
+                                     % (mode, case, lib_err))
+            record("paged_attention_q", "%s-%s" % (mode, case), err,
+                   err <= ATTN_ATOL,
+                   ATTN_NOTE + "; bit-equal to K2 on the dequantized pools; "
+                   "rerun bit-equal",
+                   lambda: A.paged_attention(q, kc, vc, tab, hor, **kw),
+                   lambda: A.paged_attention_plain(q, kc, vc, tab, hor,
+                                                   **kw),
+                   library, nbytes=nbytes,
+                   flops=4 * d * h * int(hn.sum()), bandwidth=True)
+            del kc, ks, vc, vs, deq
     del cases, got, want
     torch.cuda.empty_cache()
 
@@ -1786,6 +1892,87 @@ def main():
                    lambda: torch.nn.functional.linear(x, w, b),
                    nbytes=4 * (m * c + f * c + f + m * f),
                    flops=2 * m * f * c, bandwidth=True)
+
+    # K3q: the projections over one-byte weights, int8 and e4m3 codes with
+    # a scale a feature: bit-equal to K3 on the dequantized weight, reruns
+    # bit-equal; the yardstick F.linear over the dequantized weight (TF32
+    # off).  Beside the bound, the latency floor of one output's chain of
+    # C dependent FMAs (~4 cycles each at 1.98 GHz)
+    for mode in ("int8", "fp8"):
+        for m, f, c in ((8, 6144, 2048), (8, 2048, 2048), (8, 8192, 2048),
+                        (8, 2048, 8192), (8, 32768, 2048), (40, 6144, 2048),
+                        (256, 6144, 2048)):
+            x, b = randn(m, c), 0.02 * randn(f)
+            qw, sw = Q.quantize_array(0.02 * randn(f, c), mode)
+            rec = {"q": qw, "s": sw}
+            w = Q.dequantize_array(qw, sw)
+            got = L.mi_linear(x, rec, b)
+            case = "%s-M%d-F%d-C%d" % (mode, m, f, c)
+            if not torch.equal(got, L.mi_linear(x, rec, b)):
+                raise AssertionError("mi_linear_q %s: a rerun gave other "
+                                     "bits" % case)
+            if not torch.equal(got, L.mi_linear(x, w, b)):
+                raise AssertionError("mi_linear_q %s: not K3's bits on the "
+                                     "dequantized weight" % case)
+            want = L.mi_linear_plain(x, w, b)
+            bound = (LINEAR_SLACK * c * 2.0 ** -24
+                     * (x.abs() @ w.abs().t() + b.abs()))
+            diff = (got - want).abs()
+            record("mi_linear_q", case, diff.max().item(),
+                   bool((diff <= bound).all()),
+                   LINEAR_NOTE + "; bit-equal to K3 on the dequantized "
+                   "weight; rerun bit-equal",
+                   lambda: L.mi_linear(x, rec, b),
+                   lambda: L.mi_linear_plain(
+                       x, Q.dequantize_array(qw, sw), b),
+                   lambda: torch.nn.functional.linear(x, w, b),
+                   nbytes=4 * m * c + f * c + 8 * f + 4 * m * f,
+                   flops=2 * m * f * c, bandwidth=True,
+                   extra=dict(chain_floor_ms=c * CHAIN_CYCLES / SM_CLOCK_HZ
+                              * 1e3))
+            del x, b, qw, sw, rec, w, got, want, bound, diff
+    torch.cuda.empty_cache()
+
+    # K9: quantize-and-append of a decode step's 8 K and V rows and a
+    # 256-row prefill's, into one layer's pools (pages of 16, H 16, D 128);
+    # codes and scales byte-equal to the plain form, reruns too.  No
+    # PyTorch call computes it, so no library time
+    for mode in ("int8", "fp8"):
+        for n in (8, 256):
+            page, h, d, n_pages = 16, 16, 128, 144
+            krows, vrows = randn(n, h, d), randn(n, h, d)
+            krows[0] = 0.0
+            slots = torch.from_numpy(np.random.RandomState(n).permutation(
+                n_pages * page)[:n]).to(dev)
+            pages, offs = slots // page, slots % page
+            dtype = Q.storage_dtype(mode)
+
+            def pools():
+                return [torch.zeros(n_pages + 1, page, h, d, dtype=dtype,
+                                    device=dev) for _ in range(2)] + \
+                    [torch.ones(n_pages + 1, page, device=dev)
+                     for _ in range(2)]
+
+            got, again, want = pools(), pools(), pools()
+            Q.kv_append_quantized(*got, pages, offs, krows, vrows)
+            Q.kv_append_quantized(*again, pages, offs, krows, vrows)
+            Q.kv_append_quantized_plain(*want, pages, offs, krows, vrows)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("kv_append_quantized %s N%d: a rerun "
+                                     "gave other bytes" % (mode, n))
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            record("kv_append_quantized", "%s-%s-N%d" % (
+                       mode, "decode" if n == 8 else "prefill", n), err, same,
+                   "byte-equal codes and scales; rerun byte-equal",
+                   lambda: Q.kv_append_quantized(*got, pages, offs, krows,
+                                                 vrows),
+                   lambda: Q.kv_append_quantized_plain(*want, pages, offs,
+                                                       krows, vrows),
+                   None, nbytes=2 * n * (4 * h * d + h * d + 4) + 16 * n,
+                   flops=2 * 2 * n * h * d)
+            del krows, vrows, got, again, want
 
     # K5/K6: BatchNorm's channel sums at ResNet-50's shapes at batch 256
     # (the stem's bn0, bn_data, a stage-1 and a stage-4 map), one
@@ -1990,6 +2177,84 @@ def main():
         for name, n in spec_launches.items():
             launches[name] += n
         log("spec", nvidia_smi=smi, launches=spec_launches, **spec)
+
+    # -- 4c. quantized serving: the same model and traffic -----------------
+    from mxnet_tpu_torch.serve.kv_cache import PagedKVCache
+
+    quant_kernels = ("mi_linear_q", "paged_attention_q",
+                     "kv_append_quantized")
+    head_dim = cfg.d_model // cfg.num_heads
+    fp32_page = PagedKVCache.page_bytes(cfg.num_layers, cfg.num_heads,
+                                        head_dim, sconf.page_size)
+    probe = np.random.RandomState(2).randint(
+        1, cfg.vocab_size, size=250).tolist()
+    int8_streams = None
+    for quant, kv_quant in (("int8", "int8"), ("fp8", "e4m3")):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        qconf = dataclasses.replace(sconf, quant=quant, kv_quant=kv_quant)
+        qsess, qstats, qstreams = serve_phase(dev, cfg, qconf, n_requests=16,
+                                              prompt_lens=(24, 250),
+                                              params=sess.params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        q_launches = dict(_cuda.launches)
+        run = qstats["run_launches"]
+        if min(run[k] for k in quant_kernels) < 1 or \
+                run["mi_linear"] or run["paged_attention"]:
+            raise AssertionError("the quantized session's run did not go "
+                                 "through K3q, K2q and K9 alone: %r" % run)
+        drift = logit_drift(sess, qsess, probe)
+        if drift > DRIFT_BOUND[qconf.quant]:
+            raise AssertionError("%s/%s: teacher-forced logit drift %.4g "
+                                 "over %g" % (quant, kv_quant, drift,
+                                              DRIFT_BOUND[qconf.quant]))
+        params_shrink = sess.params_bytes_at_rest() / \
+            qsess.params_bytes_at_rest()
+        q_page = PagedKVCache.page_bytes(cfg.num_layers, cfg.num_heads,
+                                         head_dim, sconf.page_size,
+                                         kv_quant=kv_quant)
+        if min(params_shrink, fp32_page / q_page) < BYTES_SHRINK:
+            raise AssertionError("%s/%s: bytes shrink %.3f (params), %.3f "
+                                 "(KV page), under %g" % (
+                                     quant, kv_quant, params_shrink,
+                                     fp32_page / q_page, BYTES_SHRINK))
+        for name, n in q_launches.items():
+            launches[name] += n
+        log("quant", model="8L-d2048-h16-V32768", quant=qconf.quant,
+            kv_quant=qconf.kv_quant, nvidia_smi=smi, peak_mem_gib=peak,
+            launches=q_launches, logit_drift=drift,
+            logit_drift_bound=DRIFT_BOUND[qconf.quant],
+            params_bytes_fp32=sess.params_bytes_at_rest(),
+            params_bytes_quant=qsess.params_bytes_at_rest(),
+            params_shrink=params_shrink, page_bytes_fp32=fp32_page,
+            page_bytes_quant=q_page, page_shrink=fp32_page / q_page,
+            **qstats)
+        log("quant_profile", quant=qconf.quant, kv_quant=qconf.kv_quant,
+            nvidia_smi=smi, **profile_phase(qsess))
+        if quant == "int8":
+            int8_streams = qstreams
+        del qsess
+
+    # the int8 session again, speculative: its streams must not move
+    torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    spec = spec_phase(
+        dev, cfg, sess.params,
+        dataclasses.replace(sconf, quant="int8", kv_quant="int8", spec_k=4,
+                            draft="layers:2"),
+        seeded_requests(cfg, 16, (24, 250), sconf.max_new, 0.05),
+        int8_streams)
+    spec_launches = dict(_cuda.launches)
+    if min(spec_launches[k] for k in quant_kernels) < 1:
+        raise AssertionError("a quantized kernel never ran on the "
+                             "speculative path: %r" % spec_launches)
+    for name, n in spec_launches.items():
+        launches[name] += n
+    log("quant_spec", quant="int8", kv_quant="int8", nvidia_smi=smi,
+        launches=spec_launches, **spec)
     del sess
     torch.cuda.empty_cache()
 
@@ -2083,7 +2348,10 @@ def main():
                  "bn_grad_sums": "bfloat16-256x64x112x112-axis1",
                  "rtc_axpy": "fp32-8192x8192",
                  "rtc_softmax_forward": "fp32-256x1000",
-                 "rtc_softmax_backward": "fp32-256x1000"}
+                 "rtc_softmax_backward": "fp32-256x1000",
+                 "mi_linear_q": "int8-M8-F6144-C2048",
+                 "paged_attention_q": "int8-decode-S8-Q1",
+                 "kv_append_quantized": "int8-decode-N8"}
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
         "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
@@ -2093,6 +2361,10 @@ def main():
         "mi_linear": "mxnet_tpu/serve/model.py:123",
         "bn_stats": "mxnet_tpu/ops/pallas_bn.py:79",
         "bn_grad_sums": "mxnet_tpu/ops/pallas_bn.py:119",
+        "mi_linear_q": "mxnet_tpu/serve/model.py:123 + "
+                       "mxnet_tpu/quantize.py:146",
+        "paged_attention_q": "mxnet_tpu/ops/attention.py:368",
+        "kv_append_quantized": "mxnet_tpu/quantize.py:337",
     }
     sources = {name: ("cuda", "mxnet_tpu_torch/csrc/%s.cu" % stem)
                for name, (stem, _, _) in _cuda.KERNELS.items()}

@@ -10,8 +10,9 @@ process with the same sources reuses the libraries.  nvcc's output
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
 library as ``lib<source>.log``.
 
-Flags are per source (:func:`nvcc_flags`).  The exact sources — K1, K2,
-K3 (``online_softmax.cuh``'s users and the projection), the BatchNorm
+Flags are per source (:func:`nvcc_flags`).  The exact sources — K1, K2
+and K2q (``online_softmax.cuh``'s users), K3 and K3q (the projection),
+K9 (``kv_quant.cu``, the KV rows' quantize-and-append), the BatchNorm
 sums and run-time ``rtc`` kernels — build with ``-fmad=false``, so that
 no add and multiply are contracted behind serving's bit-exactness
 contract.  The backward kernels K4 and K8 and the Hopper forward K7 build
@@ -65,6 +66,7 @@ SOURCE_FLAGS = {"flash_attention_backward": FAST_FLAGS,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # kernel name -> (source stem, C entry, argtypes)
@@ -88,6 +90,16 @@ KERNELS = {
     "mi_linear": (
         "linear", "mxt_linear",
         (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "mi_linear_q": (
+        "linear", "mxt_linear_q",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "paged_attention_q": (
+        "paged_attention", "mxt_paged_attention_q",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+         _P)),
+    "kv_append_quantized": (
+        "kv_quant", "mxt_kv_append_quantized",
+        (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "bn_stats": (
         "batch_norm", "mxt_bn_stats",
         (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),

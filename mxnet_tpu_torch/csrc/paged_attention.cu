@@ -1,4 +1,6 @@
-// K2: attention of S slots' queries over their paged KV cache, fp32.
+// K2 and K2q: attention of S slots' queries over their paged KV cache;
+// K2 over fp32 pages, K2q over one-byte pages (int8 or fp8 e4m3 codes,
+// one fp32 scale a (page, row) in scale pools beside the code pools).
 //
 // Replaces: mxnet_tpu/ops/attention.py::decode_attention (:368-490)
 // together with the page gathers that feed it in serve/model.py
@@ -52,6 +54,21 @@
 // correction rescale(m, -inf) gives, 1 for a finite m and 0 for -inf,
 // and adds 0; x * c + 0 is the same after one such fold as after many,
 // so the kernel folds them as one.  A slot with horizon 0 gives 0.
+//
+// K2q replaces the same function over quantized pages
+// (decode_attention's k_scale/v_scale, :368-430, with the scale gathers
+// of serve/model.py).  It dequantizes each key and value element with
+// its row's scale as it loads it (code * scale, codes.cuh) and runs K2's
+// operations unchanged, so K2q equals K1 over the fake-quantized
+// context (quantize.kv_dequantize of the codes) bit for bit, as the
+// per-precision oracle needs.  A lane reads the byte of each element d =
+// lane + 32 i it sums (a warp's read of a row slice is 32 consecutive
+// bytes), and a slice's 16 scales are read once, one a lane, and
+// shuffled to the lanes that dequantize with them.  The conversion of a
+// code to fp32 is exact integer and fp32 arithmetic at full rate
+// (codes.cuh).  Its bound is the visible codes and scales over 3.35
+// TB/s, a quarter of K2's bytes.
+#include "codes.cuh"
 #include "error.cuh"
 #include "online_softmax.cuh"
 #include "per_device.cuh"
@@ -68,8 +85,10 @@ constexpr int kSmemMax = 227 * 1024;
 
 struct Params {
   const float* q;
-  const float* k_pool;
-  const float* v_pool;
+  const void* k_pool;   // fp32, or one-byte codes (K2q)
+  const void* v_pool;
+  const float* k_scale;  // K2q: (pages + 1, page) fp32, a scale a row
+  const float* v_scale;
   const int* tables;
   const int* lengths;
   float* out;
@@ -100,25 +119,50 @@ struct Layout {
 };
 
 // Loads one 16-key slice of a page's rows: key j (j < n) from
-// base + j * stride, lane elements d = lane + 32 i (0 past D or n).
-template <int DPL>
-__device__ __forceinline__ void load_keys(float (&kr)[kKeys][DPL],
-                                          const float* __restrict__ base,
-                                          size_t stride, int n, int D,
-                                          int lane) {
+// base + j * stride, lane elements d = lane + 32 i (0 past D or n).  K2q
+// loads the codes (a lane reads the byte of each element d it sums, so
+// the score and value sums keep K2's order; a warp's read of a row slice
+// is 32 consecutive bytes) and one scale a lane, lane j key j's, then
+// dequantizes each element with its key's scale (code * scale, shuffled
+// from lane j): the registers of K2's slice and one more.
+template <int kCode, int DPL>
+__device__ __forceinline__ void load_keys(
+    float (&kr)[kKeys][DPL], const typename mxt::Codes<kCode>::T* base,
+    const float* scales, size_t stride, int n, int D, int lane) {
+  if constexpr (kCode == 0) {
 #pragma unroll
-  for (int j = 0; j < kKeys; ++j)
+    for (int j = 0; j < kKeys; ++j)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + kWarp * i;
-      kr[j][i] = (j < n && d < D) ? base[j * stride + d] : 0.f;
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + kWarp * i;
+        kr[j][i] = (j < n && d < D) ? base[j * stride + d] : 0.f;
+      }
+  } else {
+    const float mine = lane < n ? scales[lane] : 0.f;
+    unsigned codes[kKeys][DPL];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + kWarp * i;
+        codes[j][i] = (j < n && d < D) ? base[j * stride + d] : 0;
+      }
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const float s = __shfl_sync(kFull, mine, j);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i)
+        kr[j][i] = (j < n && lane + kWarp * i < D)
+                       ? mxt::Codes<kCode>::of(codes[j][i], s) : 0.f;
     }
+  }
 }
 
-// QT query rows a CTA, DPL elements of a row a lane, NW warps.
-template <int QT, int DPL, int NW>
-__global__ void __launch_bounds__(NW * kWarp)
-paged_attention_kernel(const Params p) {
+// QT query rows a CTA, DPL elements of a row a lane, NW warps; pages of
+// element type kCode (codes.cuh).
+template <int QT, int DPL, int NW, int kCode>
+__device__ __forceinline__ void paged_body(const Params& p) {
+  using T = typename mxt::Codes<kCode>::T;
   constexpr int kThreads = NW * kWarp;
   extern __shared__ float smem[];
   const Layout L(QT, p.D, p.page, p.chunk);
@@ -169,11 +213,15 @@ paged_attention_kernel(const Params p) {
     // 1. scores, then each row's block max in key order
     for (int bl = warp; bl < nb; bl += NW) {
       const int start = (c0 + bl) * page;
-      const float* kp = p.k_pool + table[c0 + bl] * page_words + h * D;
+      const int pg = table[c0 + bl];
+      const T* kp = static_cast<const T*>(p.k_pool) + pg * page_words + h * D;
+      const float* ks = kCode ? p.k_scale + static_cast<size_t>(pg) * page
+                              : nullptr;
       for (int kc = 0; kc < page; kc += kKeys) {
         float kr[kKeys][DPL];
-        load_keys(kr, kp + kc * key_stride, key_stride,
-                  min(kKeys, min(page, hmax - start) - kc), D, lane);
+        load_keys<kCode>(kr, kp + kc * key_stride, kCode ? ks + kc : nullptr,
+                         key_stride,
+                         min(kKeys, min(page, hmax - start) - kc), D, lane);
         for (int r = 0; r < rows; ++r) {
           const int vis = hz[r] - start - kc;  // keys of the slice r sees
           float mine = -INFINITY;
@@ -216,11 +264,15 @@ paged_attention_kernel(const Params p) {
         safe = rs.safe;
         if (bl == nb - 1) mrun[(cur ^ 1) * QT + r] = rs.m;
       }
-      const float* vp = p.v_pool + table[c0 + bl] * page_words + h * D;
+      const int pg = table[c0 + bl];
+      const T* vp = static_cast<const T*>(p.v_pool) + pg * page_words + h * D;
+      const float* vs = kCode ? p.v_scale + static_cast<size_t>(pg) * page
+                              : nullptr;
       for (int kc = 0; kc < page; kc += kKeys) {
         float vr[kKeys][DPL];
-        load_keys(vr, vp + kc * key_stride, key_stride,
-                  min(kKeys, min(page, hmax - start) - kc), D, lane);
+        load_keys<kCode>(vr, vp + kc * key_stride, kCode ? vs + kc : nullptr,
+                         key_stride,
+                         min(kKeys, min(page, hmax - start) - kc), D, lane);
         for (int r = 0; r < rows; ++r) {
           const int at = r * chunk + bl;
           const float shift = __shfl_sync(kFull, safe, r);
@@ -289,11 +341,31 @@ paged_attention_kernel(const Params p) {
   }
 }
 
+template <int QT, int DPL, int NW>
+__global__ void __launch_bounds__(NW * kWarp)
+paged_attention_kernel(const Params p) {
+  paged_body<QT, DPL, NW, 0>(p);
+}
+
+template <int QT, int DPL, int NW, int kCode>
+__global__ void __launch_bounds__(NW * kWarp)
+paged_attention_q_kernel(const Params p) {
+  paged_body<QT, DPL, NW, kCode>(p);
+}
+
+template <int QT, int DPL, int NW, int kCode>
+void (*paged_kernel())(Params) {
+  if constexpr (kCode == 0) return paged_attention_kernel<QT, DPL, NW>;
+  else return paged_attention_q_kernel<QT, DPL, NW, kCode>;
+}
+
 // Decode (one row a CTA) runs 16 warps, so a slot's pages take fewer
 // rounds of loads; prefill tiles, and rows past D = 128, 8 warps (the
 // registers of a 16-key slice, and two CTAs a SM).
-template <int QT, int DPL, int NW = (QT == 1 && DPL <= 4) ? 16 : 8>
+template <int kCode, int QT, int DPL,
+          int NW = (QT == 1 && DPL <= 4) ? 16 : 8>
 int launch(Params p, int S, cudaStream_t stream) {
+  const auto kernel = paged_kernel<QT, DPL, NW, kCode>();
   p.tiles = (p.Q + QT - 1) / QT;
   const int fixed = Layout(QT, p.D, p.page, 0).words;
   const int per_page = Layout(QT, p.D, p.page, 1).words - fixed;
@@ -302,21 +374,25 @@ int launch(Params p, int S, cudaStream_t stream) {
   if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<bool> opted[mxt::kMaxDevices];
   if (bytes > 48 * 1024) {
-    const cudaError_t e = mxt::opt_in_smem(
-        paged_attention_kernel<QT, DPL, NW>, kSmemMax, opted);
+    const cudaError_t e = mxt::opt_in_smem(kernel, kSmemMax, opted);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  paged_attention_kernel<QT, DPL, NW>
-      <<<S * p.H * p.tiles, NW * kWarp, bytes, stream>>>(p);
+  kernel<<<S * p.H * p.tiles, NW * kWarp, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int QT>
+template <int kCode, int QT>
 int launch_rows(const Params& p, int S, cudaStream_t stream) {
-  if (p.D <= 32) return launch<QT, 1>(p, S, stream);
-  if (p.D <= 64) return launch<QT, 2>(p, S, stream);
-  if (p.D <= 128) return launch<QT, 4>(p, S, stream);
-  return launch<QT, 8>(p, S, stream);
+  if (p.D <= 32) return launch<kCode, QT, 1>(p, S, stream);
+  if (p.D <= 64) return launch<kCode, QT, 2>(p, S, stream);
+  if (p.D <= 128) return launch<kCode, QT, 4>(p, S, stream);
+  return launch<kCode, QT, 8>(p, S, stream);
+}
+
+template <int kCode>
+int launch_code(const Params& p, int S, int Q, cudaStream_t stream) {
+  return Q == 1 ? launch_rows<kCode, 1>(p, S, stream)
+                : launch_rows<kCode, kPrefillRows>(p, S, stream);
 }
 
 }  // namespace
@@ -333,12 +409,31 @@ extern "C" int mxt_paged_attention(const void* q, const void* k_pool,
                                    void* stream) {
   if (D > mxt::kMaxHeadDim || page > mxt::kMaxBlock)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{static_cast<const float*>(q), static_cast<const float*>(k_pool),
-           static_cast<const float*>(v_pool),
+  Params p{static_cast<const float*>(q), k_pool, v_pool, nullptr, nullptr,
+           static_cast<const int*>(tables), static_cast<const int*>(lengths),
+           static_cast<float*>(out), H, Q, D, page, max_pages, per_row, 0, 0,
+           scale};
+  return launch_code<0>(p, S, Q, static_cast<cudaStream_t>(stream));
+}
+
+// K2q: as mxt_paged_attention over one layer's one-byte code pools
+// (int8, or e4m3 bytes where e4m3 = 1) with their (pages + 1, page) fp32
+// scale pools k_scale, v_scale.
+extern "C" int mxt_paged_attention_q(const void* q, const void* k_pool,
+                                     const void* v_pool, const void* k_scale,
+                                     const void* v_scale, const void* tables,
+                                     const void* lengths, void* out, int S,
+                                     int H, int Q, int D, int page,
+                                     int max_pages, int per_row, float scale,
+                                     int e4m3, void* stream) {
+  if (D > mxt::kMaxHeadDim || page > mxt::kMaxBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const float*>(q), k_pool, v_pool,
+           static_cast<const float*>(k_scale),
+           static_cast<const float*>(v_scale),
            static_cast<const int*>(tables), static_cast<const int*>(lengths),
            static_cast<float*>(out), H, Q, D, page, max_pages, per_row, 0, 0,
            scale};
   auto st = static_cast<cudaStream_t>(stream);
-  return Q == 1 ? launch_rows<1>(p, S, st)
-                : launch_rows<kPrefillRows>(p, S, st);
+  return e4m3 ? launch_code<2>(p, S, Q, st) : launch_code<1>(p, S, Q, st);
 }

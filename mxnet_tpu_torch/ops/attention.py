@@ -21,7 +21,9 @@ version beside it:
 * :func:`paged_attention` — kernel K2 (``csrc/paged_attention.cu``),
   ``decode_attention`` fused with the page-table gather that feeds it;
   plain version :func:`paged_attention_plain`, the gather followed by
-  :func:`decode_attention`.
+  :func:`decode_attention`.  Over quantized pages (one-byte code pools
+  with per-row fp32 scale pools, ``decode_attention``'s
+  ``k_scale``/``v_scale``) it is kernel K2q, in the same source.
 
 :func:`dot_product_attention` picks the implementation as the JAX
 package does (``MXNET_ATTN_IMPL`` or the ``attn_impl`` op attr).
@@ -31,8 +33,9 @@ for CUDA tensors it launches its kernel or raises.  K1 and K2 share the
 online-softmax step of :func:`online_block_merge` (the kernels through
 ``csrc/online_softmax.cuh``), so a paged decode row reproduces the
 matching row of a full-context forward bit for bit — the serving
-contract.  Sliding windows and quantized KV pages are ported in later
-slices and raise here.
+contract; K2q dequantizes each element before K2's arithmetic, so it
+keeps that contract over the dequantized context.  Sliding windows are
+ported in a later slice and raise here.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import math
 import torch
 
 from .. import _cuda
+from .. import quantize as Q
 from ..base import MXNetError, get_env
 
 __all__ = ["attention_impl", "attention_block_size", "dot_product_attention",
@@ -49,7 +53,7 @@ __all__ = ["attention_impl", "attention_block_size", "dot_product_attention",
            "flash_forward_plain", "flash_backward_plain",
            "flash_attention_backward", "online_block_merge",
            "finalize_attention", "decode_attention", "gather_pages",
-           "paged_attention", "paged_attention_plain"]
+           "gather_scales", "paged_attention", "paged_attention_plain"]
 
 _IMPLS = ("auto", "flash", "reference")
 _MAX_HEAD_DIM = 256   # csrc/online_softmax.cuh: kMaxHeadDim
@@ -495,12 +499,14 @@ def _valid_len(lengths, q):
 
 
 def decode_attention(q, k_ctx, v_ctx, lengths, scale=None, block=None,
-                     mi=False):
+                     mi=False, k_scale=None, v_scale=None):
     """Attention of (S, H, Q, D) queries over a gathered (S, H, Tcap, D)
     context, the JAX package's ``decode_attention``: ``lengths`` (S,) or
     per-row (S, Q) counts the keys each query sees; all ``Tcap/block``
     blocks are visited in order with the validity mask, and a slot with
-    length 0 gives 0."""
+    length 0 gives 0.  ``k_scale``/``v_scale`` (S, Tcap) float32 make the
+    context quantized codes, dequantized block by block (``code *
+    scale``)."""
     d = q.shape[-1]
     t_cap = k_ctx.shape[-2]
     if scale is None:
@@ -517,9 +523,14 @@ def decode_attention(q, k_ctx, v_ctx, lengths, scale=None, block=None,
     for start in range(0, t_cap, block):
         k_pos = torch.arange(start, start + block, device=q.device)
         mask = k_pos < valid_len
-        acc, m, l = _attend_block(q32, k_ctx[..., start:start + block, :],
-                                  v_ctx[..., start:start + block, :],
-                                  acc, m, l, mask, mi)
+        kb = k_ctx[..., start:start + block, :]
+        vb = v_ctx[..., start:start + block, :]
+        if k_scale is not None:  # the quantized context's dequantization
+            kb = Q.codes_to_float(kb) \
+                * k_scale[:, None, start:start + block, None]
+            vb = Q.codes_to_float(vb) \
+                * v_scale[:, None, start:start + block, None]
+        acc, m, l = _attend_block(q32, kb, vb, acc, m, l, mask, mi)
     return finalize_attention(acc, l).to(q.dtype)
 
 
@@ -532,25 +543,53 @@ def gather_pages(pool, tables):
         .transpose(1, 2)
 
 
+def gather_scales(scales, tables):
+    """One layer's (pages + 1, page) scale pool read through (S, max_pages)
+    page tables -> (S, max_pages * page) per-position scales."""
+    return scales[tables.long()].reshape(tables.shape[0], -1)
+
+
 def paged_attention_plain(q, k_pool, v_pool, tables, lengths, scale=None,
-                          mi=True):
-    """Plain version of kernel K2: gather the slots' pages, then
-    :func:`decode_attention` with ``block = page_size``."""
+                          mi=True, k_scale=None, v_scale=None):
+    """Plain version of kernels K2 and K2q: gather the slots' pages (and
+    their scale rows), then :func:`decode_attention` with ``block =
+    page_size``."""
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = gather_scales(k_scale, tables), gather_scales(v_scale, tables)
     return decode_attention(q, gather_pages(k_pool, tables),
                             gather_pages(v_pool, tables), lengths,
-                            scale=scale, block=k_pool.shape[1], mi=mi)
+                            scale=scale, block=k_pool.shape[1], mi=mi,
+                            k_scale=ks, v_scale=vs)
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale):
+def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale,
+                          k_scale=None, v_scale=None):
     s, h, nq, d = q.shape
     _, page, ph, pd = k_pool.shape
+    quant = k_scale is not None or v_scale is not None
     if (ph, pd) != (h, d) or v_pool.shape != k_pool.shape:
         raise MXNetError("paged_attention: pool %r does not match queries "
                          "%r" % (tuple(k_pool.shape), tuple(q.shape)))
-    if q.dtype != torch.float32 or k_pool.dtype != torch.float32 \
-            or v_pool.dtype != torch.float32:
+    if q.dtype != torch.float32:
         raise MXNetError("paged_attention: the CUDA kernel takes float32 "
-                         "queries and pools")
+                         "queries")
+    if quant:
+        if k_pool.dtype not in (torch.int8, torch.uint8) \
+                or v_pool.dtype != k_pool.dtype:
+            raise MXNetError("paged_attention: quantized pools must be int8 "
+                             "or uint8 (e4m3 bytes), both alike; got %s and "
+                             "%s" % (k_pool.dtype, v_pool.dtype))
+        for sc in (k_scale, v_scale):
+            if sc is None or sc.dtype != torch.float32 \
+                    or tuple(sc.shape) != tuple(k_pool.shape[:2]) \
+                    or not sc.is_contiguous() or sc.device != q.device:
+                raise MXNetError(
+                    "paged_attention: scale pools must be contiguous float32 "
+                    "%r on the queries' device" % (tuple(k_pool.shape[:2]),))
+    elif k_pool.dtype != torch.float32 or v_pool.dtype != torch.float32:
+        raise MXNetError("paged_attention: the CUDA kernel takes float32 "
+                         "pools, or one-byte pools with their scale pools")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise MXNetError("paged_attention: tables and lengths must be int32")
     if tables.dim() != 2 or tables.shape[0] != s:
@@ -573,7 +612,16 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale):
     tables = tables.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
-    if out.numel():
+    if out.numel() and quant:
+        with torch.cuda.device(q.device):
+            _cuda.launch("paged_attention_q", q.data_ptr(), k_pool.data_ptr(),
+                         v_pool.data_ptr(), k_scale.data_ptr(),
+                         v_scale.data_ptr(), tables.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(), s, h, nq, d,
+                         page, tables.shape[1], int(per_row), float(scale),
+                         int(Q.code_mode(k_pool) == "fp8"),
+                         _cuda.stream_of(q))
+    elif out.numel():
         with torch.cuda.device(q.device):
             _cuda.launch("paged_attention", q.data_ptr(), k_pool.data_ptr(),
                          v_pool.data_ptr(), tables.data_ptr(),
@@ -584,21 +632,24 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale):
 
 
 def paged_attention(q, k_pool, v_pool, tables, lengths, scale=None,
-                    mi=True):
+                    mi=True, k_scale=None, v_scale=None):
     """Attention of (S, H, Q, D) queries over one layer's paged KV pool.
 
     ``k_pool``/``v_pool``: (pages + 1, page, H, D); ``tables``: (S,
     max_pages) int32 page ids; ``lengths``: (S,) or per-row (S, Q) int32
     horizons (keys at positions < horizon are visible).  Block size is the
     page size.  Decode is S = slots, Q = 1; prefill is S = 1, Q = bucket
-    with horizons ``offset + j + 1``.  On CUDA tensors this is kernel K2,
-    which reads pages through the table and never builds the gathered
-    context (its order is fixed whatever ``mi`` says); on CPU tensors the
-    plain gather + :func:`decode_attention`."""
+    with horizons ``offset + j + 1``.  ``k_scale``/``v_scale`` (pages + 1,
+    page) float32 make the pools one-byte codes (int8, or e4m3 bytes held
+    as uint8) with a scale a row.  On CUDA tensors this is kernel K2 (K2q
+    over codes), which reads pages through the table and never builds the
+    gathered context (its order is fixed whatever ``mi`` says); on CPU
+    tensors the plain gather + :func:`decode_attention`."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
         return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
-                                     scale)
+                                     scale, k_scale, v_scale)
     return paged_attention_plain(q, k_pool, v_pool, tables, lengths,
-                                 scale=scale, mi=mi)
+                                 scale=scale, mi=mi, k_scale=k_scale,
+                                 v_scale=v_scale)

@@ -24,8 +24,16 @@ never need conditionals and nothing ever reads it through a validity
 mask.  Where the JAX pools flow through donated executable arguments,
 these are written in place by the serving functions.
 
-Quantized KV pages and the ring/state pools of hybrid stacks are ported
-in later slices.
+Quantized pages (``kv_quant``, int8 or e4m3): the pools hold one-byte
+codes (``quantize.storage_dtype``) and two fp32 scale pools,
+
+    k_scale, v_scale : (num_layers, num_pages + 1, page_size)
+
+hold one scale per (layer, page, row), indexed by the same (page,
+offset) as the codes, so the page tables, copy-on-write and
+preempt/resume never see quantization; a copy-on-write copies a page's
+scale rows with its codes.  The ring/state pools of hybrid stacks are
+ported in a later slice.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import quantize as Q
 from ..base import MXNetError, resolve_device
 
 __all__ = ["PagedKVCache"]
@@ -55,7 +64,7 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_heads, head_dim, page_size,
                  num_pages, slots, max_pages_per_slot, table_pad=0,
-                 prefix_pages=0, device=None):
+                 prefix_pages=0, kv_quant="", device=None):
         if min(num_layers, num_heads, head_dim, page_size, num_pages,
                slots, max_pages_per_slot) < 1:
             raise MXNetError("PagedKVCache: all dimensions must be >= 1")
@@ -79,11 +88,18 @@ class PagedKVCache:
         # -1 retains refcount-0 pages without bound, > 0 caps them LRU
         self.prefix_pages = int(prefix_pages)
         self.trash_page = self.num_pages  # reserved last pool row
+        self.kv_quant = Q.quant_mode(kv_quant)
         pool_shape = (self.num_layers, self.num_pages + 1, self.page_size,
                       self.num_heads, self.head_dim)
-        self.k_pool = torch.zeros(pool_shape, dtype=torch.float32,
-                                  device=self.device)
+        dtype = Q.storage_dtype(self.kv_quant) if self.kv_quant \
+            else torch.float32
+        self.k_pool = torch.zeros(pool_shape, dtype=dtype, device=self.device)
         self.v_pool = torch.zeros_like(self.k_pool)
+        self.k_scale = self.v_scale = None
+        if self.kv_quant:
+            self.k_scale = torch.ones(pool_shape[:3], dtype=torch.float32,
+                                      device=self.device)
+            self.v_scale = torch.ones_like(self.k_scale)
         # min-heaps: heappop yields the lowest free id (a sorted range is
         # already a valid heap)
         self._free_pages = list(range(self.num_pages))
@@ -365,6 +381,9 @@ class PagedKVCache:
             # bit-identical to the shared one
             self.k_pool[:, new] = self.k_pool[:, page]
             self.v_pool[:, new] = self.v_pool[:, page]
+            if self.kv_quant:  # scale rows travel with their codes
+                self.k_scale[:, new] = self.k_scale[:, page]
+                self.v_scale[:, new] = self.v_scale[:, page]
             self._refcount[new] = 1
             pages[idx] = new
             self._tables[slot, idx] = new
@@ -439,11 +458,29 @@ class PagedKVCache:
         return torch.from_numpy(self._tables[slot].copy()).to(self.device)
 
     # -- accounting -------------------------------------------------------
+    def pools(self):
+        """The pools the serving functions take, by keyword: ``k_pool``,
+        ``v_pool`` and, for quantized pages, ``k_scale``, ``v_scale`` (the
+        JAX package's ``_pool_names`` order)."""
+        out = dict(k_pool=self.k_pool, v_pool=self.v_pool)
+        if self.kv_quant:
+            out.update(k_scale=self.k_scale, v_scale=self.v_scale)
+        return out
+
     def pool_bytes(self):
-        """Device bytes held by the pools — constant for the session's
-        lifetime."""
-        return (self.k_pool.numel() * self.k_pool.element_size()
-                + self.v_pool.numel() * self.v_pool.element_size())
+        """Device bytes held by the pools (scale pools included) —
+        constant for the session's lifetime."""
+        return sum(t.numel() * t.element_size() for t in self.pools().values())
+
+    @classmethod
+    def page_bytes(cls, num_layers, num_heads, head_dim, page_size,
+                   kv_quant=""):
+        """Device bytes one page costs: K and V rows of every layer, plus
+        a scale a row for quantized pages."""
+        mode = Q.quant_mode(kv_quant)
+        per_row = num_heads * head_dim * (1 if mode else 4) \
+            + (4 if mode else 0)
+        return 2 * num_layers * page_size * per_row
 
     def utilization(self):
         used = self.num_pages - len(self._free_pages)

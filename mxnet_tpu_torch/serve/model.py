@@ -24,8 +24,18 @@ update the pools in place and return only tokens and logits.  Every
 argument that changes between calls is a tensor (prefill's ``length``
 and ``offset`` too) and nothing reads a value back to the host, so each
 function can be captured once as a CUDA graph and replayed over the same
-buffers (``session.py``).  Hybrid window/SSM layers, KV quantization and
-weight quantization are ported in later slices.
+buffers (``session.py``).
+
+Quantization (``quantize.py``), per precision as in the JAX package:
+weight-only, where a params entry is a ``{"q", "s"}`` record that the
+projections take as it is (kernel K3q dequantizes each weight before
+K3's chain) and the embeddings dequantize the rows they gather; and
+quantized KV pages, where each token's K and V rows are quantized per
+row as they are written (kernel K9) and dequantized inside the paged
+attention kernel (K2q).  The oracle then is :func:`reference_last_logits`
+over the dequantized params with ``kv_quant``, whose forward
+fake-quantizes its K and V per token row with the plain form of K9.
+Hybrid window/SSM layers are ported in a later slice.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import quantize as Q
 from ..base import MXNetError, get_env, later_slice, resolve_device
 from ..ops.attention import flash_attention, paged_attention
 from ..ops.linear import mi_linear
@@ -131,22 +142,49 @@ def init_params(cfg, seed=0, scale=0.02, device=None):
     return params
 
 
+def _codes_from(name, val):
+    """A record's codes as int8, or as uint8 bytes for e4m3 (an
+    ``ml_dtypes`` e4m3 array is read through its bytes)."""
+    if not torch.is_tensor(val):
+        arr = np.asarray(val)
+        if arr.dtype.name == "float8_e4m3fn":
+            arr = arr.view(np.uint8)
+        val = torch.from_numpy(np.array(arr))
+    elif val.dtype == torch.float8_e4m3fn:
+        val = val.view(torch.uint8)
+    if val.dtype not in (torch.int8, torch.uint8):
+        raise MXNetError("quantized parameter %r: codes of dtype %s (int8 "
+                         "or e4m3 expected)" % (name, val.dtype))
+    return val
+
+
 def params_from_numpy(np_params, device=None):
     """The JAX package's flat parameter dict (numpy arrays, or tensors,
-    under the training names) as the port's float32 tensors on
-    ``device`` (default: the card).  ``data``/``softmax_label`` are
-    dropped as the JAX session drops them; quantized ``{"q", "s"}``
-    records are a later slice and raise."""
+    under the training names) as the port's tensors on ``device``
+    (default: the card): float32, and quantized ``{"q", "s"}`` records
+    as int8 or uint8 (e4m3 bytes) codes with float32 scales.
+    ``data``/``softmax_label`` are dropped as the JAX session drops
+    them."""
     device = resolve_device(device, "params_from_numpy")
+
+    def f32(val):
+        if not torch.is_tensor(val):
+            val = torch.from_numpy(np.array(val, dtype=np.float32))
+        return val.to(device=device, dtype=torch.float32).contiguous()
+
     out = {}
     for name, val in np_params.items():
         if name in ("data", "softmax_label"):
             continue
         if isinstance(val, dict):
-            raise later_slice("quantized parameter %r" % name, sorted(val))
-        if not torch.is_tensor(val):
-            val = torch.from_numpy(np.array(val, dtype=np.float32))
-        out[name] = val.to(device=device, dtype=torch.float32).contiguous()
+            if not Q.is_quantized(val):
+                raise MXNetError("parameter %r: a dict that is not a "
+                                 "quantized {\"q\", \"s\"} record: %s"
+                                 % (name, sorted(val)))
+            out[name] = {"q": _codes_from(name, val["q"]).to(device)
+                         .contiguous(), "s": f32(val["s"])}
+        else:
+            out[name] = f32(val)
     return out
 
 
@@ -157,8 +195,11 @@ def config_from_params(params, num_heads):
         raise MXNetError(
             "not a transformer LM parameter dict (expected "
             "tok_embed_weight / pos_embed; got %s)" % sorted(params)[:8])
-    vocab, d_model = params["tok_embed_weight"].shape
-    max_len = params["pos_embed"].shape[1]
+    def shape(v):  # a quantized record keeps the shape on its codes
+        return (v["q"] if Q.is_quantized(v) else v).shape
+
+    vocab, d_model = shape(params["tok_embed_weight"])
+    max_len = shape(params["pos_embed"])[1]
     n = 0
     while "blk%d_attn_in_weight" % n in params:
         n += 1
@@ -167,6 +208,25 @@ def config_from_params(params, num_heads):
     return ModelConfig(vocab_size=int(vocab), num_layers=n,
                        d_model=int(d_model), num_heads=int(num_heads),
                        max_len=int(max_len)).validate()
+
+
+def _tok_rows(params, tokens):
+    """Token embeddings of ``tokens`` as float32.  A quantized table
+    dequantizes only the rows it gathers: the same values as gathering
+    from the dequantized table."""
+    w, idx = params["tok_embed_weight"], tokens.long()
+    if Q.is_quantized(w):
+        return Q.dequantize_array(w["q"][idx], w["s"][idx])
+    return w[idx]
+
+
+def _pos_rows(params, pos):
+    """Rows ``pos`` (an index tensor or a slice) of ``pos_embed[0]`` as
+    float32; a quantized table has one scale (its axis 0 is 1 long)."""
+    w = params["pos_embed"]
+    if Q.is_quantized(w):
+        return Q.dequantize_array(w["q"][0][pos], w["s"][0])
+    return w[0][pos]
 
 
 def _heads(x, n, t, h, d):
@@ -207,25 +267,62 @@ def _lm_head(params, x, exact):
                      exact)
 
 
-def _kv_append(pool, i, pages, offsets, rows):
-    """Write (N, H, D) KV rows into layer ``i`` of the page pool at
-    (page, offset), in place.  Only trash-page rows can collide, and
-    nothing reads the trash page."""
-    pool[i, pages, offsets] = rows
+def _kv_append(pools, i, pages, offsets, k_rows, v_rows):
+    """Write (N, H, D) K and V rows into layer ``i`` of the page pools at
+    (page, offset), in place: as they are into fp32 pools; quantized per
+    row into code and scale pools (kernel K9, the JAX package's
+    ``_kv_append`` under ``kv_quant``).  ``pools`` is ``(k_pool, v_pool,
+    k_scale, v_scale)``, the scales None for fp32 pages.  Only trash-page
+    rows can collide, and nothing reads the trash page."""
+    k_pool, v_pool, k_scale, v_scale = pools
+    if k_scale is not None:
+        Q.kv_append_quantized(k_pool[i], v_pool[i], k_scale[i], v_scale[i],
+                              pages, offsets, k_rows, v_rows)
+    else:
+        k_pool[i, pages, offsets] = k_rows
+        v_pool[i, pages, offsets] = v_rows
 
 
-def full_forward(params, tokens, cfg, exact=None, block=None):
-    """Full-context forward: (n, T) int tokens -> (n, T, V) logits."""
+def _paged(q, pools, i, tables, horizons, exact):
+    """Layer ``i``'s paged attention (K2, or K2q over quantized pages)."""
+    k_pool, v_pool, k_scale, v_scale = pools
+    quantized = k_scale is not None
+    return paged_attention(q, k_pool[i], v_pool[i], tables, horizons,
+                           mi=exact, k_scale=k_scale[i] if quantized else None,
+                           v_scale=v_scale[i] if quantized else None)
+
+
+def _kv_fake_quant(k, v, kv_quant):
+    """The oracle's half of the per-precision contract: quantize and
+    dequantize the (n, H, T, D) keys and values per token row with the
+    plain form of what the paged path writes, so the full-context forward
+    sees the values K2q reconstructs."""
+    if not kv_quant:
+        return k, v
+
+    def fake(t):
+        q, s = Q.kv_quantize_rows(t.transpose(1, 2), kv_quant)
+        return Q.kv_dequantize(q, s).transpose(1, 2).contiguous()
+
+    return fake(k), fake(v)
+
+
+def full_forward(params, tokens, cfg, exact=None, block=None, kv_quant=""):
+    """Full-context forward: (n, T) int tokens -> (n, T, V) logits.
+    ``kv_quant`` fake-quantizes each layer's keys and values per token
+    row (:func:`_kv_fake_quant`)."""
     if exact is None:
         exact = exact_mode()
+    kv_quant = Q.quant_mode(kv_quant)
     n, t = tokens.shape
     if t > cfg.max_len:
         raise MXNetError("sequence length %d > model max_len %d"
                          % (t, cfg.max_len))
     h, d = cfg.num_heads, cfg.head_dim
-    x = params["tok_embed_weight"][tokens.long()] + params["pos_embed"][:, :t]
+    x = _tok_rows(params, tokens) + _pos_rows(params, slice(0, t))
     for i in range(cfg.num_layers):
         q, k, v = (_heads(z, n, t, h, d) for z in _qkv(params, i, x, exact))
+        k, v = _kv_fake_quant(k, v, kv_quant)
         att = flash_attention(q, k, v, causal=True, block=block, mi=exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
@@ -233,14 +330,16 @@ def full_forward(params, tokens, cfg, exact=None, block=None):
 
 
 def prefill_forward(params, tokens, length, offset, table_row, k_pool,
-                    v_pool, cfg, page_size, exact=None):
+                    v_pool, cfg, page_size, exact=None, k_scale=None,
+                    v_scale=None):
     """Bucketed prefill over one page-aligned chunk of a prompt.
 
     tokens: (1, Tb) chunk padded to the bucket length (a multiple of
     ``page_size``); ``length``: real tokens in this chunk; ``offset``:
     absolute position of its first token (both ints or 0-dim tensors on
     the tokens' device); table_row: (max_pages,) int32
-    page ids, entries past the slot's pages pointing at the trash page.
+    page ids, entries past the slot's pages pointing at the trash page;
+    ``k_scale``/``v_scale``: the scale pools of quantized pages.
     Writes the chunk's K/V into ``k_pool``/``v_pool`` **in place** and
     attends row ``j`` over every key at or before its absolute position
     (horizon ``offset + j + 1``), cached prefix pages included.  Rows
@@ -262,19 +361,19 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
     offset = torch.as_tensor(offset, dtype=torch.long, device=dev)
     abs_pos = offset + torch.arange(t_b, device=dev)
     pos = abs_pos.clamp(0, cfg.max_len - 1)
-    x = params["tok_embed_weight"][tokens.long()] \
-        + params["pos_embed"][0][pos]
+    x = _tok_rows(params, tokens) + _pos_rows(params, pos)
     horizons = (abs_pos + 1).to(torch.int32).reshape(1, t_b)
     pages, offsets = _write_rows(table_row.reshape(1, -1),
                                  abs_pos.reshape(1, t_b), page_size,
                                  k_pool.shape[1] - 1)
     tables = table_row.reshape(1, -1)
+    pools = (k_pool, v_pool, k_scale, v_scale)
     for i in range(cfg.num_layers):
         q, k, v = _qkv(params, i, x, exact)
-        _kv_append(k_pool, i, pages, offsets, k.reshape(t_b, h, d))
-        _kv_append(v_pool, i, pages, offsets, v.reshape(t_b, h, d))
-        att = paged_attention(_heads(q, 1, t_b, h, d), k_pool[i], v_pool[i],
-                              tables, horizons, mi=exact)
+        _kv_append(pools, i, pages, offsets, k.reshape(t_b, h, d),
+                   v.reshape(t_b, h, d))
+        att = _paged(_heads(q, 1, t_b, h, d), pools, i, tables, horizons,
+                     exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     last = _lm_head(params, x[0].index_select(0, (length - 1).reshape(1)),
@@ -296,7 +395,7 @@ def _write_rows(tables, abs_pos, page_size, trash):
 
 
 def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
-                page_size, exact=None):
+                page_size, exact=None, k_scale=None, v_scale=None):
     """One continuous-batching decode step for every slot at once.
 
     tokens: (S,) int — each slot's previous output token; lengths: (S,)
@@ -312,19 +411,18 @@ def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
     max_pages = tables.shape[1]
     lengths = lengths.to(torch.int32)
     pos = lengths.long().clamp(0, cfg.max_len - 1)
-    x = params["tok_embed_weight"][tokens.long()] \
-        + params["pos_embed"][0][pos]
+    x = _tok_rows(params, tokens) + _pos_rows(params, pos)
     x = x[:, None, :]                                     # (S, 1, C)
     page_slot = (lengths.long() // page_size).clamp(0, max_pages - 1)
     page = tables.long().gather(1, page_slot[:, None])[:, 0]
     offset = lengths.long() % page_size
     horizons = lengths + 1
+    pools = (k_pool, v_pool, k_scale, v_scale)
     for i in range(cfg.num_layers):
         q, k, v = _qkv(params, i, x, exact)
-        _kv_append(k_pool, i, page, offset, k.reshape(s, h, d))
-        _kv_append(v_pool, i, page, offset, v.reshape(s, h, d))
-        att = paged_attention(q.reshape(s, h, 1, d), k_pool[i], v_pool[i],
-                              tables, horizons, mi=exact)
+        _kv_append(pools, i, page, offset, k.reshape(s, h, d),
+                   v.reshape(s, h, d))
+        att = _paged(q.reshape(s, h, 1, d), pools, i, tables, horizons, exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     logits = _lm_head(params, x[:, 0], exact)
@@ -332,7 +430,7 @@ def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
 
 
 def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
-                page_size, exact=None):
+                page_size, exact=None, k_scale=None, v_scale=None):
     """Speculative decoding's verify: every slot advances ``W = K + 1``
     teacher-forced positions in one fixed-shape step.
 
@@ -357,17 +455,17 @@ def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
     abs_pos = lengths[:, None] + torch.arange(w, dtype=torch.int32,
                                               device=lengths.device)
     pos = abs_pos.long().clamp(0, cfg.max_len - 1)
-    x = params["tok_embed_weight"][tokens.long()] \
-        + params["pos_embed"][0][pos]                     # (S, W, C)
+    x = _tok_rows(params, tokens) + _pos_rows(params, pos)  # (S, W, C)
     horizons = abs_pos + 1
     pages, offsets = _write_rows(tables, abs_pos, page_size,
                                  k_pool.shape[1] - 1)
+    pools = (k_pool, v_pool, k_scale, v_scale)
     for i in range(cfg.num_layers):
         q, k, v = _qkv(params, i, x, exact)
-        _kv_append(k_pool, i, pages, offsets, k.reshape(s * w, h, d))
-        _kv_append(v_pool, i, pages, offsets, v.reshape(s * w, h, d))
-        att = paged_attention(_heads(q, s, w, h, d), k_pool[i], v_pool[i],
-                              tables, horizons, mi=exact)
+        _kv_append(pools, i, pages, offsets, k.reshape(s * w, h, d),
+                   v.reshape(s * w, h, d))
+        att = _paged(_heads(q, s, w, h, d), pools, i, tables, horizons,
+                     exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     logits = _lm_head(params, x, exact)
@@ -375,7 +473,7 @@ def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
 
 
 def draft_propose(params, tokens, n_feed, lengths, tables, k_pool, v_pool,
-                  cfg, page_size, exact=None):
+                  cfg, page_size, exact=None, k_scale=None, v_scale=None):
     """The draft model's ``W``-step scan, one call that both *ingests*
     committed tokens and *proposes* continuations.
 
@@ -394,23 +492,28 @@ def draft_propose(params, tokens, n_feed, lengths, tables, k_pool, v_pool,
     for j in range(w):
         tok = torch.where(n_feed > j, tokens[:, j], prev)
         prev, _ = decode_step(params, tok, lengths + j, tables, k_pool,
-                              v_pool, cfg, page_size, exact)
+                              v_pool, cfg, page_size, exact, k_scale,
+                              v_scale)
         outs.append(prev)
     return torch.stack(outs, dim=1)
 
 
-def reference_last_logits(params, seq, cfg, page_size, exact=None):
+def reference_last_logits(params, seq, cfg, page_size, exact=None,
+                          kv_quant=""):
     """Bit-exactness oracle for the serving path: the full-context
     forward over ``seq`` padded to the next ``page_size`` multiple, with
     ``block = page_size`` (the attention-block geometry of the paged
-    path), logits at the last real position."""
+    path), logits at the last real position.  ``kv_quant`` pins the oracle
+    to a KV precision (the forward fake-quantizes its keys and values per
+    token row); for a weight-quantized session pass its
+    ``dequantized_params()``."""
     exact = exact_mode() if exact is None else bool(exact)
     seq = [int(t) for t in seq]
     if not seq:
         raise MXNetError("reference_last_logits: empty sequence")
     pad = (-len(seq)) % int(page_size)
-    device = params["tok_embed_weight"].device
+    device = params["final_ln_gamma"].device
     toks = torch.tensor([seq + [0] * pad], dtype=torch.int64, device=device)
     logits = full_forward(params, toks, cfg, exact=exact,
-                          block=int(page_size))
+                          block=int(page_size), kv_quant=kv_quant)
     return logits[0, len(seq) - 1]

@@ -17,7 +17,8 @@ for the session's life: ``decode``, ``prefill_<bucket>`` per bucket,
 ``verify``, and ``draft`` for a draft model.  A capture that fails
 raises; nothing runs the eager functions on the card in its place.  On
 the CPU the same names run the eager functions over the same buffers.
-Every projection runs K3 and attention K2 (``csrc/``).
+Every projection runs K3 and attention K2 (``csrc/``); a quantized
+session runs K3q, K2q and K9 in their place, in the same graphs.
 
 A replay's outputs are the graph's own tensors: the graphs share one
 pool and replay in series on one stream, so an output is valid until
@@ -37,13 +38,28 @@ target's first N blocks) or explicit ``draft_params``.
 Prefix caching (``prefix_pages``), chunked prefill at page-aligned
 offsets, and oversubscription with on-demand page growth carry over
 from the JAX session unchanged; they are host bookkeeping around the
-same entry points.  Hybrid window/SSM stacks, weight and KV quantization,
-autotune and checkpoint loading (a checkpoint-directory draft too) are
-ported in later slices: their ``ServeConfig`` values raise.
+same entry points.  Hybrid window/SSM stacks, autotune and checkpoint
+loading (a checkpoint-directory draft too) are ported in later slices:
+their ``ServeConfig`` values raise.
+
+Weight-only quantization (``quant``, ``int8`` or ``fp8``): the session
+quantizes its params (and a draft's) at construction into ``{"q",
+"s"}`` records (``quantize.py``), ~4x fewer bytes at rest, which every
+projection reads through kernel K3q and the embeddings dequantize as
+they gather.  Quantized KV pages (``kv_quant``, ``int8`` or
+``e4m3``/``fp8``): one-byte code pools with a float32 scale a row
+(:class:`PagedKVCache`), written through kernel K9 and read through
+K2q, ~4x the tokens a pool byte holds.  Both keep the JAX package's
+per-precision contract: a quantized session's logits equal
+``reference_last_logits(sess.dequantized_params(), seq, model, page,
+exact=True, kv_quant=mode)`` bit for bit, so verify rows, prefix hits,
+preempt/re-prefill and graph replays keep those bits, and speculation
+composes as before.
 
 Env knobs: ``MXNET_SERVE_SLOTS``, ``MXNET_SERVE_PAGE``,
 ``MXNET_SERVE_BUCKETS``, ``MXNET_SERVE_MAX_NEW``, ``MXNET_SERVE_PAGES``,
 ``MXNET_SERVE_EXACT``, ``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_DRAFT``,
+``MXNET_SERVE_QUANT``, ``MXNET_SERVE_KV_QUANT``,
 ``MXNET_SERVE_PREFIX_PAGES``, ``MXNET_SERVE_OVERSUB``,
 ``MXNET_SERVE_WATERMARK``, ``MXNET_SERVE_TTFT_SLO_MS`` — the JAX
 package's names.
@@ -58,7 +74,9 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from .. import quantize as Q
 from ..base import MXNetError, get_env, later_slice, resolve_device
+from ..testing import faults
 from .kv_cache import PagedKVCache
 from .model import config_from_params, decode_step, draft_propose, \
     exact_mode, params_from_numpy, prefill_forward, verify_step
@@ -87,9 +105,12 @@ class ServeConfig:
     on speculative decoding with K draft proposals per step and
     ``draft`` picks the proposer (``""``/``"ngram"`` host prompt-lookup,
     ``"layers:N"`` the target's first N blocks; a checkpoint directory is
-    a later slice of the port).  ``quant``, ``kv_quant``, ``window`` and
-    ``layers`` keep the JAX package's fields; any value but the default
-    is a later slice of the port and raises, naming the field.
+    a later slice of the port).  ``quant`` (``""``, ``"int8"`` or
+    ``"fp8"``) quantizes the weights and ``kv_quant`` (the same, ``e4m3``
+    naming fp8) the KV pages, normalized as ``quantize.quant_mode``
+    does.  ``window`` and ``layers`` keep the JAX package's fields; any
+    value but the default (or ``layers`` all ``full``) is a later slice of
+    the port and raises, naming the field.
     """
 
     slots: int = 4
@@ -100,8 +121,8 @@ class ServeConfig:
     exact: bool = True
     spec_k: int = 0  # 0 = speculative decoding off
     draft: str = ""  # "", "ngram" or "layers:N"
-    quant: str = ""
-    kv_quant: str = ""
+    quant: str = ""  # "", "int8" or "fp8": weight-only quantization
+    kv_quant: str = ""  # "", "int8" or "fp8" (e4m3): quantized KV pages
     prefix_pages: int = 0  # 0 = prefix cache off; -1 = unbounded retention
     oversub: bool = False  # admit by current need, grow on demand
     watermark: int = 0  # free-pool floor that triggers preemption
@@ -135,10 +156,10 @@ class ServeConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "buckets", _parse_buckets(self.buckets))
-        for name in ("quant", "kv_quant", "window"):
-            val = getattr(self, name)
-            if val:
-                raise later_slice("ServeConfig.%s" % name, val)
+        object.__setattr__(self, "quant", Q.quant_mode(self.quant))
+        object.__setattr__(self, "kv_quant", Q.quant_mode(self.kv_quant))
+        if self.window:
+            raise later_slice("ServeConfig.window", self.window)
         kinds = {t.strip() for t in self.layers.replace(";", ",").split(",")
                  if t.strip()}
         if kinds - {"full"}:
@@ -277,7 +298,8 @@ class InferenceSession(object):
 
     ``params`` is a flat name -> array dict (numpy arrays or tensors)
     under the training parameter names; it is held as float32 on
-    ``device`` (default: the card — without one, pass ``device="cpu"``).
+    ``device`` (default: the card — without one, pass ``device="cpu"``),
+    or quantized under ``config.quant``.
     On a CUDA device every entry point is captured as a CUDA graph here,
     once; steady-state serving only replays.
 
@@ -295,6 +317,10 @@ class InferenceSession(object):
         self.config = config or ServeConfig.from_env()
         cfg = self.config
         self.params = params_from_numpy(params, self.device)
+        if cfg.quant:
+            # on the host in fp32, as the JAX package quantizes; a
+            # layers:N draft then shares these records
+            self.params = Q.quantize_params(self.params, cfg.quant)
         self.model = config_from_params(self.params, num_heads=num_heads)
         if max(cfg.buckets) + cfg.max_new > self.model.max_len:
             raise MXNetError(
@@ -326,6 +352,7 @@ class InferenceSession(object):
             max_pages_per_slot=cfg.max_pages_per_slot,
             table_pad=cfg.spec_pad_pages,
             prefix_pages=cfg.prefix_pages,
+            kv_quant=cfg.kv_quant,
             device=self.device)
 
     def _resolve_draft(self, draft_params, draft_num_heads):
@@ -363,9 +390,13 @@ class InferenceSession(object):
             draft_params = _layer_truncated(self.params, n)
             draft_num_heads = draft_num_heads or self.model.num_heads
         self._draft_mode = "model"
-        # a layers:N draft shares the target's tensors: same device, same
-        # dtype, so params_from_numpy hands them back as they are
+        # a layers:N draft shares the target's tensors (and quantized
+        # records): same device, same dtype, so params_from_numpy hands
+        # them back as they are, and quantize_params passes records through
         self.draft_params = params_from_numpy(draft_params, self.device)
+        if cfg.quant:
+            self.draft_params = Q.quantize_params(self.draft_params,
+                                                  cfg.quant)
         self.draft_model = config_from_params(
             self.draft_params,
             num_heads=draft_num_heads or self.model.num_heads)
@@ -394,8 +425,8 @@ class InferenceSession(object):
 
         def entry(fn, model, cache, params):
             return functools.partial(
-                fn, params=params, k_pool=cache.k_pool, v_pool=cache.v_pool,
-                cfg=model, page_size=cfg.page_size, exact=bool(cfg.exact))
+                fn, params=params, cfg=model, page_size=cfg.page_size,
+                exact=bool(cfg.exact), **cache.pools())
 
         def step_inputs(cache, tokens_shape):
             return dict(tokens=buf(tokens_shape, i64),
@@ -430,6 +461,18 @@ class InferenceSession(object):
         per bucket, plus ``verify`` (and ``draft``, for a draft model)
         when ``spec_k > 0`` — fixed for the session's lifetime."""
         return dict(self._exes)
+
+    def params_bytes_at_rest(self):
+        """Bytes the serving params occupy as held: codes and scales
+        under ``config.quant``, float32 otherwise."""
+        return Q.at_rest_bytes(self.params)
+
+    def dequantized_params(self):
+        """The params as float32 tensors: for a quantized session exactly
+        the weight values its kernels compute from the records (the
+        oracle's params); a full-precision session's params as they
+        are."""
+        return Q.dequantize_params(self.params)
 
     def graph_report(self):
         """Capture seconds, the graphs' pool bytes, and per executable its
@@ -513,6 +556,10 @@ class InferenceSession(object):
         if not 0 <= cached < p:
             raise MXNetError("prefill: cached prefix %d outside prompt "
                              "of %d tokens" % (cached, p))
+        if self.config.kv_quant:
+            # chaos site: a fault here fails this request before any of
+            # its quantized pages or scale rows is written
+            faults.inject("kv_quant")
         off = cached
         while off < p:
             bucket = self._chunk_bucket(p - off)

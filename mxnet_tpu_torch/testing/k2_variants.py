@@ -51,20 +51,28 @@ TILINGS = ((16, 8, 96), (16, 16, 96), (16, 16, 200), (8, 8, 96), (8, 8, 48),
            (4, 8, 48), (32, 16, 200))
 _PATCHES = (
     ("mxt::warp_sum(mxt::lane_dot(", "K2V_SUM(mxt::lane_dot("),
-    ("load_keys(kr, kp + kc * key_stride, key_stride,\n"
-     "                  min(kKeys, min(page, hmax - start) - kc), D, lane);\n",
-     "load_keys(kr, kp + kc * key_stride, key_stride,\n"
-     "                  min(kKeys, min(page, hmax - start) - kc), D, lane);\n"
+    ("load_keys<kCode>(kr, kp + kc * key_stride, kCode ? ks + kc : nullptr,\n"
+     "                         key_stride,\n"
+     "                         min(kKeys, min(page, hmax - start) - kc), D, "
+     "lane);\n",
+     "load_keys<kCode>(kr, kp + kc * key_stride, kCode ? ks + kc : nullptr,\n"
+     "                         key_stride,\n"
+     "                         min(kKeys, min(page, hmax - start) - kc), D, "
+     "lane);\n"
      "        const float k2v_k = K2V_SCORES ? 0.f : k2v_sum(kr);\n"),
     ("          if (vis > 0) {\n            float qv[DPL];",
      "          if (!K2V_SCORES && vis > 0)\n"
      "            mine = lane < vis && lane < kKeys ? 0.f * k2v_k : -INFINITY;\n"
      "          if (K2V_SCORES && vis > 0) {\n            float qv[DPL];"),
-    ("load_keys(vr, vp + kc * key_stride, key_stride,\n"
-     "                  min(kKeys, min(page, hmax - start) - kc), D, lane);\n"
+    ("load_keys<kCode>(vr, vp + kc * key_stride, kCode ? vs + kc : nullptr,\n"
+     "                         key_stride,\n"
+     "                         min(kKeys, min(page, hmax - start) - kc), D, "
+     "lane);\n"
      "        for (int r = 0; r < rows; ++r) {\n",
-     "load_keys(vr, vp + kc * key_stride, key_stride,\n"
-     "                  min(kKeys, min(page, hmax - start) - kc), D, lane);\n"
+     "load_keys<kCode>(vr, vp + kc * key_stride, kCode ? vs + kc : nullptr,\n"
+     "                         key_stride,\n"
+     "                         min(kKeys, min(page, hmax - start) - kc), D, "
+     "lane);\n"
      "        if (!K2V_SUMS && k2v_sum(vr) == 1.25f) pv[lane] = 0.f;\n"
      "        for (int r = 0; r < (K2V_SUMS ? rows : 0); ++r) {\n"),
     ("for (int bl = 0; bl < nb; ++bl)\n        a = mxt::fold",

@@ -153,7 +153,7 @@ def test_exact_sources_keep_fmad_false_and_sm90_sources_drop_it():
         assert "arch=compute_90a,code=sm_90a" in flags
         assert ("-fmad=false" in flags) == (stem not in fast), stem
     for stem in ("flash_attention", "paged_attention", "linear",
-                 "batch_norm"):
+                 "kv_quant", "batch_norm"):
         assert "-fmad=false" in _cuda.nvcc_flags(stem)
     assert "-fmad=false" in _cuda.NVCC_FLAGS  # run-time (rtc) sources
 

@@ -14,8 +14,11 @@ the bf16 tensor-core kernels K7/K8, the derived bound of
 ``mxnet_tpu_torch/testing/attention_sm90.py``; for the
 projection, the worst-case bound of two fp32 summation orders; and
 bit-equality where the serving contract demands it (row-count
-invariance, decode == reference, and each of the serving session's CUDA
-graphs against the eager function it captured).  The rtc kernels (``rtc.CudaKernel``,
+invariance, decode == reference, each of the serving session's CUDA
+graphs against the eager function it captured, and the quantized
+kernels: K3q against K3 on the dequantized weight, K2q against K1 over
+the fake-quantized context, K9's codes and scales against the plain
+quantizer's).  The rtc kernels (``rtc.CudaKernel``,
 compiled at run time) are held to the stated tolerance of each test.
 """
 import numpy as np
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch import _cuda, serve
+from mxnet_tpu_torch import quantize as Q
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as A
 from mxnet_tpu_torch.ops import linear as L
@@ -872,6 +876,347 @@ def test_gluon_dataloader_prefetch_stages_onto_the_card(dev):
     with pytest.raises(ValueError, match="bad sample"):
         list(mx.gluon.data.DataLoader(Bad(), batch_size=2, prefetch=1,
                                       device=mx.gpu(0)))
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: K3q, K2q, K9 and the quantized session's graphs
+# ---------------------------------------------------------------------------
+#
+# The per-precision contract is bit-equality: K3q equals K3 on the
+# dequantized weight, K2q equals K1 over the fake-quantized context, and
+# K9's codes and scales equal the plain kv_quantize_rows byte for byte.
+
+QMODES = ("int8", "fp8")
+
+
+def _qrecord(w, mode):
+    q, s = Q.quantize_array(w, mode)
+    return {"q": q, "s": s}
+
+
+# every projection of the serving path and two shapes off the tiles (F
+# not a multiple of the 16-feature slab; C = 200 not a multiple of 16,
+# which takes K3q's tiled kernel at every M, and C = 33 odd)
+@pytest.mark.parametrize("mode", QMODES)
+@pytest.mark.parametrize("f,c", [(6144, 2048), (2048, 2048), (8192, 2048),
+                                 (2048, 8192), (32768, 2048), (70, 200),
+                                 (70, 33)])
+def test_mi_linear_q_equals_k3_on_dequantized_weight_bitwise(dev, mode, f,
+                                                             c):
+    x = _randn(dev, 300, c, seed=4)
+    rec = _qrecord(0.02 * _randn(dev, f, c, seed=5), mode)
+    b = 0.02 * _randn(dev, f, seed=6)
+    w = Q.dequantize_array(rec["q"], rec["s"])
+    for m in (1, 7, 8, 16, 17, 40, 64, 256):
+        before = dict(_cuda.launches)
+        got = L.mi_linear(x[3:3 + m], rec, b)
+        assert _cuda.launches["mi_linear_q"] == before["mi_linear_q"] + 1
+        assert _cuda.launches["mi_linear"] == before["mi_linear"]
+        assert torch.equal(got, L.mi_linear(x[3:3 + m], w, b)), m
+        assert torch.equal(got, L.mi_linear(x[3:3 + m], rec, b)), m
+    assert torch.equal(L.mi_linear(x[:8], rec), L.mi_linear(x[:8], w))
+
+
+def _fake_quant(t, mode):
+    """(1, h, T, d) keys or values quantized and dequantized per token."""
+    q, s = Q.kv_quantize_rows(t.transpose(1, 2), mode)
+    return Q.kv_dequantize(q, s).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("mode", QMODES)
+@pytest.mark.parametrize("page,h,d", [(16, 16, 128), (8, 4, 64),
+                                      (16, 2, 128)])
+def test_paged_q_equals_flash_over_fake_quantized_context_bitwise(
+        dev, mode, page, h, d):
+    """K2q at decode, prefill (a full and a ragged 16-row tile) and verify
+    (5 rows a slot) gives K1's rows over the fake-quantized context bit
+    for bit; unused pool pages hold random codes and NaN scales."""
+    n_pages, max_pages = 64, 66
+    t = n_pages * page
+    q, k, v = (_randn(dev, 1, h, t, d, seed=20 + s) for s in range(3))
+    full = A.flash_attention(q, _fake_quant(k, mode), _fake_quant(v, mode),
+                             causal=True, block=page)
+    rs = np.random.RandomState(page + h + d)
+    ids = rs.permutation(max_pages + 3)[:max_pages]
+    dtype = Q.storage_dtype(mode)
+    pools = [torch.randint(-128 if dtype == torch.int8 else 0,
+                           128 if dtype == torch.int8 else 256,
+                           (max_pages + 4, page, h, d), dtype=dtype,
+                           device=dev) for _ in range(2)]
+    scales = [torch.full((max_pages + 4, page), float("nan"), device=dev)
+              for _ in range(2)]
+    for src, pool, sc in ((k, pools[0], scales[0]), (v, pools[1], scales[1])):
+        codes, s = Q.kv_quantize_rows(src[0].transpose(0, 1), mode)
+        for b in range(n_pages):
+            pool[ids[b]] = codes[b * page:(b + 1) * page]
+            sc[ids[b]] = s[b * page:(b + 1) * page]
+    table = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    kw = dict(k_scale=scales[0], v_scale=scales[1])
+    hz = [0, 1, page, page + 1, 2 * page, 17 * page + 3, t - 1, t]
+    tables = table.expand(8, -1).contiguous()
+    qd = torch.stack([q[0, :, max(n - 1, 0)] for n in hz])[:, :, None]
+    before = dict(_cuda.launches)
+    out = A.paged_attention(qd.contiguous(), pools[0], pools[1], tables,
+                            torch.tensor(hz, dtype=torch.int32, device=dev),
+                            **kw)
+    assert _cuda.launches["paged_attention_q"] == \
+        before["paged_attention_q"] + 1
+    assert _cuda.launches["paged_attention"] == before["paged_attention"]
+    assert torch.count_nonzero(out[0]) == 0
+    for i, n in enumerate(hz[1:], 1):
+        assert torch.equal(out[i, :, 0], full[0, :, n - 1]), n
+    for offset, nq in ((32, 256), (5, 37)):
+        rows = q[:, :, offset:offset + nq].contiguous()
+        horizons = torch.arange(offset + 1, offset + nq + 1,
+                                dtype=torch.int32, device=dev)[None]
+        out = A.paged_attention(rows, pools[0], pools[1], table[None],
+                                horizons, **kw)
+        assert torch.equal(out[0], full[0, :, offset:offset + nq])
+        assert torch.equal(out, A.paged_attention(rows, pools[0], pools[1],
+                                                  table[None], horizons,
+                                                  **kw))
+    # verify: 8 slots x 5 rows at horizons committed + j + 1
+    committed = [3, page - 1, page, 40, 200, t - 300, t - 5, 0]
+    hor = np.asarray(committed)[:, None] + np.arange(5) + 1
+    qv = torch.stack([torch.stack([q[0, :, n - 1] for n in row], 1)
+                      for row in hor])
+    out = A.paged_attention(qv.contiguous(), pools[0], pools[1], tables,
+                            torch.from_numpy(hor.astype(np.int32)).to(dev),
+                            **kw)
+    for i, row in enumerate(hor):
+        for j, n in enumerate(row):
+            assert torch.equal(out[i, :, j], full[0, :, n - 1]), (i, j)
+
+
+def _kv_rows(dev, n, h, d, mode, seed):
+    """(n, h, d) rows with the edge cases of the quantizer: exact .5 ties
+    of x / scale (int8) or halfway between two e4m3 values, an all-zero
+    row, a row of one value, and rows within an ulp of +-qmax * scale."""
+    qmax = Q.INT8_MAX if mode == "int8" else Q.FP8_MAX
+    x = _randn(dev, n, h, d, seed=seed) * torch.logspace(
+        -3, 3, n, device=dev)[:, None, None]
+    x[0] = 0.0
+    x[1] = -2.5
+    # row 2: amax = qmax / 4, so scale = 1 / 4 exactly, and every other
+    # value scales to a tie: k + .5 (int8), or the midpoint of two e4m3
+    # neighbours in [8, 16), where their spacing is 1
+    grid = torch.arange(h * d, device=dev).reshape(h, d) % 64 - 32
+    sign = torch.where(grid < 0, -1.0, 1.0)
+    ties = (grid + 0.5) / 4 if mode == "int8" \
+        else sign * (grid.abs() % 8 + 8.5) / 4
+    ties[0, 0] = qmax / 4
+    x[2] = ties
+    x[3] = torch.nextafter(x[2], torch.full_like(x[2], float("inf")))
+    x[4] = -x[3]
+    return x
+
+
+@pytest.mark.parametrize("mode", QMODES)
+@pytest.mark.parametrize("n", [8, 40, 256])
+def test_kv_append_quantized_matches_plain_bytewise(dev, mode, n):
+    page, h, d, n_pages = 16, 16, 128, 20
+    krows = _kv_rows(dev, n, h, d, mode, seed=7)
+    vrows = _kv_rows(dev, n, h, d, mode, seed=8)[torch.randperm(
+        n, generator=torch.Generator().manual_seed(0)).to(dev)]
+    rs = np.random.RandomState(n)
+    slots = rs.permutation(n_pages * page)[:n]
+    slots[-3:] = n_pages * page  # three rows into the trash page (row 0)
+    pages = torch.from_numpy(slots // page).to(dev)
+    offsets = torch.from_numpy(np.where(slots == n_pages * page, 0,
+                                        slots % page)).to(dev)
+    dtype = Q.storage_dtype(mode)
+
+    def fresh():
+        return [torch.zeros(n_pages + 1, page, h, d, dtype=dtype, device=dev)
+                for _ in range(2)] + [torch.ones(n_pages + 1, page,
+                                                 device=dev)
+                                      for _ in range(2)]
+
+    got, want = fresh(), fresh()
+    before = _cuda.launches["kv_append_quantized"]
+    Q.kv_append_quantized(*got, pages, offsets, krows, vrows)
+    assert _cuda.launches["kv_append_quantized"] == before + 1
+    Q.kv_append_quantized_plain(*want, pages, offsets, krows, vrows)
+    live = slice(0, n_pages)  # the trash page's winner is any of three
+    for a, b in zip(got, want):
+        assert torch.equal(a[live], b[live])
+    # the plain form on the card equals it on the CPU too
+    for rows, codes, scales in ((krows, got[0], got[2]),
+                                (vrows, got[1], got[3])):
+        cq, cs = Q.kv_quantize_rows(rows.cpu(), mode)
+        keep = slots < n_pages * page
+        at = (pages.cpu().numpy()[keep], offsets.cpu().numpy()[keep])
+        assert torch.equal(codes.cpu()[at], cq[keep])
+        assert torch.equal(scales.cpu()[at], cs[keep])
+    # strided rows (a fused QKV projection's K and V thirds) read alike
+    qkv = torch.cat([krows.reshape(n, -1), krows.reshape(n, -1),
+                     vrows.reshape(n, -1)], -1)
+    again = fresh()
+    Q.kv_append_quantized(*again, pages, offsets,
+                          qkv[:, h * d:2 * h * d].reshape(n, h, d),
+                          qkv[:, 2 * h * d:].reshape(n, h, d))
+    for a, b in zip(again, got):
+        assert torch.equal(a[live], b[live])
+
+
+def _quant_session(dev, **kw):
+    cfg = serve.ModelConfig(vocab_size=61, num_layers=2, d_model=64,
+                            num_heads=2, max_len=64)
+    conf = dict(slots=3, page_size=8, buckets=(8, 16), max_new=8,
+                quant="int8", kv_quant="int8", spec_k=3, draft="layers:2")
+    conf.update(kw)
+    return serve.InferenceSession(serve.init_params(cfg, seed=3, device=dev),
+                                  num_heads=2,
+                                  config=serve.ServeConfig(**conf))
+
+
+@pytest.mark.parametrize("quant,kv_quant", [("int8", ""), ("fp8", ""),
+                                            ("", "int8"), ("", "fp8"),
+                                            ("int8", "int8"),
+                                            ("fp8", "fp8")])
+def test_serve_quant_decode_bitexact_on_the_card(dev, quant, kv_quant):
+    sess = _quant_session(dev, quant=quant, kv_quant=kv_quant, spec_k=0,
+                          draft="")
+    dq = sess.dequantized_params()
+    rs = np.random.RandomState(11)
+    seqs = {}
+    for n in (5, 13):
+        p = rs.randint(1, 61, size=n).tolist()
+        slot = sess.try_alloc(n, 8)
+        first, logits = sess.prefill(slot, p)
+        ref = serve.reference_last_logits(dq, p, sess.model, 8,
+                                          kv_quant=kv_quant)
+        np.testing.assert_array_equal(logits, ref.cpu().numpy())
+        seqs[slot] = p + [first]
+    for _ in range(6):
+        toks, logits = sess.step()
+        for slot, seq in seqs.items():
+            ref = serve.reference_last_logits(dq, seq, sess.model, 8,
+                                              kv_quant=kv_quant)
+            np.testing.assert_array_equal(logits[slot], ref.cpu().numpy())
+            seq.append(toks[slot])
+    per = sess.graph_report()["launches_per_replay"]["decode"]
+    assert per == {("mi_linear_q" if quant else "mi_linear"): 9,
+                   ("paged_attention_q" if kv_quant
+                    else "paged_attention"): 2,
+                   **({"kv_append_quantized": 2} if kv_quant else {})}
+
+
+def test_serve_quant_graphs_replay_equal_eager_and_launches_follow(dev):
+    """Under quant and kv_quant every captured entry point gives its eager
+    function's outputs and code and scale writes bit for bit, and a
+    scheduler run's launches of K3q, K2q and K9 are the replays times the
+    launches recorded at capture."""
+    sess = _quant_session(dev)
+    caches = [sess.cache, sess.draft_cache]
+
+    def pools():
+        return [t.clone() for c in caches for t in c.pools().values()]
+
+    def restore(saved):
+        for a, b in zip([t for c in caches for t in c.pools().values()],
+                        saved):
+            a.copy_(b)
+
+    def check(name, **values):
+        exe = sess.executables[name]
+        saved = pools()
+        got = exe(**values)
+        got = [t.clone() for t in (got if name != "draft" else [got])]
+        after = pools()
+        restore(saved)
+        want = exe.fn(**exe.inputs)
+        want = list(want) if name != "draft" else [want]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        assert all(torch.equal(a, b) for a, b in zip(pools(), after)), name
+
+    rs = np.random.RandomState(3)
+    for n in (5, 13):
+        p = rs.randint(1, 61, size=n).tolist()
+        slot = sess.try_alloc(n, 8)
+        bucket = sess.bucket_for(n)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :n] = p
+        check("prefill_%d" % bucket, tokens=toks, length=n, offset=0,
+              table_row=sess.cache.table_row(slot))
+        sess.prefill(slot, p)
+    w = sess.config.spec_window
+    toks = rs.randint(1, 61, size=(3, w))
+    check("verify", tokens=toks, lengths=sess.cache.device_lengths(),
+          tables=sess.cache.device_tables())
+    check("draft", tokens=toks, n_feed=np.asarray([1, w, 2], np.int32),
+          lengths=sess.draft_cache.device_lengths(),
+          tables=sess.draft_cache.device_tables())
+    check("decode", tokens=toks[:, 0], lengths=sess.cache.device_lengths(),
+          tables=sess.cache.device_tables())
+    for slot in sess.active_slots():
+        sess.release(slot)
+    per = sess.graph_report()["launches_per_replay"]
+    assert per["decode"] == {"mi_linear_q": 9, "paged_attention_q": 2,
+                             "kv_append_quantized": 2}
+    for exe in sess.executables.values():
+        exe.replays = 0
+    before = dict(_cuda.launches)
+    reqs = [serve.Request(rid=i, prompt=rs.randint(1, 61, size=4 + 3 * i)
+                          .tolist(), max_new=8) for i in range(4)]
+    done, _ = serve.Scheduler(sess, policy="continuous").run(reqs)
+    assert all(not r.failed and len(r.tokens) == 8 for r in done)
+    rep = sess.graph_report()
+    for kernel in ("mi_linear_q", "paged_attention_q",
+                   "kv_append_quantized"):
+        want = sum(rep["replays"][n] * per[n].get(kernel, 0) for n in per)
+        assert want > 0 and \
+            _cuda.launches[kernel] - before[kernel] == want, kernel
+    for kernel in ("mi_linear", "paged_attention"):
+        assert _cuda.launches[kernel] == before[kernel], kernel
+
+
+def test_quant_wrappers_raise_instead_of_falling_back(dev):
+    x = _randn(dev, 4, 64)
+    rec = _qrecord(_randn(dev, 32, 64), "fp8")
+    with pytest.raises(MXNetError, match="uint8 bytes"):
+        L.mi_linear(x, {"q": rec["q"].view(torch.float8_e4m3fn),
+                        "s": rec["s"]})
+    with pytest.raises(MXNetError, match="scales"):
+        L.mi_linear(x, {"q": rec["q"], "s": rec["s"][:5]})
+    with pytest.raises(MXNetError, match="different devices"):
+        L.mi_linear(x, {"q": rec["q"], "s": rec["s"].cpu()})
+    with pytest.raises(MXNetError, match="not a code tensor"):
+        L.mi_linear(x, {"q": rec["q"].short(), "s": rec["s"]})
+    pool = torch.zeros(3, 8, 1, 64, dtype=torch.int8, device=dev)
+    sc = torch.ones(3, 8, device=dev)
+    tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    lengths = torch.ones(1, dtype=torch.int32, device=dev)
+    q = _randn(dev, 1, 1, 1, 64)
+    with pytest.raises(MXNetError, match="scale pools"):
+        A.paged_attention(q, pool, pool, tables, lengths, k_scale=sc,
+                          v_scale=sc[:2])
+    with pytest.raises(MXNetError, match="scale pools"):
+        A.paged_attention(q, pool, pool, tables, lengths, k_scale=sc,
+                          v_scale=sc.cpu())
+    with pytest.raises(MXNetError, match="both alike"):
+        A.paged_attention(q, pool, pool.view(torch.uint8), tables, lengths,
+                          k_scale=sc, v_scale=sc)
+    with pytest.raises(MXNetError, match="one-byte pools"):
+        A.paged_attention(q, pool, pool, tables, lengths)
+    with pytest.raises(MXNetError, match="out of the kernel's range"):
+        big = torch.zeros(3, 8, 1, 320, dtype=torch.int8, device=dev)
+        A.paged_attention(_randn(dev, 1, 1, 1, 320), big, big, tables,
+                          lengths, k_scale=sc, v_scale=sc)
+    rows = _randn(dev, 2, 1, 64)
+    pages = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(MXNetError, match="int64"):
+        Q.kv_append_quantized(pool, pool, sc, sc, pages.int(), pages, rows,
+                              rows)
+    with pytest.raises(MXNetError, match="scale pool"):
+        Q.kv_append_quantized(pool, pool, sc.double(), sc, pages, pages,
+                              rows, rows)
+    with pytest.raises(MXNetError, match="different devices"):
+        Q.kv_append_quantized(pool, pool, sc, sc, pages, pages, rows.cpu(),
+                              rows)
+    with pytest.raises(MXNetError, match="float32"):
+        Q.kv_append_quantized(pool, pool, sc, sc, pages, pages,
+                              rows.double(), rows)
 
 
 # last in the file: a capture that fails leaves no state behind, but no

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: importing it pulls in neither JAX nor
-the JAX package, and no file of it names them."""
+"""The PyTorch port stands alone: importing it pulls in neither JAX, nor
+``ml_dtypes``, nor the JAX package, and no file of it names them."""
 import os
 import subprocess
 import sys
@@ -25,9 +25,9 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.operator, "
             "mxnet_tpu_torch.rtc, mxnet_tpu_torch.testing.rtc_ops, "
-            "mxnet_tpu_torch.ops.optimizer_ops; "
+            "mxnet_tpu_torch.ops.optimizer_ops, mxnet_tpu_torch.quantize; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
+            "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

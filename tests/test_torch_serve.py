@@ -328,7 +328,7 @@ def test_entry_points_default_to_the_card(np_params, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [("window", 16),
-                                         ("kv_quant", "int8"),
+                                         ("layers", "full,window"),
                                          ("layers", "full,ssm")])
 def test_later_slice_fields_raise(field, value):
     with pytest.raises(MXNetError, match="ServeConfig.%s" % field):
@@ -340,6 +340,9 @@ def test_params_from_numpy(np_params):
     params = tmodel.params_from_numpy(extra, "cpu")
     assert sorted(params) == sorted(np_params)
     assert all(v.dtype == torch.float32 for v in params.values())
-    with pytest.raises(MXNetError, match="later slice"):
-        tmodel.params_from_numpy(
-            {"lm_head_weight": {"q": np.zeros(2), "s": np.ones(1)}}, "cpu")
+    rec = tmodel.params_from_numpy(
+        {"lm_head_weight": {"q": np.array([[3, -7]], np.int8),
+                            "s": np.array([[0.5]], np.float64)}},
+        "cpu")["lm_head_weight"]
+    assert rec["q"].dtype == torch.int8 and rec["q"].tolist() == [[3, -7]]
+    assert rec["s"].dtype == torch.float32 and rec["s"].tolist() == [[0.5]]
