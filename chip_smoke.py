@@ -30,17 +30,18 @@ a checkout that holds ``mxnet_tpu_torch/``):
    cold L2, each started behind a spin of the device so that the window
    holds the call's device work and not the host's launch path.
    Serving's decode kernels K2 (paged attention: decode over 8 slots at
-   18 and at 64 pages, a 256-row prefill, and the speculative verify's 8
-   slots x 5 rows at per-row horizons over ~250 tokens; the yardstick is
+   18 and at 64 pages, prefills of 256 and 64 rows, and the speculative
+   verify's 8 slots x 5 rows at per-row horizons over ~250 tokens; the
+   yardstick is
    SDPA over the gathered context, masked to each row's horizon, checked
    against the plain version) and K3 (every projection shape at M = 1,
    8, 40 — the verify's rows — and 256) must give the same bits when run
    again; so must their quantized forms, each also bit-equal to its fp32
    kernel on the dequantized inputs: K2q (the K2 cases over int8 and e4m3
    pages quantized per row; yardstick SDPA over the dequantized context)
-   and K3q (int8 and e4m3 weights at M = 8 for every projection, and M =
-   40 and 256 at F6144 C2048; yardstick ``F.linear`` over the dequantized
-   weight; each line adds ``chain_floor_ms``, one output's chain of C
+   and K3q (int8 and e4m3 weights at M = 8, 40 and 256 for every
+   projection; yardstick ``F.linear`` over the dequantized weight; each
+   line adds ``chain_floor_ms``, one output's chain of C
    dependent FMAs at ~4 cycles each), and K9 (a decode step's 8 and a
    prefill's 256 K and V rows quantized and appended, byte-equal to the
    plain form; no PyTorch call computes it).  The K2/K3 lines add the
@@ -52,10 +53,11 @@ a checkout that holds ``mxnet_tpu_torch/``):
    library, from ``cuobjdump --dump-sass``: K7 and K8 must show HGMMA)
    and three ``ptxas`` lines (registers and spills of K7/K8, of K3 and
    K2, and of K1 and K4).
-3. invariance — rows of the exact projection (K3) at M = 256 are
-   bit-identical to the same rows computed alone (M = 1) and forty at a
-   time (M = 40, the verify's rows) at every projection shape, and
-   LayerNorm's rows to the same rows alone.
+3. invariance — rows of the exact projection at M = 256 are
+   bit-identical to the same rows computed alone (M = 1), forty at a time
+   (M = 40, the verify's rows) and 64 at a time (the smallest prefill
+   bucket) at every projection shape, over fp32 weights (K3) and int8 and
+   e4m3 codes (K3q), and LayerNorm's rows to the same rows alone.
 4. serve — the transformer LM at the width of ``bench_transformer.py``'s
    default model (8 layers, d_model 2048, 16 heads, vocab 32768, max_len
    1024; random weights from seed 0) serves 16 requests through the
@@ -151,6 +153,7 @@ a checkout that holds ``mxnet_tpu_torch/``):
    ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -534,11 +537,19 @@ def profiled_window(fn, groups):
                 device_ms_by_group=by, top_kernels_ms=dict(top))
 
 
-SERVE_GROUPS = (("mi_linear", ("linear_kernel", "linear_stream_kernel")),
-                ("paged_attention", ("paged_attention_kernel",)),
+# the ring and prefill kernels' first template argument is the weight or
+# page type: 0 fp32 (K3, K2), 1 int8 and 2 e4m3 (K3q, K2q)
+SERVE_GROUPS = (("mi_linear", ("linear_kernel", "linear_stream_kernel",
+                               "linear_ring_kernel<0,")),
+                ("paged_attention", ("paged_attention_kernel",
+                                     "paged_prefill_kernel<0,")),
                 ("flash_attention", ("flash_forward_kernel",)),
-                ("mi_linear_q", ("linear_q_kernel", "linear_q_stream_kernel")),
-                ("paged_attention_q", ("paged_attention_q_kernel",)),
+                ("mi_linear_q", ("linear_q_kernel", "linear_q_stream_kernel",
+                                 "linear_ring_kernel<1,",
+                                 "linear_ring_kernel<2,")),
+                ("paged_attention_q", ("paged_attention_q_kernel",
+                                       "paged_prefill_kernel<1,",
+                                       "paged_prefill_kernel<2,")),
                 ("kv_append_quantized", ("kv_quant_kernel",)))
 
 
@@ -1762,10 +1773,13 @@ def main():
         cases.append((case, pools, randn(8, h, 1, d), tables,
                       torch.from_numpy(lens.astype(np.int32)).to(dev)))
         if max_pages == 18:
-            horizons = (32 + np.arange(256) + 1).astype(np.int32)
-            cases.append(("prefill-S1-Q256-offset32", pools,
-                          randn(1, h, 256, d), tables[:1].contiguous(),
-                          torch.from_numpy(horizons.reshape(1, 256)).to(dev)))
+            for bucket in (256, 64):  # serving's largest and smallest
+                horizons = (32 + np.arange(bucket) + 1).astype(np.int32)
+                cases.append(("prefill-S1-Q%d-offset32" % bucket, pools,
+                              randn(1, h, bucket, d),
+                              tables[:1].contiguous(),
+                              torch.from_numpy(horizons.reshape(
+                                  1, bucket)).to(dev)))
             # speculative verify: 8 slots, W = 5 rows each at horizons
             # committed + j + 1 over a ~250-token context
             committed = rs.randint(240, 251, size=(8, 1))
@@ -1899,9 +1913,9 @@ def main():
     # off).  Beside the bound, the latency floor of one output's chain of
     # C dependent FMAs (~4 cycles each at 1.98 GHz)
     for mode in ("int8", "fp8"):
-        for m, f, c in ((8, 6144, 2048), (8, 2048, 2048), (8, 8192, 2048),
-                        (8, 2048, 8192), (8, 32768, 2048), (40, 6144, 2048),
-                        (256, 6144, 2048)):
+        for m, (f, c) in itertools.product(
+                (8, 40, 256), ((6144, 2048), (2048, 2048), (8192, 2048),
+                               (2048, 8192), (32768, 2048))):
             x, b = randn(m, c), 0.02 * randn(f)
             qw, sw = Q.quantize_array(0.02 * randn(f, c), mode)
             rec = {"q": qw, "s": sw}
@@ -2102,27 +2116,41 @@ def main():
         del x, xs, ce, p, p_want, got, want
 
     # -- 3. row-count invariance ------------------------------------------
-    # rows at M = 1 (decode's streaming kernel) and at M = 40 (the
-    # speculative verify's 8 slots x 5 rows, the tiled kernel) equal the
-    # same rows at M = 256, for every projection shape of a verify step
-    rows40 = 0
+    # rows at M = 1 (decode's streaming kernel), at M = 40 (the
+    # speculative verify's 8 slots x 5 rows) and at M = 64 (the smallest
+    # prefill bucket; both the ring kernel's shorter tiles) equal the same
+    # rows at M = 256, for every projection shape of a verify step, over
+    # fp32 weights (K3) and int8 and e4m3 codes (K3q)
+    rows40 = rows64 = rows1 = 0
     for f, c in ((6144, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
                  (32768, 2048)):
         xc = randn(256, c)
         w, b = 0.02 * randn(f, c), 0.02 * randn(f)
-        full = L.mi_linear(xc, w, b)
-        for r in range(0, 256, 5):
-            if not torch.equal(L.mi_linear(xc[r:r + 1], w, b),
-                               full[r:r + 1]):
-                raise AssertionError("mi_linear row %d differs at M=1 vs "
-                                     "M=256 (F=%d, C=%d)" % (r, f, c))
-        for r in (0, 40, 107, 216):
-            if not torch.equal(L.mi_linear(xc[r:r + 40], w, b),
-                               full[r:r + 40]):
-                raise AssertionError("mi_linear rows %d..%d differ at M=40 "
-                                     "vs M=256 (F=%d, C=%d)"
-                                     % (r, r + 39, f, c))
-            rows40 += 40
+        weights = [("fp32", w)] + [
+            (mode, dict(zip(("q", "s"), Q.quantize_array(w, mode))))
+            for mode in ("int8", "fp8")]
+        for kind, wt in weights:
+            full = L.mi_linear(xc, wt, b)
+            for r in range(0, 256, 5):
+                if not torch.equal(L.mi_linear(xc[r:r + 1], wt, b),
+                                   full[r:r + 1]):
+                    raise AssertionError(
+                        "mi_linear %s row %d differs at M=1 vs M=256 (F=%d, "
+                        "C=%d)" % (kind, r, f, c))
+                rows1 += 1
+            for m, starts in ((40, (0, 40, 107, 216)), (64, (0, 77, 192))):
+                for r in starts:
+                    if not torch.equal(L.mi_linear(xc[r:r + m], wt, b),
+                                       full[r:r + m]):
+                        raise AssertionError(
+                            "mi_linear %s rows %d..%d differ at M=%d vs "
+                            "M=256 (F=%d, C=%d)" % (kind, r, r + m - 1, m, f,
+                                                    c))
+                    if m == 40:
+                        rows40 += m
+                    else:
+                        rows64 += m
+        del weights, full
     x = randn(256, 2048)
     gamma, beta = 1 + 0.1 * randn(2048), 0.1 * randn(2048)
     from mxnet_tpu_torch.serve.model import _layer_norm
@@ -2133,8 +2161,9 @@ def main():
                            full[r:r + 1]):
             raise AssertionError("LayerNorm row %d differs at M=1 vs M=256"
                                  % r)
-    log("invariance", mi_linear_rows_checked=5 * len(range(0, 256, 5)),
-        mi_linear_m40_rows_checked=rows40, layer_norm_rows_checked=256,
+    log("invariance", mi_linear_rows_checked=rows1,
+        mi_linear_m40_rows_checked=rows40, mi_linear_m64_rows_checked=rows64,
+        weights=["fp32", "int8", "fp8"], layer_norm_rows_checked=256,
         bit_identical=True)
 
     # -- 4. serve at full width -------------------------------------------

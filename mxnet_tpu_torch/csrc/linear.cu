@@ -53,14 +53,33 @@
 // 16 x SMs) runs one output a thread; a larger one gives each thread two
 // features x two rows (K3q: one feature x two rows, twice the warps).
 //
-// Prefill rows (M > 16), and inputs the bulk copies cannot take (C not
-// a multiple of 4, or of 16 for codes; unaligned rows): linear_kernel
-// (K3) and linear_q_kernel (K3q), a shared-memory SIMT tile — a (64 x
-// 64) output tile per thread block, a (4 x 4) micro-tile per thread,
-// 16-column slabs of x and W double-buffered in shared memory (the next
-// slab's loads in flight while the block runs the current one; K3q loads
-// 4 codes and stores the 4 dequantized weights), each output's chain
-// over the slabs in increasing c.
+// Rows above 16 (the speculative verify's 8 slots x 5 rows, prefill
+// buckets of 64 to 256): linear_ring_kernel, the same chains over a
+// register-blocked SIMT tile.  A CTA owns a (BM x BN) output tile, each
+// thread TM rows x TN features of it, and streams BK-column stages of the
+// tile's x rows and weight rows (K3q: codes, dequantized once a stage
+// into an fp32 tile every thread reads) through a ring of cp.async
+// copies.  A thread reads four columns of each of its rows as float4s
+// and runs 4 TM TN FMAs per TM + TN reads, in column order.  The tile
+// follows the call: up to 40 rows, the whole call in one CTA's rows
+// (none of a 64-row tile's dead rows at the verify's 40) and wide stages
+// (128 columns: such tiles are bound by the bytes in flight, not the
+// FMA pipe), with 16 to 64 features a CTA so that the grid covers the
+// card; at 64 rows and more, 64 x 64 tiles of 8 x 4 micro-tiles, and
+// 128 x 128 tiles of 8 x 16 where F gives enough of them.  What binds
+// the larger tiles is shared memory's read rate (TM + TN float4 reads a
+// thread for 4 TM TN FMAs) and the waves the grid makes.  The rule is
+// measured: python -m mxnet_tpu_torch.testing.k3_tiles times every
+// candidate at M 17 to 256 and the five serving shapes on an H100.
+//
+// Inputs the copies cannot take (C not a multiple of 4, or of 16 for
+// codes; rows not 16-byte aligned): linear_kernel (K3) and
+// linear_q_kernel (K3q), a shared-memory SIMT tile — a (64 x 64) output
+// tile per thread block, a (4 x 4) micro-tile per thread, 16-column
+// slabs of x and W double-buffered in shared memory (the next slab's
+// loads in flight while the block runs the current one; K3q loads 4
+// codes and stores the 4 dequantized weights), each output's chain over
+// the slabs in increasing c.
 #include <cstdint>
 #include <type_traits>
 
@@ -86,6 +105,7 @@ using StreamFn = void (*)(const float*, const void*, const float*,
 constexpr int kTile = 64;
 constexpr int kSlabCols = 16;
 constexpr int kTilePitch = kTile + 4;  // floats; keeps float4 alignment
+constexpr int kSmemMax = 227 * 1024;
 
 // Four consecutive elements of row ``row`` from column ``c`` (0 past the
 // matrix), dequantized with ``s``.
@@ -193,10 +213,193 @@ linear_q_kernel(const float* x, const void* w, const float* scales,
   tiled_body<kCode>(x, w, scales, bias, y, M, F, C, vec);
 }
 
+// The ring kernel: a (BM x BN) = (RY TM x FX TN) output tile a CTA of RY
+// x FX threads, thread (tx, ty) = (tid % FX, tid / FX) running the
+// chains of rows ty + RY i (i < TM) and features tx + FX j (j < TN).
+// Stages of BK columns of x's tile rows and W's (fp32, or one-byte codes)
+// arrive in a ring of ST stages by 16-byte cp.async copies (zero past M,
+// F and C), ST - 1 stages in flight while the CTA runs one.  K3q
+// dequantizes a stage's codes once, into one fp32 tile that every thread
+// reads.  A thread reads four columns of each of its x rows and weight
+// rows as float4s (row pitch BK + 4 floats: the 8 rows a quarter warp
+// reads fall in distinct banks, its x rows are one broadcast) and feeds
+// them to its TM x TN chains in column order, its weight rows up to
+// eight at a time: 4 TM TN FMAs per TM + TN reads.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int kCode, int RY, int TM, int FX, int TN, int BK, int ST>
+struct Ring {
+  static constexpr int BM = RY * TM, BN = FX * TN, NT = RY * FX;
+  static constexpr int kEB = kCode ? 1 : 4;
+  static constexpr int kPitch = BK + 4;  // floats between staged rows
+  // bytes of one stage: x's rows, then W's (fp32 rows at the x pitch; a
+  // code row is BK bytes)
+  static constexpr int kXBytes = BM * kPitch * 4;
+  static constexpr int kWBytes = kCode ? BN * BK : BN * kPitch * 4;
+  static constexpr int kStage = kXBytes + kWBytes;
+  // K3q: the dequantized tile and the CTA's scales after the ring
+  static constexpr int kBytes =
+      ST * kStage + (kCode ? BN * kPitch * 4 + BN * 4 : 0);
+  // weight rows read at once: the largest of 8, 6 and 4 that divides TN
+  static constexpr int TNB =
+      TN % 8 == 0 ? 8 : TN % 6 == 0 ? 6 : TN % 4 == 0 ? 4 : TN;
+};
+
+template <int kCode, int RY, int TM, int FX, int TN, int BK, int ST>
+__device__ __forceinline__ void ring_body(
+    const float* __restrict__ x, const void* __restrict__ wv,
+    const float* __restrict__ scales, const float* __restrict__ bias,
+    float* __restrict__ y, int M, int F, int C) {
+  using R = Ring<kCode, RY, TM, FX, TN, BK, ST>;
+  using T = typename mxt::Codes<kCode>::T;
+  constexpr int kP = R::kPitch;
+  extern __shared__ __align__(128) unsigned char ring[];
+  const T* w = static_cast<const T*>(wv);
+  const int tid = threadIdx.x;
+  const int tx = tid % FX, ty = tid / FX;
+  const int m0 = blockIdx.y * R::BM, f0 = blockIdx.x * R::BN;
+  const int nk = (C + BK - 1) / BK;
+  const uint32_t base = mxt90::smem_u32(ring);
+  float* wf = reinterpret_cast<float*>(ring + ST * R::kStage);
+  float* sc = wf + R::BN * kP;
+  if constexpr (kCode != 0)
+    for (int r = tid; r < R::BN; r += R::NT)
+      sc[r] = f0 + r < F ? scales[f0 + r] : 0.f;
+  // columns [k BK, ...) of the tile's x and W rows into stage k % ST
+  auto issue = [&](int k) {
+    const int c0 = k * BK;
+    const uint32_t st = base + (k % ST) * R::kStage;
+    for (int u = tid; u < BK / 4 * R::BM; u += R::NT) {
+      const int r = u / (BK / 4), q = u % (BK / 4);
+      const int c = c0 + 4 * q;
+      const bool in = m0 + r < M && c < C;
+      cp_async16(st + (r * kP + 4 * q) * 4,
+                 in ? x + static_cast<size_t>(m0 + r) * C + c : x,
+                 in ? 16 : 0);
+    }
+    constexpr int kChunks = BK * R::kEB / 16;  // 16-byte copies a W row
+    for (int u = tid; u < kChunks * R::BN; u += R::NT) {
+      const int r = u / kChunks, q = u % kChunks;
+      const int c = c0 + q * (16 / R::kEB);
+      const bool in = f0 + r < F && c < C;
+      const uint32_t dst = st + R::kXBytes +
+                           (kCode ? r * BK + 16 * q : (r * kP + 4 * q) * 4);
+      cp_async16(dst, in ? w + static_cast<size_t>(f0 + r) * C + c : wv,
+                 in ? 16 : 0);
+    }
+  };
+  for (int k = 0; k < ST - 1; ++k) {
+    if (k < nk) issue(k);
+    cp_async_commit();
+  }
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<ST - 2>();  // this thread's copies of stage k are in
+    __syncthreads();          // everyone's are; stage k - 1 is free
+    if (k + ST - 1 < nk) issue(k + ST - 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (k % ST) * R::kStage;
+    const float* xs = reinterpret_cast<const float*>(st);
+    const float* ws;
+    if constexpr (kCode != 0) {
+      const uint32_t* codes =
+          reinterpret_cast<const uint32_t*>(st + R::kXBytes);
+      for (int u = tid; u < BK / 4 * R::BN; u += R::NT) {
+        const int r = u / (BK / 4), q = u % (BK / 4);
+        *reinterpret_cast<float4*>(wf + r * kP + 4 * q) =
+            mxt::Codes<kCode>::word(codes[u], sc[r]);
+      }
+      __syncthreads();
+      ws = wf;
+    } else {
+      ws = reinterpret_cast<const float*>(st + R::kXBytes);
+    }
+    const int n4 = min(BK, C - k * BK) / 4;
+#pragma unroll 2
+    for (int c4 = 0; c4 < n4; ++c4) {
+      float4 xv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xs + (ty + RY * i) * kP +
+                                                 4 * c4);
+#pragma unroll
+      for (int j0 = 0; j0 < TN; j0 += R::TNB) {
+        float4 wr[R::TNB];
+#pragma unroll
+        for (int j = 0; j < R::TNB; ++j)
+          wr[j] = *reinterpret_cast<const float4*>(
+              ws + (tx + FX * (j0 + j)) * kP + 4 * c4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < R::TNB; ++j) {
+            float& a = acc[i][j0 + j];
+            a = __fmaf_rn(xv[i].x, wr[j].x, a);
+            a = __fmaf_rn(xv[i].y, wr[j].y, a);
+            a = __fmaf_rn(xv[i].z, wr[j].z, a);
+            a = __fmaf_rn(xv[i].w, wr[j].w, a);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + RY * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int f = f0 + tx + FX * j;
+      if (f < F)
+        y[static_cast<size_t>(m) * F + f] =
+            bias ? __fadd_rn(acc[i][j], bias[f]) : acc[i][j];
+    }
+  }
+}
+
+template <int kCode, int RY, int TM, int FX, int TN, int BK, int ST>
+__global__ void __launch_bounds__(RY * FX)
+linear_ring_kernel(const float* x, const void* w, const float* scales,
+                   const float* bias, float* y, int M, int F, int C) {
+  ring_body<kCode, RY, TM, FX, TN, BK, ST>(x, w, scales, bias, y, M, F, C);
+}
+
+template <int kCode, int RY, int TM, int FX, int TN, int BK, int ST>
+int launch_ring(const float* x, const void* w, const float* scales,
+                const float* bias, float* y, int M, int F, int C,
+                cudaStream_t stream) {
+  using R = Ring<kCode, RY, TM, FX, TN, BK, ST>;
+  const auto kernel = linear_ring_kernel<kCode, RY, TM, FX, TN, BK, ST>;
+  static std::atomic<bool> opted[mxt::kMaxDevices];
+  if (R::kBytes > 48 * 1024) {
+    const cudaError_t e = mxt::opt_in_smem(kernel, kSmemMax, opted);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((F + R::BN - 1) / R::BN, (M + R::BM - 1) / R::BM);
+  kernel<<<grid, R::NT, R::kBytes, stream>>>(x, w, scales, bias, y, M, F, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 constexpr int kStreamRows = 16;  // M <= 16 takes the streaming kernel
 constexpr int kSlab = 16;        // features a CTA (one warp) owns
 constexpr int kMaxStages = 12;
-constexpr int kSmemMax = 227 * 1024;
 
 // Bytes between rows of a stage: a weight row of ``cols`` elements of
 // ``ebytes`` bytes, or an x row of ``cols`` floats, plus 16 bytes, which
@@ -435,8 +638,52 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// Decode rows take the streaming kernel where the bulk copies can take
-// the rows (16-byte sizes and addresses); everything else the tiled one.
+// Rows above 16 on the ring kernel, <RY, TM, FX, TN, BK, ST>, by the
+// fastest tiling of each (M, F, C) class in `python -m
+// mxnet_tpu_torch.testing.k3_tiles` on an H100 (the serving shapes: F =
+// 2048, 6144, 8192, 32768 at C = 2048, and F = 2048 at C = 8192).  A
+// narrow projection (F <= 2048, or C >= 8192: few CTAs, long chains)
+// takes 16- or 32-feature tiles with wide stages; a wide one (the LM
+// head) the largest tiles.  Any tiling gives the same bits.
+template <int kCode>
+int launch_rows(const float* x, const void* w, const float* scales,
+                const float* bias, float* y, int M, int F, int C,
+                cudaStream_t stream) {
+  const bool narrow = F <= 2048 || C >= 8192, wide = F >= 16384;
+  auto ring = [&](auto kernel) {
+    return kernel(x, w, scales, bias, y, M, F, C, stream);
+  };
+  if (M <= 40) {  // one CTA's rows: the verify's 40, short calls
+    if (narrow) return ring(launch_ring<kCode, 8, 5, 16, 1, 128, 3>);
+    if (wide) return ring(launch_ring<kCode, 8, 5, 16, 4, 64, 3>);
+    if (M <= 32) return ring(launch_ring<kCode, 8, 4, 16, 2, 128, 3>);
+    if (F <= 6144) return ring(launch_ring<kCode, 8, 5, 16, 3, 128, 3>);
+    return ring(launch_ring<kCode, 8, 5, 16, 4, 128, 3>);
+  }
+  if (M <= 128 && narrow) {
+    if (kCode == 0 && M <= 64)
+      return ring(launch_ring<kCode, 8, 4, 16, 2, 256, 2>);
+    return ring(launch_ring<kCode, 8, 4, 16, 2, 128, 3>);
+  }
+  if (kCode != 0 && M <= 64 && !wide) {  // K3q: more CTAs, fewer rows
+    if (F <= 6144) return ring(launch_ring<kCode, 8, 5, 16, 3, 128, 3>);
+    return ring(launch_ring<kCode, 8, 8, 16, 2, 64, 3>);
+  }
+  if (M > 64 && wide) return ring(launch_ring<kCode, 16, 8, 8, 16, 32, 3>);
+  if (M > 128 && F >= 8192) {
+    if (kCode != 0) return ring(launch_ring<kCode, 16, 8, 16, 8, 32, 3>);
+    return ring(launch_ring<kCode, 16, 8, 8, 16, 32, 3>);
+  }
+  // 64 x 64 tiles (K3q up to 128 rows at F <= 6144, and above on narrow
+  // projections: 64 x 32, whose more CTAs hide its dequantization)
+  if (kCode != 0 && (M <= 128 ? F <= 6144 : narrow))
+    return ring(launch_ring<kCode, 8, 8, 16, 2, 64, 3>);
+  return ring(launch_ring<kCode, 8, 8, 16, 4, 32, 3>);
+}
+
+// Decode rows take the streaming kernel and larger calls the ring kernel
+// where the copies can take the rows (16-byte sizes and addresses);
+// everything else the tiled one.
 template <int kCode>
 int launch(const void* x, const void* w, const void* scales,
            const void* bias, void* y, int M, int F, int C, void* stream) {
@@ -450,6 +697,7 @@ int launch(const void* x, const void* w, const void* scales,
   const bool bulk = vec && (C * kEB) % 16 == 0 && aligned(w, 16);
   if (M <= kStreamRows && bulk)
     return launch_decode<kCode>(xp, w, sp, bp, yp, M, F, C, st);
+  if (bulk) return launch_rows<kCode>(xp, w, sp, bp, yp, M, F, C, st);
   const dim3 grid((F + kTile - 1) / kTile, (M + kTile - 1) / kTile);
   const TiledFn kernel = tiled_kernel<kCode>();
   kernel<<<grid, 256, 0, st>>>(xp, w, sp, bp, yp, M, F, C, vec);

@@ -5,9 +5,11 @@
 // Replaces: mxnet_tpu/ops/attention.py::decode_attention (:368-490)
 // together with the page gathers that feed it in serve/model.py
 // (k_pool[i][tables], :586-589 for prefill and :719-722 for decode).
-// One kernel serves both: decode (Q = 1 query per slot, one horizon per
-// slot) and prefill (S = 1, Q = bucket rows, per-row horizons
-// offset + j + 1).
+// One entry serves decode (Q = 1 query per slot, one horizon per slot),
+// prefill (S = 1, Q = bucket rows, per-row horizons offset + j + 1) and
+// the speculative verify (S slots of Q = K + 1 rows, per-row horizons),
+// with two kernels: at decode one row a CTA (and at the verify a tile of
+// up to 8 rows), at prefill K1's tile.
 //
 // Bound on an H100: bytes at decode, operations at prefill.  Each
 // visible key and value row is read once per (slot, head) and is used by
@@ -17,59 +19,71 @@
 // times, and its 4 D flops a (row, visible key) over 67 TFLOP/s bound it.
 //
 // The bits are online_softmax.cuh's, the same as K1's (serving's oracle
-// is K1 with block = page): per key the warp dot of lane_dot and
-// warp_sum; per page the block max in key order, rescale, block_prob,
-// and the probability and value sums in key order; then the fold of the
+// is K1 with block = page): per key the dot in lane_dot's and warp_sum's
+// order; per page the block max in key order, rescale, block_prob, and
+// the probability and value sums in key order; then the fold of the
 // pages in order.  Only the fold is serial: a score depends on its key
 // alone, the running max after page b is the prefix max of the block
-// maxima, and page b's sums depend only on its keys and that max.  So
-// the kernel spreads a row's pages over the warps of a CTA without
-// changing one operation:
+// maxima, and page b's sums depend only on its keys and that max.
+//
+// Decode (Q = 1) spreads a row's pages over the warps of a CTA without
+// changing one operation (the verify runs the same kernel on a tile of
+// up to 8 rows, each loaded slice serving every row of the tile):
 //
 //   1. scores: a warp per page loads the page's key rows into registers
 //      (16 keys at once, every load in flight together) and forms each
-//      visible key's score for every query row of the tile; the lane of
-//      a row then takes the page's block max in key order;
+//      visible key's score by the warp dot and butterfly; the row's lane
+//      then takes the page's block max in key order;
 //   2. sums: a warp per page scans the block maxima into the prefix max
 //      (rescale), loads the page's value rows, and forms the probability
-//      sum and the value sum of each row in key order;
-//   3. fold: the threads, one per (row, element), fold the pages in page
-//      order into (l, acc) from m = -inf, l = 0, acc = 0.
+//      sum and the value sum in key order;
+//   3. fold: the threads, one per element, fold the pages in page order
+//      into (l, acc) from m = -inf, l = 0, acc = 0.
 //
-// Each key and value row is read by one CTA and, at decode (one query
-// row a CTA), used once, so staging pages through a shared-memory ring
-// would add a trip through shared memory per byte and save no read from
-// memory.  A warp holds a 16-key slice in registers instead, its loads
-// issued together (16 warps x 8 KB in flight a CTA at D = 128); at
-// prefill the slice serves every row of the tile from registers.
+// Each key and value row is read by one CTA and used once, so staging
+// pages through a shared-memory ring would add a trip through shared
+// memory per byte and save no read from memory.  A warp holds a 16-key
+// slice in registers instead, its loads issued together (16 warps x 8 KB
+// in flight a CTA at D = 128).  Pages are taken in chunks that fit
+// shared memory; the running max carries from chunk to chunk.  A CTA
+// owns one (slot, head): S x H CTAs of 16 warps.  The kernel reads each
+// page through the table and never materialises the gathered context
+// the JAX package builds; keys past the horizon are never loaded.  The
+// pages past the horizon fold with the correction rescale(m, -inf)
+// gives, 1 for a finite m and 0 for -inf, and add 0; x * c + 0 is the
+// same after one such fold as after many, so the kernel folds them as
+// one.  A slot with horizon 0 gives 0.
 //
-// Pages are taken in chunks that fit shared memory; the running max
-// carries from chunk to chunk.  A CTA owns one (slot, head) and a tile of
-// query rows: one row at decode (S x H CTAs of 16 warps each load a
-// slot's pages), 16 rows at prefill, where every loaded page serves all
-// the rows of the tile.  The kernel reads each page through the table
-// and never materialises the gathered context the JAX package builds;
-// keys past every row's horizon are never loaded.  The pages past the
-// tile's horizons are masked for every row: each folds with the
-// correction rescale(m, -inf) gives, 1 for a finite m and 0 for -inf,
-// and adds 0; x * c + 0 is the same after one such fold as after many,
-// so the kernel folds them as one.  A slot with horizon 0 gives 0.
+// Prefill (Q > 8) runs K1's tile (flash_tile.cuh) over the slot's pages:
+// a CTA of 8 warps takes 16 or 32 query rows of one (slot, head), as many
+// as keep two CTAs an SM busy (K1's rule), stages the keys any row of
+// the tile sees 64 at a time in shared memory, read through the table
+// (K transposed, V by rows; each group of keys' rows looked up once),
+// forms each score in one thread in the butterfly's own tree, and runs
+// the row pass and P.V as K1 does.  So a prefill row is the row K1
+// computes over the same context with block = page, by construction; the
+// emulation in testing/paged_order.py (prefill_tile) shows that its rows
+// equal the decode kernel's order at any tile height.  Every staged key
+// serves the whole tile from shared memory, and no score takes a
+// shuffle.
 //
 // K2q replaces the same function over quantized pages
 // (decode_attention's k_scale/v_scale, :368-430, with the scale gathers
 // of serve/model.py).  It dequantizes each key and value element with
-// its row's scale as it loads it (code * scale, codes.cuh) and runs K2's
-// operations unchanged, so K2q equals K1 over the fake-quantized
-// context (quantize.kv_dequantize of the codes) bit for bit, as the
-// per-precision oracle needs.  A lane reads the byte of each element d =
-// lane + 32 i it sums (a warp's read of a row slice is 32 consecutive
-// bytes), and a slice's 16 scales are read once, one a lane, and
-// shuffled to the lanes that dequantize with them.  The conversion of a
-// code to fp32 is exact integer and fp32 arithmetic at full rate
-// (codes.cuh).  Its bound is the visible codes and scales over 3.35
-// TB/s, a quarter of K2's bytes.
+// its row's scale (code * scale, codes.cuh) and runs K2's operations
+// unchanged, so K2q equals K1 over the fake-quantized context
+// (quantize.kv_dequantize of the codes) bit for bit, as the
+// per-precision oracle needs.  At decode a lane reads the byte of each
+// element d = lane + 32 i it sums (a warp's read of a row slice is 32
+// consecutive bytes), and a slice's 16 scales are read once, one a lane,
+// and shuffled to the lanes that dequantize with them.  At prefill each
+// code is dequantized once, as it is staged: a thread reads four codes
+// of a row as one word.  The conversion of a code to fp32 is exact
+// integer and fp32 arithmetic at full rate (codes.cuh).  Its bound is the
+// visible codes and scales over 3.35 TB/s, a quarter of K2's bytes.
 #include "codes.cuh"
 #include "error.cuh"
+#include "flash_tile.cuh"
 #include "online_softmax.cuh"
 #include "per_device.cuh"
 
@@ -79,7 +93,7 @@ using mxt::kFull;
 using mxt::kWarp;
 
 constexpr int kKeys = 16;                  // keys a warp holds at once
-constexpr int kPrefillRows = 16;           // query rows a CTA shares
+constexpr int kVerifyRows = 8;             // query rows of a verify CTA
 constexpr int kSmemBudget = 96 * 1024;     // bytes, sets the chunk length
 constexpr int kSmemMax = 227 * 1024;
 
@@ -359,9 +373,9 @@ void (*paged_kernel())(Params) {
   else return paged_attention_q_kernel<QT, DPL, NW, kCode>;
 }
 
-// Decode (one row a CTA) runs 16 warps, so a slot's pages take fewer
-// rounds of loads; prefill tiles, and rows past D = 128, 8 warps (the
-// registers of a 16-key slice, and two CTAs a SM).
+// Decode runs 16 warps, so a slot's pages take fewer rounds of loads;
+// a verify tile, and rows past D = 128, 8 warps (the registers of a
+// 16-key slice).
 template <int kCode, int QT, int DPL,
           int NW = (QT == 1 && DPL <= 4) ? 16 : 8>
 int launch(Params p, int S, cudaStream_t stream) {
@@ -389,10 +403,159 @@ int launch_rows(const Params& p, int S, cudaStream_t stream) {
   return launch<kCode, QT, 8>(p, S, stream);
 }
 
+// Prefill rows: K1's tile over a slot's pages.  Keys and values of the
+// slot's head h, from key j0 of a group on: the group's rows (at = page *
+// table entry + offset in the page) and, for K2q, their scales are noted
+// in shared memory once a group, so a staged element costs one shared
+// read and no division by the page.
+template <int kCode>
+struct PagedRows {
+  const typename mxt::Codes<kCode>::T* pool;  // the head's first element
+  const int* at;        // the rows, from key j0 on
+  const float* scales;  // K2q: their scales
+  size_t stride;        // H D: elements between rows of a page
+
+  __device__ __forceinline__ float4 get4(int row, int d4) const {
+    float s = 0.f;
+    if constexpr (kCode != 0) s = scales[row];
+    return mxt::Codes<kCode>::get4(pool + at[row] * stride, d4, s);
+  }
+  __device__ __forceinline__ float get(int row, int d) const {
+    float s = 0.f;
+    if constexpr (kCode != 0) s = scales[row];
+    return mxt::Codes<kCode>::get(pool + at[row] * stride, d, s);
+  }
+};
+
+// The tile source of query rows row0 .. row0 + n - 1 of slot s's head h:
+// row r sees the keys below its length (per_row: its own, else the
+// slot's), at most the table's capacity.
+template <int kCode>
+struct PagedTile {
+  using T = typename mxt::Codes<kCode>::T;
+  static constexpr bool kGroupState = true;
+  const float* q;
+  float* o;
+  const T* k_pool;  // the head's first element
+  const T* v_pool;
+  const float* k_scale;  // K2q: (pages + 1, page)
+  const float* v_scale;
+  const int* table;
+  const int* lens;  // the tile's first row's length, or the slot's
+  int* at;          // shared: the group's rows
+  float* ks;        // shared: K2q's key and value scales of the group
+  float* vs;
+  size_t stride;
+  int per_row, cap, n, D, page, group, hmax;
+
+  __device__ int rows() const { return n; }
+  __device__ int horizon(int r) const {
+    return r < n ? min(max(lens[per_row ? r : 0], 0), cap) : 0;
+  }
+  __device__ int key_end() const { return hmax; }
+  __device__ void begin_group(int g0, int n_g, int tid) const {
+    for (int j = tid; j < n_g; j += mxt_tile::kThreads) {
+      const int key = g0 + j;
+      const int a = table[key / page] * page + key % page;
+      at[j] = a;
+      if constexpr (kCode != 0) {
+        ks[j] = k_scale[a];
+        vs[j] = v_scale[a];
+      }
+    }
+  }
+  __device__ PagedRows<kCode> keys(int j0) const {
+    const int j = j0 % group;
+    return {k_pool, at + j, ks + j, stride};
+  }
+  __device__ PagedRows<kCode> values(int j0) const {
+    const int j = j0 % group;
+    return {v_pool, at + j, vs + j, stride};
+  }
+  __device__ float* out(int r) const { return o + static_cast<size_t>(r) * D; }
+  __device__ float* lse(int) const { return nullptr; }
+};
+
+// Shared words the prefill kernel adds to K1's layout: a group's rows
+// and, for K2q, its key and value scales.
+__host__ __device__ inline int group_words(int group, int code) {
+  return group * (code ? 3 : 1);
+}
+
+// A tile of 8 RM rows of one (slot, head) a CTA, the heaviest tiles
+// first, as K1 launches them; p.chunk holds the group (whole pages).
+template <int kCode, int DPL, int RM>
+__global__ void __launch_bounds__(mxt_tile::kThreads,
+                                  DPL <= 4 && RM == 4 ? 2 : 1)
+paged_prefill_kernel(const Params p) {
+  using T = typename mxt::Codes<kCode>::T;
+  constexpr int TQ = mxt_tile::kWarps * RM;
+  extern __shared__ float4 smem4[];
+  const int words =
+      mxt_tile::Layout(kWarp * DPL, TQ, p.chunk, p.page).words;
+  int* at = reinterpret_cast<int*>(smem4) + words;
+  float* ks = reinterpret_cast<float*>(at + p.chunk);
+  const int n_sh = gridDim.x / p.tiles;
+  const int sh = blockIdx.x % n_sh;  // s * H + h
+  const int h = sh % p.H, s = sh / p.H;
+  const int row0 = (p.tiles - 1 - blockIdx.x / n_sh) * TQ;
+  PagedTile<kCode> src{
+      p.q + (static_cast<size_t>(sh) * p.Q + row0) * p.D,
+      p.out + (static_cast<size_t>(sh) * p.Q + row0) * p.D,
+      static_cast<const T*>(p.k_pool) + h * p.D,
+      static_cast<const T*>(p.v_pool) + h * p.D,
+      p.k_scale, p.v_scale, p.tables + static_cast<size_t>(s) * p.max_pages,
+      p.per_row ? p.lengths + static_cast<size_t>(s) * p.Q + row0
+                : p.lengths + s,
+      at, ks, ks + p.chunk, static_cast<size_t>(p.H) * p.D, p.per_row,
+      p.max_pages * p.page, min(TQ, p.Q - row0), p.D, p.page, p.chunk, 0};
+  for (int r = 0; r < src.n; ++r) src.hmax = max(src.hmax, src.horizon(r));
+  mxt_tile::tile_forward<DPL, RM>(src, p.D, p.page, p.chunk, p.scale);
+}
+
+template <int kCode, int DPL, int RM>
+int launch_prefill(Params p, int S, cudaStream_t stream) {
+  constexpr int TQ = mxt_tile::kWarps * RM;
+  const auto kernel = paged_prefill_kernel<kCode, DPL, RM>;
+  p.tiles = (p.Q + TQ - 1) / TQ;
+  p.chunk = p.page * (mxt_tile::kGroup / p.page);
+  const size_t bytes =
+      4u * (mxt_tile::Layout(kWarp * DPL, TQ, p.chunk, p.page).words +
+            group_words(p.chunk, kCode));
+  if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<bool> opted[mxt::kMaxDevices];
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = mxt::opt_in_smem(kernel, kSmemMax, opted);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<S * p.H * p.tiles, mxt_tile::kThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows a CTA: 32, or 16 where 32-row tiles would not give two CTAs an
+// SM (K1's rule).
+template <int kCode, int DPL>
+int prefill_rows(const Params& p, int S, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t e = mxt::sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (static_cast<long long>(S) * p.H * ((p.Q + 31) / 32) >= 2LL * sms)
+    return launch_prefill<kCode, DPL, 4>(p, S, stream);
+  return launch_prefill<kCode, DPL, 2>(p, S, stream);
+}
+
+// Decode rows take one row a CTA; a few rows a slot (the speculative
+// verify's K + 1) the same kernel with a tile of 8 rows, whose warps
+// spread the slot's pages (K1's tile, at least 16 rows, leaves most of
+// its rows empty there); prefill buckets K1's tile.
 template <int kCode>
 int launch_code(const Params& p, int S, int Q, cudaStream_t stream) {
-  return Q == 1 ? launch_rows<kCode, 1>(p, S, stream)
-                : launch_rows<kCode, kPrefillRows>(p, S, stream);
+  if (Q == 1) return launch_rows<kCode, 1>(p, S, stream);
+  if (Q <= kVerifyRows) return launch_rows<kCode, kVerifyRows>(p, S, stream);
+  if (p.D <= 32) return prefill_rows<kCode, 1>(p, S, stream);
+  if (p.D <= 64) return prefill_rows<kCode, 2>(p, S, stream);
+  if (p.D <= 128) return prefill_rows<kCode, 4>(p, S, stream);
+  return prefill_rows<kCode, 8>(p, S, stream);
 }
 
 }  // namespace

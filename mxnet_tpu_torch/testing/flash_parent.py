@@ -49,25 +49,30 @@ KERNELS = ("flash_attention", "flash_attention_backward")  # = their stems
 SPIN_CYCLES = 1_000_000
 
 
-def build_other(src_root):
-    """Build the two sources of the checkout at ``src_root`` and return
-    {kernel name: (C entry, error-text entry)}."""
-    out_dir = os.path.join(_cuda.BUILD_ROOT, os.pardir, "flash_parent")
+def build_other(src_root, kernels=KERNELS, out_name="flash_parent"):
+    """Build the sources of ``kernels`` (names in ``_cuda.KERNELS``) of
+    the checkout at ``src_root``, one nvcc a source, all at once, with
+    this checkout's flags for each, and return {kernel name: (C entry,
+    error-text entry)}."""
+    out_dir = os.path.join(_cuda.BUILD_ROOT, os.pardir, out_name)
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in KERNELS:
-        src = os.path.join(src_root, "mxnet_tpu_torch", "csrc", name + ".cu")
-        lib = os.path.join(out_dir, "lib%s.so" % name)
-        procs[name] = (lib, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
+    for stem in {_cuda.KERNELS[name][0] for name in kernels}:
+        src = os.path.join(src_root, "mxnet_tpu_torch", "csrc", stem + ".cu")
+        lib = os.path.join(out_dir, "lib%s.so" % stem)
+        procs[stem] = (lib, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.nvcc_flags(stem), "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    entries = {}
-    for name, (lib, proc) in procs.items():
+    handles = {}
+    for stem, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError("nvcc failed on the other %s:\n%s"
-                               % (name, log))
-        handle = ctypes.CDLL(lib)
+                               % (stem, log))
+        handles[stem] = ctypes.CDLL(lib)
+    entries = {}
+    for name in kernels:
+        handle = handles[_cuda.KERNELS[name][0]]
         fn = getattr(handle, _cuda.KERNELS[name][1])
         fn.argtypes = list(_cuda.KERNELS[name][2])
         fn.restype = ctypes.c_int

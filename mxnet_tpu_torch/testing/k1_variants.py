@@ -6,10 +6,11 @@ Run on a card from the repository's root::
     python -m mxnet_tpu_torch.testing.k1_variants
 
 It copies ``csrc/`` under ``build/k1_variants/``, turns the kernel's
-knobs into macros by exact string patches (which raise if the kernel no
-longer has the patched text), builds one library a variant with the
-exact build's flags (one nvcc each, all at once; D = 128 only), and
-prints each
+knobs (in ``flash_attention.cu`` and the tile it shares with K2's
+prefill, ``flash_tile.cuh``) into macros by exact string patches
+(which raise if the kernel no longer has the patched text), builds one
+library a variant with the exact build's flags (one nvcc each, all at
+once; D = 128 only), and prints each
 variant's mean CUDA-event time with L2 flushed and the window opened
 behind a device spin, as chip_smoke times kernels, at the training shape
 (n1 h16 T1024 D128 causal, blocks 16 and 128) and the oracle's (T256,
@@ -154,23 +155,31 @@ CASES = ((1, 16, 1024, 128, 16), (1, 16, 1024, 128, 128),
 
 
 def _patched_source(out_dir):
-    """``flash_attention.cu`` with each knob a macro, in a copy of csrc."""
+    """``flash_attention.cu`` with each knob a macro, in a copy of csrc
+    (the kernel's body lives in ``flash_tile.cuh``, patched too)."""
     src_dir = os.path.join(out_dir, "csrc")
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(_cuda.CSRC, src_dir)
-    path = os.path.join(src_dir, "flash_attention.cu")
-    with open(path) as f:
-        s = f.read()
+    texts = {}
+    for name in ("flash_attention.cu", "flash_tile.cuh"):
+        with open(os.path.join(src_dir, name)) as f:
+            texts[name] = f.read()
     for old, new in _PATCHES:
-        if s.count(old) != 1:
+        where = [n for n, t in texts.items() if t.count(old) == 1]
+        if len(where) != 1 or sum(t.count(old) for t in texts.values()) != 1:
             raise RuntimeError("k1_variants: the kernel no longer has %r"
                                % old)
-        s = s.replace(old, new)
-    s = s.replace('#include "per_device.cuh"\n',
-                  '#include "per_device.cuh"\n' + _DEFAULTS)
-    with open(path, "w") as f:
-        f.write(s)
-    return path
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    anchor = '#include "online_softmax.cuh"\n'
+    if texts["flash_tile.cuh"].count(anchor) != 1:
+        raise RuntimeError("k1_variants: flash_tile.cuh no longer has %r"
+                           % anchor)
+    texts["flash_tile.cuh"] = texts["flash_tile.cuh"].replace(
+        anchor, anchor + _DEFAULTS)
+    for name, text in texts.items():
+        with open(os.path.join(src_dir, name), "w") as f:
+            f.write(text)
+    return os.path.join(src_dir, "flash_attention.cu")
 
 
 def _build(path, variants, out_dir):

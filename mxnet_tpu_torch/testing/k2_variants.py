@@ -1,5 +1,7 @@
-"""Where K2's time goes: ``csrc/paged_attention.cu`` timed with parts of
-its work removed, and at other tilings of a prefill bucket.
+"""Where K2's decode time goes: the one-row-a-CTA kernel of
+``csrc/paged_attention.cu`` timed with parts of its work removed.  (Its
+prefill and verify rows run K1's tile, ``csrc/flash_tile.cuh``, which
+``k1_variants`` takes apart.)
 
 Run on a card from the repository's root::
 
@@ -11,17 +13,12 @@ and prints, for serving's geometry (pages of 16, 16 heads, D = 128), each
 variant's mean CUDA-event time with L2 flushed and the window opened
 behind a device spin, as chip_smoke times kernels.
 
-- Ablation (the answers are wrong; only the times count): without the
-  score butterfly; without the score dots (a visible key scores 0, so
-  the sums still run); without the per-page probability and value sums;
-  without the fold; and the loads alone.  Where a variant drops the use
-  of a loaded slice, one sum of the slice a warp keeps its loads.  At
-  prefill (one slot, 256 rows at offset 32) and at decode (8 slots, 18
-  pages).
-- Tiling of prefill (query rows a CTA, warps a CTA, the shared-memory
-  budget that sets the chunk of pages): every tiling must give the
-  shipped tiling's bits, since a row's operations do not depend on the
-  rows it shares a CTA with.  The gathered SDPA is timed beside them.
+Ablation (the answers are wrong; only the times count): without the
+score butterfly; without the score dots (a visible key scores 0, so the
+sums still run); without the per-page probability and value sums;
+without the fold; and the loads alone.  Where a variant drops the use of
+a loaded slice, one sum of the slice a warp keeps its loads.  At decode:
+8 slots of 18 pages, the last slot idle.
 """
 from __future__ import annotations
 
@@ -45,10 +42,6 @@ ABLATIONS = {
     "no_fold": ("-DK2V_FOLD=0",),
     "loads_only": ("-DK2V_SCORES=0", "-DK2V_SUMS=0", "-DK2V_FOLD=0"),
 }
-# (query rows a CTA, warps a CTA, shared-memory budget in KB); first the
-# shipped tiling
-TILINGS = ((16, 8, 96), (16, 16, 96), (16, 16, 200), (8, 8, 96), (8, 8, 48),
-           (4, 8, 48), (32, 16, 200))
 _PATCHES = (
     ("mxt::warp_sum(mxt::lane_dot(", "K2V_SUM(mxt::lane_dot("),
     ("load_keys<kCode>(kr, kp + kc * key_stride, kCode ? ks + kc : nullptr,\n"
@@ -77,10 +70,6 @@ _PATCHES = (
      "        for (int r = 0; r < (K2V_SUMS ? rows : 0); ++r) {\n"),
     ("for (int bl = 0; bl < nb; ++bl)\n        a = mxt::fold",
      "for (int bl = 0; bl < (K2V_FOLD ? nb : 0); ++bl)\n        a = mxt::fold"),
-    ("constexpr int kPrefillRows = 16;", "constexpr int kPrefillRows = K2V_QT;"),
-    ("constexpr int kSmemBudget = 96 * 1024;",
-     "constexpr int kSmemBudget = K2V_BUDGET * 1024;"),
-    ("(QT == 1 && DPL <= 4) ? 16 : 8>", "(QT == 1 && DPL <= 4) ? 16 : K2V_NW>"),
 )
 _DEFAULTS = """#ifdef K2V_NO_BUTTERFLY
 #define K2V_SUM(x) (x)
@@ -95,15 +84,6 @@ _DEFAULTS = """#ifdef K2V_NO_BUTTERFLY
 #endif
 #ifndef K2V_FOLD
 #define K2V_FOLD 1
-#endif
-#ifndef K2V_QT
-#define K2V_QT 16
-#endif
-#ifndef K2V_NW
-#define K2V_NW 8
-#endif
-#ifndef K2V_BUDGET
-#define K2V_BUDGET 96
 #endif
 template <int N, int M>
 __device__ __forceinline__ float k2v_sum(const float (&r)[N][M]) {
@@ -165,11 +145,7 @@ def main():
     out_dir = os.path.join(here, "build", "k2_variants")
     os.makedirs(out_dir, exist_ok=True)
     path = _patched_source(out_dir)
-    variants = dict(ABLATIONS)
-    for qt, nw, kb in TILINGS:
-        variants["qt%d_nw%d_b%d" % (qt, nw, kb)] = (
-            "-DK2V_QT=%d" % qt, "-DK2V_NW=%d" % nw, "-DK2V_BUDGET=%d" % kb)
-    entries = _build(path, variants, out_dir)
+    entries = _build(path, ABLATIONS, out_dir)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -196,23 +172,19 @@ def main():
     gen.manual_seed(1)
     page, h, d = 16, 16, 128
 
-    def case(slots, max_pages, q_rows, offset):
-        """Pools, table, horizons and queries: decode when offset is
-        None (random lengths, the last slot idle: chip_smoke's tables
-        and lengths at 8 slots of 18 pages), else prefill."""
+    def case(slots, max_pages):
+        """Pools, table, lengths and queries of a decode step: random
+        lengths, the last slot idle (chip_smoke's tables and lengths at 8
+        slots of 18 pages)."""
         rs = np.random.RandomState(5)
         pools = [torch.randn(slots * max_pages + 1, page, h, d,
                              generator=gen, device=dev) for _ in range(2)]
         tab = torch.from_numpy(rs.permutation(slots * max_pages).reshape(
             slots, max_pages).astype(np.int32)).to(dev)
-        if offset is None:
-            lens = rs.randint(24, max_pages * page + 1, size=slots)
-            lens[-1] = 0
-            hor = torch.from_numpy(lens.astype(np.int32)).to(dev)
-        else:
-            hor = torch.from_numpy((offset + 1 + np.arange(q_rows)).astype(
-                np.int32).reshape(1, q_rows)).to(dev)
-        q = torch.randn(slots, h, q_rows, d, generator=gen, device=dev)
+        lens = rs.randint(24, max_pages * page + 1, size=slots)
+        lens[-1] = 0
+        hor = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        q = torch.randn(slots, h, 1, d, generator=gen, device=dev)
         return pools, tab, hor, q
 
     def run(fn, pools, tab, hor, q, out):
@@ -225,39 +197,11 @@ def main():
             raise RuntimeError("k2_variants: launch returned %d" % rc)
 
     print("ablation (ms)")
-    for label, args in (("prefill-S1-Q256-offset32", (1, 18, 256, 32)),
-                        ("decode-S8-Q1", (8, 18, 1, None))):
-        pools, tab, hor, q = case(*args)
-        out = torch.empty_like(q)
-        for name in ABLATIONS:
-            ms = timed(lambda: run(entries[name], pools, tab, hor, q, out))
-            print("  %-26s %-14s %.4f" % (label, name, ms))
-
-    print("prefill tiling (ms)")
-    for max_pages, q_rows, offset in ((18, 256, 32), (18, 64, 32),
-                                      (64, 256, 768)):
-        pools, tab, hor, q = case(1, max_pages, q_rows, offset)
-        span = offset + q_rows
-        kc, vc = (pool[tab[0].long()].reshape(1, -1, h, d)[:, :span]
-                  .permute(0, 2, 1, 3).contiguous() for pool in pools)
-        mask = torch.arange(span, device=dev) < hor[0][:, None]
-        sdpa = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, scale=d ** -0.5))
-        print("  %d pages, %d rows at offset %d: gathered SDPA %.4f"
-              % (max_pages, q_rows, offset, sdpa))
-        ref = None
-        for qt, nw, kb in TILINGS:
-            out = torch.empty_like(q)
-            fn = entries["qt%d_nw%d_b%d" % (qt, nw, kb)]
-            ms = timed(lambda: run(fn, pools, tab, hor, q, out))
-            if ref is None:
-                ref, bits = out.clone(), "shipped"
-            else:
-                bits = "bit-equal" if torch.equal(out, ref) else "DIFFERENT"
-            print("    rows %2d warps %2d budget %3d KB: %.4f  %s"
-                  % (qt, nw, kb, ms, bits))
-            if bits == "DIFFERENT":
-                raise AssertionError("k2_variants: a tiling changed the bits")
+    pools, tab, hor, q = case(8, 18)
+    out = torch.empty_like(q)
+    for name in ABLATIONS:
+        ms = timed(lambda: run(entries[name], pools, tab, hor, q, out))
+        print("  decode-S8-Q1  %-14s %.4f" % (name, ms))
 
 
 if __name__ == "__main__":

@@ -1,27 +1,35 @@
-"""Emulation, on CPU float32 tensors, of the two orders in which the
+"""Emulation, on CPU float32 tensors, of the orders in which the
 paged-attention kernel K2 can run one query row's online softmax.
 
 ``merge_sequential`` is the order one warp gives a query row, block
 after block, as K1 and K2 ran it before their redesigns (the pieces are
 ``csrc/online_softmax.cuh``'s; the tiled K1 keeps this order:
 ``testing/flash_order.py``).
-``merge_split`` is the order of the redesigned K2
+``merge_split`` is the order of K2's decode kernel
 (``csrc/paged_attention.cu``): every score first, then the block maxima
 and their prefix max, then each block's probability and value sums
 (computed here for all blocks at once), and last the serial fold, with
 the blocks past every horizon folded as one (exact: see the fold).
+(The speculative verify's tiles of up to 8 rows run that kernel too.)
+``prefill_tile`` is the order of K2's prefill tiles: K1's tile
+(``csrc/flash_tile.cuh``, emulated by ``testing/flash_order.py``) over
+the slot's context as the kernel stages it through the page table, chunk
+by chunk up to the tile's longest horizon, each score summed in one
+thread in the butterfly's tree, then the fold.
 
-Both use the kernels' arithmetic: each product and sum a separate fp32
+All use the kernels' arithmetic: each product and sum a separate fp32
 rounding (no fused multiply-add), a score as 32 lane partials over
 d = t, t + 32, ... added by the xor butterfly 16, 8, 4, 2, 1, ``fmax``
-for maxima, and one shared ``exp``.  Equal bits from the two show that
-spreading a row's blocks over warps changes no operation.
+for maxima, and one shared ``exp``.  Equal bits from them show that
+spreading a row's blocks over warps, or a tile's keys over threads,
+changes no operation.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["scores", "merge_sequential", "merge_split"]
+__all__ = ["scores", "merge_sequential", "merge_split", "gather",
+           "prefill_tile"]
 
 _WARP = 32
 _NEG_INF = float("-inf")
@@ -139,3 +147,29 @@ def merge_split(q, k, v, horizon, page):
         l = _fold(l, c, _f32(0.0))
         acc = _fold(acc, c, torch.zeros(d, dtype=torch.float32))
     return acc / torch.clamp(l, min=1e-20), l
+
+
+def gather(pool, table, n):
+    """Keys 0 .. n - 1 of one slot's context: ``pool`` (pages, page, D)
+    read through the slot's ``table``, page by page; pages past the n-th
+    key are not touched."""
+    page = pool.shape[1]
+    ids = torch.as_tensor(table)[:-(-n // page)].long()
+    return pool[ids].reshape(-1, pool.shape[-1])[:n]
+
+
+def prefill_tile(q, k_pool, v_pool, table, horizons, page):
+    """The redesigned K2's order for one tile of query rows ``q`` (R, D,
+    scaled) of one slot and head, row r seeing keys j < ``horizons[r]``:
+    K1's tile with block = page over the keys and values the kernel
+    stages through ``table``, up to the tile's longest horizon (K2q
+    stages ``quantize.kv_dequantize`` of its codes).  Returns (out (R,
+    D), l (R,))."""
+    from . import flash_order  # it imports this module
+
+    horizons = torch.as_tensor(horizons)
+    n = int(horizons.max()) if len(horizons) else 0
+    out, l, _ = flash_order.tile_forward(q, gather(k_pool, table, n),
+                                         gather(v_pool, table, n), horizons,
+                                         page)
+    return out, l

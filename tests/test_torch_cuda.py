@@ -198,8 +198,10 @@ def test_paged_decode_and_prefill_equal_flash_rows_bitwise(dev, page, h, d):
     assert torch.count_nonzero(out[0]) == 0
     for i, n in enumerate(hz[1:], 1):
         assert torch.equal(out[i, :, 0], full[0, :, n - 1]), n
-    # prefill: per-row horizons offset + j + 1, a full and a ragged tile
-    for offset, nq in ((32, 256), (5, 37)):
+    # prefill: per-row horizons offset + j + 1, serving's buckets (64 and
+    # 256 rows), a ragged tile, a 16-row and a 5-row call (the verify's
+    # width), offsets on and off a page edge
+    for offset, nq in ((32, 256), (5, 37), (64, 64), (17, 16), (200, 5)):
         rows = q[:, :, offset:offset + nq].contiguous()
         horizons = torch.arange(offset + 1, offset + nq + 1,
                                 dtype=torch.int32, device=dev)[None]
@@ -227,6 +229,19 @@ def test_mi_linear_kernel_matches_plain_and_is_row_invariant(dev, m, f, c):
                                got[r:r + 1])
 
 
+# row counts: decode (the streaming kernel up to 16), the verify's 40,
+# prefill buckets, and the edges of the ring kernel's tiles
+M_SWEEP = (1, 7, 8, 16, 17, 24, 40, 48, 64, 65, 128, 256)
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    off = (-(buf.data_ptr() // 4) + 1) % 4
+    return buf[off:off + x.numel()].view(x.shape).copy_(x)
+
+
 # every projection of the serving path, and two shapes off the tiles (F
 # not a multiple of the 16-feature slab; C past a 128-column stage, and C
 # odd, which the tiled kernel takes)
@@ -238,10 +253,12 @@ def test_mi_linear_rows_do_not_depend_on_m(dev, f, c):
     w, b = 0.02 * _randn(dev, f, c, seed=5), 0.02 * _randn(dev, f, seed=6)
     full = L.mi_linear(x[3:259], w, b)
     assert torch.equal(full, L.mi_linear(x[3:259], w, b))
-    for m in (1, 7, 8, 16, 17, 40, 64, 256):
+    for m in M_SWEEP:
         got = L.mi_linear(x[3:3 + m], w, b)
         assert torch.equal(got, full[:m]), m
         assert torch.equal(got, L.mi_linear(x[3:3 + m], w, b)), m
+        # rows 4 bytes off a 16-byte boundary take the tiled kernel
+        assert torch.equal(L.mi_linear(_unaligned(x[3:3 + m]), w, b), got), m
     mag = x[3:11].abs() @ w.abs().t() + b.abs()
     diff = (full[:8] - L.mi_linear_plain(x[3:11], w, b)).abs()
     assert bool((diff <= 2 * c * 2.0 ** -24 * mag).all())
@@ -907,13 +924,17 @@ def test_mi_linear_q_equals_k3_on_dequantized_weight_bitwise(dev, mode, f,
     rec = _qrecord(0.02 * _randn(dev, f, c, seed=5), mode)
     b = 0.02 * _randn(dev, f, seed=6)
     w = Q.dequantize_array(rec["q"], rec["s"])
-    for m in (1, 7, 8, 16, 17, 40, 64, 256):
+    full = L.mi_linear(x[3:259], rec, b)
+    for m in M_SWEEP:
         before = dict(_cuda.launches)
         got = L.mi_linear(x[3:3 + m], rec, b)
         assert _cuda.launches["mi_linear_q"] == before["mi_linear_q"] + 1
         assert _cuda.launches["mi_linear"] == before["mi_linear"]
         assert torch.equal(got, L.mi_linear(x[3:3 + m], w, b)), m
         assert torch.equal(got, L.mi_linear(x[3:3 + m], rec, b)), m
+        assert torch.equal(got, full[:m]), m
+        assert torch.equal(L.mi_linear(_unaligned(x[3:3 + m]), rec, b),
+                           got), m
     assert torch.equal(L.mi_linear(x[:8], rec), L.mi_linear(x[:8], w))
 
 
@@ -965,7 +986,8 @@ def test_paged_q_equals_flash_over_fake_quantized_context_bitwise(
     assert torch.count_nonzero(out[0]) == 0
     for i, n in enumerate(hz[1:], 1):
         assert torch.equal(out[i, :, 0], full[0, :, n - 1]), n
-    for offset, nq in ((32, 256), (5, 37)):
+    deq = [Q.kv_dequantize(pool, sc) for pool, sc in zip(pools, scales)]
+    for offset, nq in ((32, 256), (5, 37), (64, 64), (17, 16), (200, 5)):
         rows = q[:, :, offset:offset + nq].contiguous()
         horizons = torch.arange(offset + 1, offset + nq + 1,
                                 dtype=torch.int32, device=dev)[None]
@@ -975,6 +997,8 @@ def test_paged_q_equals_flash_over_fake_quantized_context_bitwise(
         assert torch.equal(out, A.paged_attention(rows, pools[0], pools[1],
                                                   table[None], horizons,
                                                   **kw))
+        assert torch.equal(out, A.paged_attention(rows, *deq, table[None],
+                                                  horizons))
     # verify: 8 slots x 5 rows at horizons committed + j + 1
     committed = [3, page - 1, page, 40, 200, t - 300, t - 5, 0]
     hor = np.asarray(committed)[:, None] + np.arange(5) + 1

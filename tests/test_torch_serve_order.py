@@ -1,4 +1,4 @@
-"""The exactness argument behind K2's redesign, on the CPU.
+"""The exactness argument behind K2's redesigns, on the CPU.
 
 Spreading one query row's pages over warps — every score, then the
 block maxima and their prefix max, then each page's probability and
@@ -7,7 +7,10 @@ warp merging the row page after page, so the two orders give the same bits
 (``mxnet_tpu_torch/testing/paged_order.py`` emulates both with separate
 fp32 products and sums, the lane butterfly and one shared exp).  Both
 are also held against the JAX package's ``decode_attention`` on the
-same numpy inputs.
+same numpy inputs.  K2's prefill and verify tiles run K1's tile over the
+pages (``paged_order.prefill_tile``): at any tile height, and with
+horizons that cut pages, their rows are the decode order's and K1's
+over the contiguous context, bit for bit.
 
 Tolerance: bit equality (as int32 words) between the two orders; atol
 1e-5 against the JAX package, chip_smoke.py's ATTN_ATOL (fp32 on both
@@ -19,7 +22,7 @@ import pytest
 import torch
 
 from mxnet_tpu.ops import attention as jattn
-from mxnet_tpu_torch.testing import paged_order
+from mxnet_tpu_torch.testing import flash_order, paged_order
 
 ATTN_ATOL = 1e-5
 PAGE = 16
@@ -100,3 +103,60 @@ def test_scores_follow_the_lane_butterfly():
     assert not torch.equal(got, naive)
     np.testing.assert_allclose(got.numpy(), k.astype(np.float64) @ q,
                                rtol=0, atol=1e-4)
+
+
+def _pools(seed, n_pages, d, mode):
+    """One slot's context (n_pages pages) in pools of ``n_pages + 3``
+    pages through a shuffled table; the pages off the table are NaN.
+    With ``mode`` the pools are quantized per row and the context is the
+    dequantized one (what K2q stages)."""
+    from mxnet_tpu_torch import quantize as Q
+
+    rs = np.random.RandomState(seed)
+    k, v = (torch.from_numpy(rs.randn(n_pages * PAGE, d).astype(np.float32))
+            for _ in range(2))
+    if mode:
+        k, v = (Q.kv_dequantize(*Q.kv_quantize_rows(x[:, None], mode))[:, 0]
+                for x in (k, v))
+    table = rs.permutation(n_pages + 3)[:n_pages]
+    pools = []
+    for x in (k, v):
+        pool = torch.full((n_pages + 3, PAGE, d), float("nan"))
+        pool[torch.from_numpy(table)] = x.reshape(n_pages, PAGE, d)
+        pools.append(pool)
+    return k, v, pools, table
+
+
+# tile heights of 1 to 16 rows; prefill rows offset + j + 1 (a bucket
+# whose rows cut pages, offsets on and off a page edge), verify rows
+# committed + j + 1, and ragged horizons with empty rows
+@pytest.mark.parametrize("tile", [1, 4, 8, 16])
+@pytest.mark.parametrize("mode", ["", "int8", "fp8"])
+def test_prefill_tile_order_equals_decode_and_k1_order(tile, mode):
+    d, n_pages = 128, 12
+    k, v, (k_pool, v_pool), table = _pools(tile + len(mode), n_pages, d,
+                                           mode)
+    rs = np.random.RandomState(40 + tile)
+    q = torch.from_numpy(rs.randn(24, d).astype(np.float32)) * torch.tensor(
+        np.float32(1.0 / np.sqrt(d)))
+    for horizons in ([37 + j + 1 for j in range(16)],
+                     [PAGE * 3 + j + 1 for j in range(8)],
+                     [100 + j + 1 for j in range(5)],
+                     [0, 1, 15, 16, 17, 33, 0, 191, 192, 64, 65, 2]):
+        rows = q[:len(horizons)]
+        # K1's rows: its own 32-row tile over the contiguous context
+        k1, k1_l, _ = flash_order.tile_forward(rows, k, v,
+                                               torch.tensor(horizons), PAGE)
+        for r0 in range(0, len(horizons), tile):
+            hz = torch.tensor(horizons[r0:r0 + tile])
+            got, l = paged_order.prefill_tile(rows[r0:r0 + tile], k_pool,
+                                              v_pool, table, hz, PAGE)
+            for i, n in enumerate(hz.tolist()):
+                want, want_l = paged_order.merge_split(rows[r0 + i], k, v, n,
+                                                       PAGE)
+                assert torch.equal(_bits(got[i]), _bits(want)), (n, tile)
+                assert torch.equal(_bits(l[i]), _bits(want_l)), (n, tile)
+                assert torch.equal(_bits(got[i]), _bits(k1[r0 + i])), n
+                assert torch.equal(_bits(l[i]), _bits(k1_l[r0 + i])), n
+                if n == 0:
+                    assert not got[i].any()
