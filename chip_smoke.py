@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths, its
+optimizers and its ops once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -98,14 +98,28 @@ a checkout that holds ``mxnet_tpu_torch/``):
    and five timed steps.  The cross-entropy at the labels and every
    parameter must be finite, and attention must have run through K7 and
    K8 (bf16) exactly once per layer per step.  Then one profiled step.
+5b. optim — the same LM in bf16 through ``fused.TrainStep(optimizer=
+   "adam", optimizer_params={"learning_rate": 3e-4, "wd": 0.01,
+   "clip_global_norm": 1.0, "rescale_grad": 1/8})`` (JAX's default betas
+   and epsilon), the learning rate ``CosineScheduler(max_update=16,
+   base_lr=3e-4, warmup_steps=2)(t)`` each call: 8 steps on one repeated
+   batch, the first a warm-up, 5 timed (step ms, tokens/s, TFLOP/s as
+   ``bench_transformer.py:120-123`` counts them, peak memory), one
+   profiled (K7, K8, GEMMs, the rest).  K7 and K8 must run once per layer
+   a step, the loss and every parameter stay finite, and the
+   cross-entropy must fall over the 8 steps.  Then an ``optim_update``
+   line: each optimizer's ``fused_update`` over every parameter of the
+   LM (CUDA-event mean behind the spin) beside its byte bound.
 6. train-parity — one step of the kernel path against one step under
    ``MXNET_ATTN_IMPL=reference`` from one state, by the per-tensor
    relative L2 error of the parameter update: fp32 at full width with 2
-   layers and batch 2 (bound 1e-3), and bf16 with all 8 layers and batch
+   layers and batch 2 (bound 1e-3), under SGD and once more under Adam
+   with ``clip_global_norm`` (epsilon 1e-6, see ``ADAM_PARITY``), and
+   bf16 with all 8 layers and batch
    8, where both bf16 steps are also held against the fp32 reference
    step and the kernel path must be no less accurate than the
    reference.  The fp32 step runs K1/K4, the bf16 one K7/K8; launches
-   are counted over each.  The fp32 kernel step is then timed (host
+   are counted over each.  The fp32 SGD kernel step is then timed (host
    clock, synced) and profiled for K1's and K4's device time.
 7. resnet — ResNet-50 (``models.resnet.get_symbol(num_classes=1000,
    num_layers=50, image_shape=(3, 224, 224))``, NCHW, ``bench.py``'s
@@ -117,6 +131,12 @@ a checkout that holds ``mxnet_tpu_torch/``):
    statistics must be finite and changed, the accuracy finite, and every
    training-mode BatchNorm node must launch K5 and K6 exactly once a
    step.  Then one profiled step.
+7b. nag — the same ResNet-50 through ``Module.fit`` at batch 256 in bf16
+   for 4 steps with ``optimizer="nag"`` (momentum 0.9, wd 1e-4, lr 0.1)
+   under ``MultiFactorScheduler(step=[2], factor=0.1)``,
+   ``examples/image-classification/common/fit.py``'s configuration:
+   every step's learning rate must be the schedule's, every parameter
+   finite and changed; img/s over steps 2-4.
 8. resnet-parity — one bf16 ResNet-50 ``Module`` step at 224×224, batch
    16, through K5/K6 and once more with the plain sums patched in for
    the kernel wrappers (and once with fp64-accumulated sums, the logged
@@ -149,7 +169,17 @@ a checkout that holds ``mxnet_tpu_torch/``):
    op_type="rtc_softmax")`` at batch 64 for 2 steps; and on one batch the
    logits' gradient through the rtc head must equal
    ``SoftmaxCrossEntropyLoss``'s divided by N.
-11. a ``{"kernels": [...]}`` line, then the last line
+11. ops — every case of the op sweep's table that the port registers
+   (``mxnet_tpu_torch/testing/op_specs.py``, the port's copy of
+   ``tests/test_op_sweep.py``'s, 295 cases) on the card and on the
+   port's CPU from the same inputs, TF32 off, compared as
+   ``tests/test_torch_op_sweep.py`` compares (rtol 1e-5, atol 1e-6);
+   samplers by shape, dtype and device, and 12 of them by the mean and
+   variance of 10^5 draws.  Any failure fails the run; the ops that
+   synchronise the host under ``torch.cuda.set_sync_debug_mode("warn")``
+   are listed, not failed.
+12. a ``wall`` line (the script's seconds and the new phases'), a
+   ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -730,16 +760,20 @@ def train_tokens(cfg, batch, seed=0, bf16_exact=False):
     return toks.bfloat16().float() if bf16_exact else toks
 
 
-def train_step(dev, cfg, batch, compute_dtype, lr=1e-3, bf16_exact=False):
+def train_step(dev, cfg, batch, compute_dtype, lr=1e-3, bf16_exact=False,
+               optimizer="sgd", optimizer_params=None):
     """A TrainStep at ``cfg``, its state from ``init_state(seed=0)`` and
-    one batch of :func:`train_tokens` on ``dev``."""
+    one batch of :func:`train_tokens` on ``dev``.  The optimizer is SGD
+    (``lr``, momentum 0.9) unless ``optimizer``/``optimizer_params`` say
+    otherwise; ``rescale_grad`` is 1 / ``batch`` either way."""
     from mxnet_tpu_torch import fused
     from mxnet_tpu_torch.models import transformer
 
+    if optimizer_params is None:
+        optimizer_params = {"learning_rate": lr, "momentum": 0.9}
     step = fused.TrainStep(
-        transformer.get_symbol(**cfg), optimizer="sgd",
-        optimizer_params={"learning_rate": lr, "momentum": 0.9,
-                          "rescale_grad": 1.0 / batch},
+        transformer.get_symbol(**cfg), optimizer=optimizer,
+        optimizer_params=dict(optimizer_params, rescale_grad=1.0 / batch),
         compute_dtype=compute_dtype, device=dev)
     shapes = {"data": (batch, cfg["seq_len"]),
               "softmax_label": (batch, cfg["seq_len"])}
@@ -751,10 +785,15 @@ def train_step(dev, cfg, batch, compute_dtype, lr=1e-3, bf16_exact=False):
 def cross_entropy(probs, labels, dtype):
     """Mean -log p[label] over the rows of the LM head's output, at the
     labels the step trained on (cast to ``dtype`` like the batch)."""
+    return float(ce_tensor(probs, labels, dtype))
+
+
+def ce_tensor(probs, labels, dtype):
+    """:func:`cross_entropy` as a device scalar (no host sync)."""
     import torch
 
     lab = labels.to(dtype).long().reshape(-1, 1)
-    return float(-torch.log(probs.float().gather(1, lab)).mean())
+    return -torch.log(probs.float().gather(1, lab)).mean()
 
 
 def train_phase(dev, cfg, batch, steps=5):
@@ -817,7 +856,7 @@ def train_phase(dev, cfg, batch, steps=5):
 
 
 def step_update(dev, cfg, batch, compute_dtype, impl, bf16_exact=False,
-                timing=None):
+                timing=None, **optimizer):
     """The parameter update (new - old, in fp32) of one step from
     ``init_state(seed=0)`` under ``MXNET_ATTN_IMPL=impl``.  With a dict
     ``timing`` (on the card), three more steps from the same state are
@@ -829,7 +868,8 @@ def step_update(dev, cfg, batch, compute_dtype, impl, bf16_exact=False,
     os.environ["MXNET_ATTN_IMPL"] = impl
     try:
         step, (params, aux, states), data = train_step(
-            dev, cfg, batch, compute_dtype, bf16_exact=bf16_exact)
+            dev, cfg, batch, compute_dtype, bf16_exact=bf16_exact,
+            **optimizer)
         new, _, _, outs = step(params, aux, states, data, None)
         if not bool(torch.isfinite(outs[0]).all()):
             raise AssertionError("%s: non-finite outputs" % impl)
@@ -872,17 +912,21 @@ def spread(rel):
                 median=float(np.median(list(rel.values()))))
 
 
-def parity_phase(dev, cfg, batch, compute_dtype):
+def parity_phase(dev, cfg, batch, compute_dtype, timed=True, **optimizer):
     """One step through the attention kernels (K1/K4 in fp32, K7/K8 in
     bf16) against one under MXNET_ATTN_IMPL=reference
     from the same ``init_state(seed=0)``: the per-tensor relative L2
     error of the parameter update.  In bf16 both are also held against
     the fp32 reference step on the same (bf16-exact) token ids, the
-    truth that says how much of the difference is bf16's own."""
+    truth that says how much of the difference is bf16's own.
+    ``optimizer``: :func:`train_step`'s optimizer arguments; ``timed``:
+    time and profile the fp32 kernel step on the card."""
     bf16 = compute_dtype is not None
-    timing = {} if dev.type == "cuda" and not bf16 else None
-    kern = step_update(dev, cfg, batch, compute_dtype, "auto", bf16, timing)
-    ref = step_update(dev, cfg, batch, compute_dtype, "reference", bf16)
+    timing = {} if dev.type == "cuda" and not bf16 and timed else None
+    kern = step_update(dev, cfg, batch, compute_dtype, "auto", bf16, timing,
+                       **optimizer)
+    ref = step_update(dev, cfg, batch, compute_dtype, "reference", bf16,
+                      **optimizer)
     out = dict(kernel_vs_reference=spread(rel_l2(kern, ref)))
     if timing:
         out["kernel_step"] = timing
@@ -1167,8 +1211,8 @@ def param_values(params, trainer=None):
             state = trainer._updater.states.get(i)
             if isinstance(state, tuple):
                 master[p.name] = state[1]
-    return [(master[p.name].cpu().numpy() if p.name in master
-             else p.data().asnumpy()) for p in params]
+    return [(master[p.name] if p.name in master else p.data()).asnumpy()
+            for p in params]
 
 
 def gluon_net(ctx, image=224):
@@ -1406,6 +1450,322 @@ def custom_op_phase(dev, net, batch=256, steps=4, image=224, fit_batch=64):
     return stats, launches
 
 
+# the optim phase's optimizer: Adam at JAX's default betas and epsilon,
+# weight decay added to the gradient (the reference's adam_update) and
+# global-norm clipping; the learning rate comes from a cosine schedule
+# each step
+ADAM = {"learning_rate": 3e-4, "wd": 0.01, "clip_global_norm": 1.0}
+# train-parity under Adam: the same optimizer with epsilon 1e-6.  The
+# key projection's bias has a zero gradient in exact arithmetic (softmax
+# ignores a shift of every score), so each attention path's rounding
+# noise there is all Adam sees, and at epsilon 1e-8 Adam scales that
+# noise up to a step of order lr that differs between the two paths
+# (the plain versions on the CPU at d_model 128, 2 layers, T 128: worst
+# tensor blk0_attn_in_bias at 2.0e-3 with epsilon 1e-8, 2.1e-5 with 1e-6)
+ADAM_PARITY = dict(ADAM, epsilon=1e-6)
+COSINE = dict(max_update=16, base_lr=3e-4, warmup_steps=2)
+
+
+def optim_phase(dev, cfg, batch, timed=5, total=8, profile=True):
+    """The transformer LM in bf16 through ``fused.TrainStep(optimizer=
+    "adam")`` with ``clip_global_norm`` and a cosine schedule: ``total``
+    steps on one repeated batch, the first a warm-up, the next ``timed``
+    timed (host clock, synced), then one profiled (on the card) and the
+    rest plain.  Returns the phase's numbers and the kernel launches over
+    all steps."""
+    import torch
+
+    from mxnet_tpu_torch import _cuda, lr_scheduler
+    from mxnet_tpu_torch.models import transformer
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    step, (params, aux, states), data = train_step(
+        dev, cfg, batch, "bfloat16", optimizer="adam", optimizer_params=ADAM)
+    sched = lr_scheduler.CosineScheduler(**COSINE)
+    ces, lrs = [], []
+    state = [params, aux, states]
+
+    def one(t):
+        lrs.append(sched(t))
+        state[0], state[1], state[2], outs = step(
+            *state, data, None, lr=lrs[-1], t=t)
+        ces.append(ce_tensor(outs[0], data["softmax_label"], torch.bfloat16))
+
+    _cuda.reset_launches()
+    one(1)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(2, 2 + timed):
+        one(t)
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    prof = None
+    for t in range(2 + timed, total + 1):
+        if profile and cuda and prof is None:
+            prof = profiled_window(lambda: one(t), (
+                ("flash_attention_sm90", ("flash_fwd_sm90",)),
+                ("flash_attention_backward_sm90", ("flash_bwd_sm90",)),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))))
+        else:
+            one(t)
+    launches = dict(_cuda.launches)
+    if cuda:
+        per_step = {k: launches[k] / total
+                    for k in ("flash_attention_sm90",
+                              "flash_attention_backward_sm90")}
+        if any(n != cfg["num_layers"] for n in per_step.values()):
+            raise AssertionError("attention kernels per step %r, want %d "
+                                 "each" % (per_step, cfg["num_layers"]))
+    ces = [float(c) for c in ces]
+    if not all(np.isfinite(ces)) or not ces[-1] < ces[0]:
+        raise AssertionError("cross-entropy over %d steps on one batch %r: "
+                             "not finite or not falling" % (total, ces))
+    bad = [n for n, p in state[0].items()
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError("non-finite parameters after training: %r"
+                             % bad[:5])
+    tokens = batch * cfg["seq_len"]
+    # bench_transformer.py:120-123: 6 P tokens + 12 L B T^2 d_model
+    flops = (6.0 * transformer.count_params(**cfg) * tokens
+             + 12.0 * cfg["num_layers"] * batch * cfg["seq_len"] ** 2
+             * cfg["d_model"])
+    stats = dict(model="%dL-d%d-h%d-V%d-T%d" % (
+                     cfg["num_layers"], cfg["d_model"], cfg["num_heads"],
+                     cfg["vocab_size"], cfg["seq_len"]),
+                 optimizer="adam", optimizer_params=ADAM, schedule=COSINE,
+                 batch=batch, steps=total, steps_timed=timed,
+                 step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                 achieved_tflops=flops / step_s / 1e12,
+                 share_of_bf16_dense_peak_989=flops / step_s
+                 / BF16_FLOP_PER_S,
+                 cross_entropy_by_step=ces, lr_by_step=lrs,
+                 launches_per_step={k: v / total for k, v in launches.items()
+                                    if v})
+    if cuda:
+        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        stats["profile"] = prof
+    return stats, launches
+
+
+def optim_update_rows(dev, cfg, time_ms, seed=0):
+    """Each registered optimizer's ``fused_update`` over every parameter
+    of the LM at ``cfg`` (fp32, as ``TrainStep`` keeps them), random
+    gradients: the mean time of the whole sweep (``time_ms``) beside its
+    byte bound, every weight, gradient and state tensor read once and
+    every weight and state tensor written once, over 3.35 TB/s."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer as opt
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.symbol.symbol import _infer_param_shapes
+
+    sym = transformer.get_symbol(**cfg)
+    shapes = _infer_param_shapes(sym, {"data": (1, cfg["seq_len"]),
+                                       "softmax_label": (1, cfg["seq_len"])})
+    names = [n for n in sym.list_arguments()
+             if n not in ("data", "softmax_label")]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    weights = {n: 0.02 * torch.randn(tuple(shapes[n]), generator=gen,
+                                     device=dev) for n in names}
+    grads = {n: torch.randn(tuple(shapes[n]), generator=gen, device=dev)
+             for n in names}
+    n_elem = sum(w.numel() for w in weights.values())
+    rows = []
+    for name, kw in (("sgd", dict(momentum=0.9)), ("nag", dict(momentum=0.9)),
+                     ("sgld", {}), ("dcasgd", dict(momentum=0.9)),
+                     ("adam", {}), ("adagrad", {}), ("rmsprop", {}),
+                     ("rmsprop", dict(centered=True)), ("adadelta", {}),
+                     ("ftrl", {}), ("adamax", {}), ("nadam", {}),
+                     ("test", {})):
+        o = opt.create(name, learning_rate=1e-3, wd=1e-4,
+                       rescale_grad=1.0 / 8, **kw)
+        states = {n: o.init_fused_state(w) for n, w in weights.items()}
+        n_states = sum(
+            1 for e in (states[names[0]] if isinstance(states[names[0]],
+                                                       tuple)
+                        else (states[names[0]],))
+            if e is not None and e.dim() > 0)
+
+        def sweep():
+            for n in names:
+                o.fused_update(weights[n], grads[n], states[n], 1e-3, 1e-4,
+                               1, gen)
+
+        nbytes = 4 * n_elem * (3 + 2 * n_states)
+        ms = time_ms(sweep, target_ms=200.0)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(optimizer=name + ("-centered" if kw.get("centered")
+                                           else ""),
+                         state_tensors=n_states, ms=ms, bound_ms=bound,
+                         bound_by="bytes", over_bound=ms / bound))
+        del states
+    return dict(params=len(names), elements=n_elem, rows=rows)
+
+
+NAG = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def nag_fit_phase(dev, sym, batch=256, steps=4, image=224):
+    """``Module.fit`` of ``sym`` in bf16 with NAG (momentum 0.9, wd 1e-4)
+    under ``MultiFactorScheduler(step=[2], factor=0.1)`` for ``steps``
+    steps (``examples/image-classification/common/fit.py``'s
+    configuration): the learning rate of every fused step must be the
+    schedule's at the pre-increment update count, and every parameter
+    finite and changed.  Returns the phase's numbers and launches."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _cuda, lr_scheduler
+
+    cuda = dev.type == "cuda"
+    x, y = resnet_images(batch * steps, seed=5, image=image)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(sym, context=mx.context.context_of(dev))
+    mod.bind(it.provide_data, it.provide_label)
+    init = mx.init.Xavier(**XAVIER)
+    mod.init_params(init)
+    arg0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    sched_args = dict(step=[2], factor=0.1)
+    mod.init_optimizer(
+        optimizer="nag", compute_dtype="bfloat16", optimizer_params=dict(
+            NAG, lr_scheduler=lr_scheduler.MultiFactorScheduler(
+                **sched_args)))
+    lrs, marks = [], []
+    fused = mod._fused
+
+    def recorded(*args):
+        lrs.append(float(args[5]))
+        return fused(*args)
+
+    mod._fused = recorded
+
+    def tick(param):
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    _cuda.reset_launches()
+    if cuda:
+        torch.cuda.synchronize()
+    mod.fit(it, num_epoch=1, optimizer="nag", initializer=init,
+            compute_dtype="bfloat16", batch_end_callback=tick)
+    launches = dict(_cuda.launches)
+    want_sched = lr_scheduler.MultiFactorScheduler(base_lr=NAG[
+        "learning_rate"], **sched_args)
+    want = [want_sched(n) for n in range(steps)]
+    if lrs != want:
+        raise AssertionError("nag fit: learning rates %r, the schedule's "
+                             "%r" % (lrs, want))
+    arg = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    fixed = {n.name + "_gamma" for n in bn_nodes(sym)
+             if n.attrs.get("fix_gamma", True)}
+    bad = [k for k, v in arg.items() if not np.isfinite(v).all()]
+    same = [k for k, v in arg.items()
+            if k not in fixed and np.array_equal(v, arg0[k])]
+    if bad or same:
+        raise AssertionError("nag fit: parameters not finite %r / unchanged "
+                             "%r" % (bad[:5], same[:5]))
+    # steps 2.. on the host clock, each synced (the first builds cuDNN
+    # plans)
+    secs = marks[-1] - marks[0]
+    return dict(optimizer="nag", optimizer_params=NAG,
+                schedule=dict(kind="MultiFactorScheduler", **sched_args),
+                batch=batch, steps=steps, lr_by_step=lrs,
+                img_per_s_steps_2_on=(len(marks) - 1) * batch / secs,
+                step_ms_steps_2_on=1e3 * secs / (len(marks) - 1)), launches
+
+
+# ops phase: card against CPU by test_torch_op_sweep's comparison
+OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
+OPS_NOTE = ("the port's op on the card against the same op on the CPU, "
+            "same inputs, TF32 off: rtol 1e-5, atol 1e-6, NaN where the "
+            "CPU gives NaN, dtypes and shapes equal; samplers by shape, "
+            "dtype and device, and by mean and variance within 4 standard "
+            "errors at 1e5 draws")
+
+
+def ops_phase(dev):
+    """Every case of the op sweep's table that the port registers
+    (``mxnet_tpu_torch/testing/op_specs.py``) on ``dev`` and on the CPU.
+    Returns (numbers, failures by name, ops that synchronised the host
+    under ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import imperative_invoke
+    from mxnet_tpu_torch.testing import op_specs
+
+    ctx = mx.context.context_of(dev)
+    cuda = dev.type == "cuda"
+    failures, syncs = {}, {}
+    matched = 0
+
+    def run(name, arrays, attrs, on):
+        with on:
+            ins = [mx.nd.array(a, dtype=a.dtype) for a in arrays]
+            if cuda:
+                torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                if cuda and on is ctx:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    outs = imperative_invoke(name, ins, dict(attrs))
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode("default")
+            said = [str(w.message) for w in seen
+                    if "called a synchronizing" in str(w.message)]
+            if said:
+                syncs[name] = said[0][:160]
+            return outs
+
+    for name, (inputs, attrs) in sorted(op_specs.SPECS.items()):
+        arrays = [np.asarray(x) for x in inputs]
+        try:
+            got = run(name, arrays, attrs, ctx)
+            want = run(name, arrays, attrs, mx.cpu())
+            if len(got) != len(want):
+                raise AssertionError("%d outputs, CPU %d" % (len(got),
+                                                             len(want)))
+            for g, w in zip(got, want):
+                if g._data.device.type != dev.type:
+                    raise AssertionError("output on %s" % g._data.device)
+                gn, wn = g.asnumpy(), w.asnumpy()
+                if gn.shape != wn.shape or gn.dtype != wn.dtype:
+                    raise AssertionError("%s %s, CPU %s %s" % (
+                        gn.shape, gn.dtype, wn.shape, wn.dtype))
+                if not op_specs.is_random(name):
+                    np.testing.assert_allclose(
+                        gn.astype(np.float64), wn.astype(np.float64),
+                        rtol=OPS_RTOL, atol=OPS_ATOL, equal_nan=True)
+            matched += 1
+        except Exception as e:  # noqa: BLE001 — every failure is reported
+            failures[name] = "%s: %s" % (type(e).__name__, str(e)[:200])
+    moments = {}
+    for name, inputs, attrs, (mean, var) in op_specs.RANDOM_MOMENTS:
+        with ctx:
+            out = imperative_invoke(
+                name, [mx.nd.array(x) for x in inputs],
+                dict(attrs, shape=(op_specs.N_DRAWS,)))[0]
+        ok, m, v = op_specs.moments_ok(out.asnumpy(), mean, var)
+        moments[name] = dict(mean=m, var=v, want=(mean, var))
+        if not ok:
+            failures[name + "(moments)"] = "mean %r var %r, want %r %r" % (
+                m, v, mean, var)
+    return dict(cases=len(op_specs.SPECS), matched=matched,
+                moment_checks=len(op_specs.RANDOM_MOMENTS),
+                moments=moments), failures, syncs
+
+
 def main():
     import torch
 
@@ -1422,6 +1782,8 @@ def main():
     from mxnet_tpu_torch import _cuda
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    phase_s = {}
     # -- 1. card ----------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2294,6 +2656,21 @@ def main():
     for name, n in train_launches.items():
         launches[name] += n
 
+    # -- 5b. optim: the same LM under Adam, clipping and a schedule -------
+    t0 = time.perf_counter()
+    stats, optim_launches = optim_phase(dev, train_config(), batch=8)
+    log("optim", nvidia_smi=smi, launches=optim_launches, **stats)
+    torch.cuda.empty_cache()
+    for name, n in optim_launches.items():
+        launches[name] += n
+    log("optim_update", nvidia_smi=smi, note="each optimizer's fused_update "
+        "over every parameter of the 8-layer LM (fp32), CUDA-event mean "
+        "behind the device spin; bound: weight, gradient and states read "
+        "once, weight and states written once, over 3.35 TB/s",
+        **optim_update_rows(dev, train_config(), time_ms))
+    torch.cuda.empty_cache()
+    phase_s["optim"] = time.perf_counter() - t0
+
     # -- 6. train parity: kernel path vs MXNET_ATTN_IMPL=reference ---------
     _cuda.reset_launches()
     fp32 = parity_phase(dev, train_config(num_layers=2), 2, None)
@@ -2303,6 +2680,19 @@ def main():
         raise AssertionError("fp32 parity %r over %g" % (fp32, PARITY_FP32))
     log("train_parity", case="fp32-2L-batch2", bound=PARITY_FP32,
         tolerance=PARITY_FP32_NOTE, **fp32)
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    adam = parity_phase(dev, train_config(num_layers=2), 2, None,
+                        timed=False, optimizer="adam",
+                        optimizer_params=ADAM_PARITY)
+    for name, n in _cuda.launches.items():
+        launches[name] = launches.get(name, 0) + n
+    if adam["kernel_vs_reference"]["max"] > PARITY_FP32:
+        raise AssertionError("fp32 Adam parity %r over %g"
+                             % (adam, PARITY_FP32))
+    log("train_parity", case="fp32-2L-batch2-adam-clip", bound=PARITY_FP32,
+        optimizer_params=ADAM_PARITY, tolerance=PARITY_FP32_NOTE, **adam)
+    phase_s["adam_parity"] = time.perf_counter() - t0
     _cuda.reset_launches()
     bf16 = parity_phase(dev, train_config(), 8, "bfloat16")
     for name, n in _cuda.launches.items():
@@ -2326,6 +2716,16 @@ def main():
     torch.cuda.empty_cache()
     for name, n in resnet_launches.items():
         launches[name] += n
+
+    # -- 7b. ResNet-50 Module.fit under NAG and a step schedule ------------
+    t0 = time.perf_counter()
+    stats, nag_launches = nag_fit_phase(dev, r50)
+    log("nag", nvidia_smi=smi, model="resnet50", launches=nag_launches,
+        **stats)
+    torch.cuda.empty_cache()
+    for name, n in nag_launches.items():
+        launches[name] += n
+    phase_s["nag"] = time.perf_counter() - t0
 
     # -- 8. ResNet-50 parity: K5/K6 vs the plain sums, against fp32 --------
     par, per_tensor = resnet_parity_phase(dev, r50)
@@ -2358,7 +2758,17 @@ def main():
     for name, n in custom_launches.items():
         launches[name] = launches.get(name, 0) + n
 
-    # -- 11. summary ------------------------------------------------------
+    # -- 11. every op of the sweep table, card against CPU ----------------
+    t0 = time.perf_counter()
+    stats, failures, syncs = ops_phase(dev)
+    phase_s["ops"] = time.perf_counter() - t0
+    log("ops", tolerance=OPS_NOTE, failures=failures,
+        host_syncs=dict(count=len(syncs), ops=syncs), **stats)
+    if failures:
+        raise AssertionError("ops on the card: %d failures %r"
+                             % (len(failures), sorted(failures)))
+
+    # -- 12. summary ------------------------------------------------------
     if min(launches.values()) < 1:
         raise AssertionError("a kernel never ran on a main path: %r"
                              % launches)
@@ -2413,6 +2823,8 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "kernel_device_ms": row.get("kernel_device_ms"),
             "shape": main_case[name]})
+    log("wall", total_s=time.perf_counter() - t_start,
+        added_phases_s=phase_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

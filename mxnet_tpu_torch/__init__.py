@@ -4,7 +4,7 @@ A package of its own beside the JAX one, with the same module layout.
 The kernels the JAX package runs on a TPU are CUDA C++ written for the
 H100 (``csrc/``, built at first use by :mod:`._cuda`); the rest is plain
 PyTorch.  Entry points run on the card unless the caller passes
-``device="cpu"`` or the context ``mx.cpu()``.  Four slices are ported:
+``device="cpu"`` or the context ``mx.cpu()``.  Five slices are ported:
 
 * serving — :mod:`.serve` runs the built-in transformer LM end to end;
 * transformer training — :mod:`.symbol` builds the LM (:mod:`.models`),
@@ -16,11 +16,14 @@ PyTorch.  Entry points run on the card unless the caller passes
 * imperative training — :mod:`.autograd` over torch autograd, and
   :mod:`.gluon` (blocks, layers, losses, ``Trainer``, ``data``, the
   model zoo's ResNets); :mod:`.operator` (``CustomOp``) and :mod:`.rtc`
-  (CUDA kernel bodies compiled at run time).
+  (CUDA kernel bodies compiled at run time);
+* ops and optimizers — the JAX package's op registry but for the contrib
+  ops, ``RNN`` and ``MoE``, every optimizer in its split and fused forms,
+  :mod:`.lr_scheduler` and ``clip_global_norm``.
 """
 from . import (autograd, callback, context, executor, fused, gluon,
-               initializer, io, metric, model, models, module, ndarray,
-               operator, optimizer, random, rtc, serve, symbol)
+               initializer, io, lr_scheduler, metric, model, models, module,
+               ndarray, operator, optimizer, random, rtc, serve, symbol)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, tpu
 from .model import load_checkpoint, save_checkpoint
@@ -35,6 +38,7 @@ sym = symbol
 __all__ = ["Context", "MXNetError", "Module", "NDArray", "autograd",
            "callback", "context", "cpu", "current_context", "executor",
            "fused", "gluon", "gpu", "init", "initializer", "io",
-           "load_checkpoint", "metric", "mod", "model", "models", "module",
+           "load_checkpoint", "lr_scheduler", "metric", "mod", "model",
+           "models", "module",
            "nd", "ndarray", "operator", "optimizer", "random", "rtc",
            "save_checkpoint", "serve", "sym", "symbol", "tpu"]

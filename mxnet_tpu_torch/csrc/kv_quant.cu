@@ -9,15 +9,19 @@
 // quantize.kv_quantize_rows on the card, because serving's oracle
 // fake-quantizes its keys and values with that plain form, and K2q
 // dequantizes what this kernel wrote.  Every step is exact or IEEE:
-//   amax  = max |x| over the row's (H, D)      (a max is exact in any order)
+//   amax  = max |x| over the row's (H, D)      (a max is exact in any order;
+//                                                a NaN is kept, as jnp.max
+//                                                keeps it)
 //   scale = amax > 0 ? amax / qmax : 1          (__fdiv_rn; qmax 127 or 448)
-//   int8: rintf(x / scale) clamped to +-127     (rintf: half to even, as
-//                                                torch.round)
+//   int8: x / scale rounded half to even and clamped to +-127 (as
+//         torch.round then clamp)
 //   e4m3: x / scale clamped to +-448, then the round-to-nearest-even
 //         conversion __nv_cvt_float_to_fp8
-// for finite rows.  A row holding a NaN has no defined codes: the plain
-// form's max keeps the NaN (its scale becomes 1 and its int8 cast of NaN
-// is undefined), while fmaxf and the clamps here drop it.
+// Non-finite rows follow the reference too.  A row holding a NaN gets
+// scale 1 (amax > 0 is false) and a row holding an Inf scale Inf; a NaN
+// quotient (the NaN element, or Inf / Inf) passes the clamps unchanged,
+// so e4m3 codes it NaN, and int8 converts it with __float2int_rn, which
+// gives 0, as the reference's cast of NaN gives on a CPU.
 //
 // One CTA quantizes one row of K or of V (grid N x 2: both in one
 // launch): a block max over the row, then a second pass that writes the
@@ -52,10 +56,20 @@ struct Params {
   int page, row;  // rows a page; elements a row (H x D)
 };
 
+// max that keeps a NaN (fmaxf drops one)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// clamp to [-q, q] that keeps a NaN (fminf/fmaxf would map it to a bound)
+__device__ __forceinline__ float nan_clamp(float y, float q) {
+  return y != y ? y : fminf(fmaxf(y, -q), q);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -68,13 +82,13 @@ __global__ void __launch_bounds__(kThreads) kv_quant_kernel(const Params p) {
                         : p.k_rows + n * p.k_stride;
   const int tid = threadIdx.x;
   float m = 0.f;
-  for (int e = tid; e < p.row; e += kThreads) m = fmaxf(m, fabsf(x[e]));
+  for (int e = tid; e < p.row; e += kThreads) m = nan_max(m, fabsf(x[e]));
   m = warp_max(m);
   if (tid % 32 == 0) red[tid / 32] = m;
   __syncthreads();
   float amax = red[0];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, red[w]);
+  for (int w = 1; w < kWarps; ++w) amax = nan_max(amax, red[w]);
   const float qmax = kE4M3 ? 448.f : 127.f;
   const float scale = amax > 0.f ? __fdiv_rn(amax, qmax) : 1.f;
   const long long at = p.pages[n] * p.page + p.offsets[n];
@@ -82,10 +96,11 @@ __global__ void __launch_bounds__(kThreads) kv_quant_kernel(const Params p) {
   for (int e = tid; e < p.row; e += kThreads) {
     const float y = __fdiv_rn(x[e], scale);
     if (kE4M3) {
-      out[e] = __nv_cvt_float_to_fp8(fminf(fmaxf(y, -448.f), 448.f),
-                                     __NV_SATFINITE, __NV_E4M3);
+      out[e] = __nv_cvt_float_to_fp8(nan_clamp(y, 448.f), __NV_SATFINITE,
+                                     __NV_E4M3);
     } else {
-      const float r = fminf(fmaxf(rintf(y), -127.f), 127.f);
+      // round half to even, then clamp; NaN converts to 0
+      const int r = max(-127, min(127, __float2int_rn(y)));
       out[e] = static_cast<uint8_t>(static_cast<int8_t>(r));
     }
   }

@@ -39,6 +39,8 @@ def _trace_fn(sym, is_train, node_hook=None):
     def fn(args, aux, rng):
         env = {}
         new_aux = dict(aux)
+        # where a node without inputs (a creation op) makes its output
+        device = next(iter(args.values())).device if args else None
         for node in topo:
             if node.is_variable:
                 env[(id(node), 0)] = (aux if node.name in aux_set
@@ -48,6 +50,8 @@ def _trace_fn(sym, is_train, node_hook=None):
             attrs = dict(node.attrs)
             if node.op.uses_train_mode:
                 attrs["__is_train__"] = is_train
+            if not ins and device is not None:
+                attrs["__device__"] = device
             if node.op.needs_rng:
                 ins = [rng] + ins
             res = node.op.compute(_registry.FrozenAttrs(attrs), *ins)

@@ -12,9 +12,13 @@ aux, states, outs)``:
   own backward;
 * the backward is torch autograd over the eagerly run graph; gradients
   of fp32 parameters come back fp32 through the cast;
+* with the optimizer's ``clip_global_norm``, every live gradient is
+  scaled by ``min(1, clip / ||g||)``, the norm taken over all of them in
+  fp32 after ``rescale_grad`` and the factor cast to each gradient's
+  dtype (:467-474);
 * the update runs in ``sorted(grads)`` order through the optimizer's
-  fused form (:475-501), returning new tensors, so the caller's old
-  state stays valid.
+  fused form (:475-501) — any registered optimizer, each with its own
+  state — returning new tensors, so the caller's old state stays valid.
 
 Where the JAX package compiles the step into one XLA program, this one
 runs eagerly; capturing it in a CUDA graph is later work.  ``mesh``,
@@ -31,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import optimizer as opt_mod
 from .base import MXNetError, get_env, later_slice, resolve_device
 
 __all__ = ["TrainStep", "compile_train_step", "state_from_numpy"]
@@ -82,7 +87,6 @@ class TrainStep:
                  remat=None, fixed_param_names=(), param_sharding=None,
                  steps_per_call=1, health=None, zero=None, plan=None,
                  device=None):
-        from . import optimizer as opt_mod
         from .executor import _trace_fn
 
         _check_slice(mesh, zero, plan, health, remat, steps_per_call,
@@ -152,6 +156,11 @@ class TrainStep:
                                       allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(live, got)}
+        clip = self.optimizer.clip_global_norm
+        if clip is not None:
+            factor = opt_mod.global_norm_scale(opt_mod.global_grad_norm(
+                [grads[k] for k in live], self.optimizer.rescale_grad), clip)
+            grads = {k: g * factor.to(g.dtype) for k, g in grads.items()}
         new_params, new_states = {}, {}
         with torch.no_grad():
             for k in sorted(params):

@@ -5,10 +5,11 @@ Counterpart of ``mxnet_tpu/gluon/trainer.py`` (reference
 ParameterDict's parameters from their gradient buffers.  This slice is
 single-device: ``kvstore`` ``"device"``/``"local"`` (or None) means no
 store, as for one device in the reference; a ``dist*`` store raises.
-The updates run under ``torch.no_grad()`` (``Optimizer.update``) and
-rebind each parameter to a new ``requires_grad`` leaf; with
-``multi_precision=True`` a bf16 or fp16 parameter keeps an fp32 master
-copy in its optimizer state.
+Any registered optimizer, by name or instance, with its
+``lr_scheduler``: each step runs its split form (``Optimizer.update``),
+outside autograd, which rebinds each parameter to a new
+``requires_grad`` leaf; with SGD's ``multi_precision=True`` a bf16 or
+fp16 parameter keeps an fp32 master copy in its optimizer state.
 """
 from __future__ import annotations
 

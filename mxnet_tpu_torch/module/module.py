@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/module/module.py`` (reference
 ``python/mxnet/module/module.py``: bind, init_params, init_optimizer,
 forward, backward, update, get/set_params, checkpoints).  One executor
-holds the bound graph; with an optimizer that has a fused form (SGD)
-``fit``'s ``forward_backward`` runs the whole step — forward, backward
+holds the bound graph; with an optimizer that has a fused form (every
+registered one) ``fit``'s ``forward_backward`` runs the whole step — forward, backward
 and update — through ``fused.TrainStep``, and ``update`` is then a no-op,
 as in the JAX package.  ``forward``/``backward``/``update`` called by
 hand take the split path: the executor's autograd backward and the
@@ -305,9 +305,10 @@ class Module(BaseModule):
                 t = arr._data if isinstance(arr, NDArray) else \
                     array(arr, self._context[0])._data
                 batch[name] = t if t.device == dev else t.to(dev)
-        # the learning rate at the pre-increment count, the step number
-        # t at the post-increment one (the split path's order)
-        lr = o.lr
+        # the scheduler read at the pre-increment count, the step number
+        # t at the post-increment one: the split path's order
+        # (mxnet_tpu/module/module.py:831-838)
+        lr = o.lr_scheduler(o.num_update) if o.lr_scheduler else o.lr
         for i in range(len(self._param_names)):
             o._update_count(i)
         new_params, new_aux, self._fused_states, outs = self._fused(
@@ -357,10 +358,29 @@ class Module(BaseModule):
         if self._fused_ran:
             self._fused_ran = False
             return
+        if self._optimizer.clip_global_norm:
+            self._clip_global_norm()
         for i, name in enumerate(self._param_names):
             g = self._exec.grad_dict.get(name)
             if g is not None:
                 self._updater(i, g, self._exec.arg_dict[name])
+
+    def _clip_global_norm(self):
+        """Scale ``grad_dict`` by min(1, clip / ||g||), the norm taken
+        over every parameter's gradient in fp32 as the optimizer will see
+        it (after ``rescale_grad``), the factor cast to each gradient's
+        dtype (``mxnet_tpu/module/module.py:944-961``).  No host sync."""
+        o = self._optimizer
+        names = [n for n in self._param_names
+                 if self._exec.grad_dict.get(n) is not None]
+        if not names:
+            return
+        grads = {n: self._exec.grad_dict[n]._data for n in names}
+        factor = opt.global_norm_scale(
+            opt.global_grad_norm(grads, o.rescale_grad), o.clip_global_norm)
+        for n in names:
+            self._exec.grad_dict[n]._set_data(
+                grads[n] * factor.to(grads[n].dtype))
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs

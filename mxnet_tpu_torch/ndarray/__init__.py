@@ -57,7 +57,13 @@ def _make_op_func(name, op):
                 raise TypeError("%s: unexpected tensor kwargs %s"
                                 % (name, sorted(named)))
             inputs = ordered + inputs
-        res = imperative_invoke(name, inputs, kwargs, out=out)
+        if ctx is not None and not inputs:
+            # an op without tensor inputs (a creation or random op) makes
+            # its outputs on ``ctx``
+            with ctx:
+                res = imperative_invoke(name, inputs, kwargs, out=out)
+        else:
+            res = imperative_invoke(name, inputs, kwargs, out=out)
         return res[0] if len(res) == 1 else res
 
     op_func.__name__ = name

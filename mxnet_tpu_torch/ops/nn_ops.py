@@ -1,18 +1,26 @@
-"""Neural-network layer operators of the transformer LM and ResNet.
+"""Neural-network layer operators.
 
-Counterpart of ``mxnet_tpu/ops/nn_ops.py`` for ``FullyConnected``,
-``Convolution``, ``Deconvolution``, ``Pooling``, ``Activation``,
-``LeakyReLU``, ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``,
-``softmax``/``log_softmax``, ``Dropout``, ``SoftmaxOutput`` and
-``MultiHeadAttention``; the other layers come with later slices.
+Counterpart of ``mxnet_tpu/ops/nn_ops.py``: ``FullyConnected``,
+``Convolution``, ``Deconvolution``, ``Pooling``, ``UpSampling``,
+``Activation``, ``LeakyReLU``, ``softmax``/``log_softmax``,
+``SoftmaxActivation``, the output layers (``SoftmaxOutput``, the
+regression outputs, ``SVMOutput``), ``softmax_cross_entropy``,
+``BatchNorm``, ``InstanceNorm``, ``LayerNorm``, ``L2Normalization``,
+``LRN``, ``Dropout``, the ``Sequence*`` ops, ``Crop``, ``GridGenerator``,
+``BilinearSampler``, ``SpatialTransformer``, ``ROIPooling``,
+``IdentityAttachKLSparseReg`` and ``MultiHeadAttention``.  ``MoE`` comes
+with the expert-parallel slice.
 
 * Projections are plain matmuls (cuBLAS on the card), as the JAX package
   leaves them to XLA; the bias is added after the product, in the
   product's dtype, as there.
-* ``SoftmaxOutput`` keeps the reference's loss-layer contract as a
-  ``torch.autograd.Function``: its backward is ``(p - onehot(label)) *
-  grad_scale`` times the incoming cotangent (ones under the reference's
-  seeding; a loss scale riding the cotangent passes through).
+* The output layers keep the reference's loss-layer contract, each a
+  ``torch.autograd.Function``: ``SoftmaxOutput``'s backward is ``(p -
+  onehot(label)) * grad_scale``, a regression output's ``grad(out,
+  label) * grad_scale / (elements a sample)``, ``SVMOutput``'s the hinge
+  gradient, each times the incoming cotangent (ones under the
+  reference's seeding; a loss scale riding the cotangent passes
+  through), and the label's gradient is zero.
 * ``MultiHeadAttention`` dispatches the score/value contraction through
   ``ops/attention.py::dot_product_attention`` — kernels K1 (forward) and
   K4 (backward) on the card.
@@ -317,7 +325,7 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             valid = (label != float(attrs.get("ignore_label", -1))).sum()
             grad = grad / torch.clamp_min(valid, 1).to(p.dtype)
         # a Python scale is weakly typed in JAX: it takes p's dtype first
-        grad = grad * torch.tensor(scale, dtype=p.dtype, device=p.device)
+        grad = grad * p.new_full((), scale)
         return grad * g.to(grad.dtype), None, None
 
 
@@ -328,6 +336,287 @@ def _softmax_output(attrs, data, label):
     use_ignore/ignore_label, multi_output and null/batch/valid
     normalization; the head gradient multiplies the result."""
     return _SoftmaxOutputFn.apply(data, label, attrs)
+
+
+class _RegressionFn(torch.autograd.Function):
+    """Forward ``transform(data)``; backward ``grad(out, label) *
+    grad_scale / (elements a sample)`` times the cotangent, and a zero
+    gradient for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.scale = kind, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape)
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        num = 1
+        for n in out.shape[1:]:
+            num *= n
+        gd = diff * (ctx.scale / num)
+        return gd * g.to(gd.dtype), torch.zeros_like(label), None, None
+
+
+def _regression_output(kind):
+    def compute(attrs, data, label):
+        return _RegressionFn.apply(data, label, kind,
+                                   float(attrs.get("grad_scale", 1.0)))
+    return compute
+
+
+register("LinearRegressionOutput", _regression_output("linear"))
+register("MAERegressionOutput", _regression_output("mae"))
+register("LogisticRegressionOutput", _regression_output("logistic"))
+
+
+class _SVMOutputFn(torch.autograd.Function):
+    """Forward the identity; backward the (squared, or with
+    ``use_linear`` linear) hinge gradient of the reference's
+    ``svm_output-inl.h``, times the cotangent."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.margin, ctx.reg, ctx.use_linear = margin, reg, use_linear
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        d, label = ctx.saved_tensors
+        onehot = F.one_hot(label.to(torch.int64), d.shape[-1]).to(d.dtype)
+        correct = torch.sum(d * onehot, dim=-1, keepdim=True)
+        if ctx.use_linear:
+            viol = ((d - correct + ctx.margin) > 0).to(d.dtype) * (1 - onehot)
+            gd = ctx.reg * (viol - onehot * torch.sum(viol, dim=-1,
+                                                      keepdim=True))
+        else:
+            m = torch.clamp_min(d - correct + ctx.margin, 0.) * (1 - onehot)
+            gd = ctx.reg * 2 * (m - onehot * torch.sum(m, dim=-1,
+                                                       keepdim=True))
+        return (gd * g.to(gd.dtype), torch.zeros_like(label), None, None,
+                None)
+
+
+@register("SVMOutput")
+def _svm_output(attrs, data, label):
+    return _SVMOutputFn.apply(
+        data, label, float(attrs.get("margin", 1.0)),
+        float(attrs.get("regularization_coefficient", 1.0)),
+        bool(attrs.get("use_linear", False)))
+
+
+@register("softmax_cross_entropy")
+def _softmax_xent(attrs, data, label):
+    """Summed cross-entropy of the rows of ``data`` at ``label`` (a 0-d
+    result)."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -torch.sum(torch.gather(logp, -1,
+                                   label.to(torch.int64)[:, None]))
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(attrs, x):
+    """Softmax over the channels (``mode="channel"``) or over all of a
+    sample's features."""
+    if attrs.get("mode", "instance") == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+@register("UpSampling")
+def _upsampling(attrs, *inputs):
+    """Reference ``src/operator/upsampling.cc``: nearest (each pixel
+    ``scale`` x ``scale`` times) or bilinear (half-pixel centres, as
+    ``jax.image.resize``) scale-up of the first input."""
+    scale = int(attrs["scale"])
+    data = inputs[0]
+    if attrs.get("sample_type", "nearest") == "nearest":
+        return data.repeat_interleave(scale, dim=2).repeat_interleave(
+            scale, dim=3)
+    return F.interpolate(data, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+@register("L2Normalization")
+def _l2_normalization(attrs, data):
+    eps = float(attrs.get("eps", 1e-10))
+    mode = attrs.get("mode", "instance")
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:  # spatial
+        axes = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=axes,
+                                       keepdim=True) + eps)
+
+
+@register("LRN")
+def _lrn(attrs, data):
+    """Reference ``src/operator/lrn.cc``: cross-channel local response
+    normalization over ``nsize`` channels."""
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    knorm = float(attrs.get("knorm", 2.0))
+    nsize = int(attrs["nsize"])
+    half = nsize // 2
+    padded = F.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    windows = padded[:, 0:data.shape[1]]
+    for i in range(1, nsize):
+        windows = windows + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + alpha * windows / nsize, beta)
+
+
+def _seq_len(attrs, seq_len):
+    """The lengths input when ``use_sequence_length``, else None."""
+    if bool(attrs.get("use_sequence_length", False)) and seq_len:
+        return seq_len[0].to(torch.int64)
+    return None
+
+
+@register("SequenceMask")
+def _sequence_mask(attrs, data, *seq_len):
+    """Reference ``src/operator/sequence_mask.cc``: time-major (T, B, ...)
+    steps at or past a sequence's length set to ``value``."""
+    lens = _seq_len(attrs, seq_len)
+    if lens is None:
+        return data
+    value = float(attrs.get("value", 0.0))
+    mask = (torch.arange(data.shape[0], device=data.device)[:, None]
+            < lens[None, :]).to(data.dtype)
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return data * mask + value * (1 - mask)
+
+
+@register("SequenceLast")
+def _sequence_last(attrs, data, *seq_len):
+    lens = _seq_len(attrs, seq_len)
+    if lens is None:
+        return data[-1]
+    return data[lens - 1, torch.arange(data.shape[1], device=data.device)]
+
+
+@register("SequenceReverse")
+def _sequence_reverse(attrs, data, *seq_len):
+    lens = _seq_len(attrs, seq_len)
+    if lens is None:
+        return torch.flip(data, [0])
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    idx = torch.where(t < lens[None, :], lens[None, :] - 1 - t, t)
+    idx = idx.reshape(tuple(idx.shape) + (1,) * (data.dim() - 2))
+    return torch.gather(data, 0, idx.expand(data.shape))
+
+
+@register("Crop")
+def _crop(attrs, *inputs):
+    """Crop (N, C, H, W) to ``h_w`` (or the second input's H, W) at
+    ``offset`` or the centre."""
+    data = inputs[0]
+    if len(inputs) == 2:
+        h, w = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        h, w = (int(v) for v in attrs["h_w"])
+    if bool(attrs.get("center_crop", False)):
+        y0, x0 = (data.shape[2] - h) // 2, (data.shape[3] - w) // 2
+    else:
+        y0, x0 = (int(v) for v in attrs.get("offset", (0, 0)))
+    return data[:, :, y0:y0 + h, x0:x0 + w]
+
+
+@register("GridGenerator")
+def _grid_generator(attrs, data):
+    """Reference ``src/operator/grid_generator.cc``: an affine (N, 6)
+    transform to an (N, 2, H, W) sampling grid in [-1, 1]; ``warp``
+    passes the flow field through, as the JAX package does."""
+    h, w = (int(v) for v in attrs["target_shape"])
+    if attrs.get("transform_type", "affine") != "affine":
+        return data
+    n = data.shape[0]
+    theta = data.reshape(n, 2, 3)
+    gy, gx = torch.meshgrid(
+        torch.linspace(-1, 1, h, dtype=data.dtype, device=data.device),
+        torch.linspace(-1, 1, w, dtype=data.dtype, device=data.device),
+        indexing="ij")
+    grid = torch.stack([gx, gy, torch.ones_like(gx)], dim=0).reshape(3, -1)
+    return torch.einsum("nij,jk->nik", theta, grid).reshape(n, 2, h, w)
+
+
+@register("BilinearSampler")
+def _bilinear_sampler(attrs, data, grid):
+    """Reference ``src/operator/bilinear_sampler.cc``: sample ``data`` at
+    the grid's (x, y) in [-1, 1], zero outside the image."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2
+    gy = (grid[:, 1] + 1) * (h - 1) / 2
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    wx1, wy1 = gx - x0, gy - y0
+    wx0, wy0 = 1 - wx1, 1 - wy1
+    batch = torch.arange(n, device=data.device)[:, None, None]
+
+    def gather(yy, xx):
+        yc = torch.clamp(yy, 0, h - 1).to(torch.int64)
+        xc = torch.clamp(xx, 0, w - 1).to(torch.int64)
+        valid = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+        vals = data[batch, :, yc, xc]  # (n, oh, ow, c)
+        return torch.where(valid[..., None], vals, vals.new_zeros(()))
+
+    out = (gather(y0, x0) * (wy0 * wx0)[..., None]
+           + gather(y0, x1) * (wy0 * wx1)[..., None]
+           + gather(y1, x0) * (wy1 * wx0)[..., None]
+           + gather(y1, x1) * (wy1 * wx1)[..., None])
+    return out.movedim(-1, 1)
+
+
+@register("SpatialTransformer")
+def _spatial_transformer(attrs, data, loc):
+    grid = _grid_generator({"target_shape": attrs["target_shape"],
+                            "transform_type": "affine"}, loc)
+    return _bilinear_sampler({}, data, grid)
+
+
+@register("ROIPooling")
+def _roi_pooling(attrs, data, rois):
+    """Reference ``src/operator/roi_pooling.cc``: max-pool each ROI
+    ``[batch, x1, y1, x2, y2]`` (scaled by ``spatial_scale``, rounded
+    half to even) to ``pooled_size`` cells; an empty cell is -inf, and a
+    tied maximum shares the gradient evenly (``jnp.max``'s rule)."""
+    ph, pw = (int(v) for v in attrs["pooled_size"])
+    scale = float(attrs["spatial_scale"])
+    _, _, h, w = data.shape
+    dev = data.device
+    b = rois[:, 0].to(torch.int64)
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * scale).to(torch.int64)
+                      for i in (1, 2, 3, 4))
+    rh = torch.clamp_min(y2 - y1 + 1, 1)[:, None]
+    rw = torch.clamp_min(x2 - x1 + 1, 1)[:, None]
+    iy = torch.arange(ph, device=dev)[None, :]
+    ix = torch.arange(pw, device=dev)[None, :]
+    cy0 = y1[:, None] + (iy * rh) // ph                       # (R, ph)
+    cy1 = torch.maximum(y1[:, None] + ((iy + 1) * rh + ph - 1) // ph,
+                        cy0 + 1)
+    cx0 = x1[:, None] + (ix * rw) // pw                       # (R, pw)
+    cx1 = torch.maximum(x1[:, None] + ((ix + 1) * rw + pw - 1) // pw,
+                        cx0 + 1)
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    my = (ys >= cy0[..., None]) & (ys < cy1[..., None])       # (R, ph, h)
+    mx = (xs >= cx0[..., None]) & (xs < cx1[..., None])       # (R, pw, w)
+    mask = my[:, :, None, :, None] & mx[:, None, :, None, :]  # R ph pw h w
+    img = data[b][:, :, None, None]                           # R c 1 1 h w
+    masked = torch.where(mask[:, None], img, img.new_full((), -float("inf")))
+    return torch.amax(masked, dim=(-2, -1))
+
+
+@register("IdentityAttachKLSparseReg")
+def _identity_kl(attrs, x):
+    return x
 
 
 @register("_contrib_MultiHeadAttention", aliases=("MultiHeadAttention",))

@@ -214,7 +214,9 @@ def kv_quantize_rows(x, mode):
     ``(codes, scales)``, codes in storage dtype and float32 scales of
     ``x``'s leading shape (amax over (H, D); all-zero rows get 1.0).
     The plain form of kernel K9's arithmetic, byte-equal to it on finite
-    rows; a row holding a NaN has no defined codes."""
+    rows.  A non-finite row follows the JAX package: the max keeps a NaN
+    (scale 1.0), an Inf gives scale Inf, and a NaN quotient codes NaN in
+    e4m3 (the sign of a NaN byte is the platform's) and 0 in int8."""
     mode = quant_mode(mode)
     if not mode:
         raise MXNetError("kv_quantize_rows: mode is off")
@@ -300,8 +302,9 @@ def kv_append_quantized(k_codes, v_codes, k_scale, v_scale, pages, offsets,
     code pools (pages + 1, page, H, D; int8, or uint8 e4m3 bytes) and
     scale pools (pages + 1, page), in place.  On CUDA tensors this is
     kernel K9 (``csrc/kv_quant.cu``), whose codes and scales are
-    byte-equal to :func:`kv_quantize_rows` on finite rows; on CPU
-    tensors the plain :func:`kv_append_quantized_plain`."""
+    byte-equal to :func:`kv_quantize_rows` on finite rows, and equal to
+    it as values on rows holding a NaN or an Inf (NaN codes and scales
+    alike); on CPU tensors the plain :func:`kv_append_quantized_plain`."""
     if k_codes.is_cuda:
         return _kv_append_cuda(k_codes, v_codes, k_scale, v_scale, pages,
                                offsets, k_rows, v_rows)

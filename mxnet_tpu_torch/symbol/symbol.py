@@ -287,6 +287,8 @@ def _abstract_eval(node, in_shapes):
         attrs["__is_train__"] = False
     ins = [torch.empty(tuple(s), dtype=torch.float32, device="meta")
            for s in in_shapes]
+    if not ins:
+        attrs["__device__"] = "meta"
     if node.op.needs_rng:
         ins = [None] + ins
     res = node.op.compute(_registry.FrozenAttrs(attrs), *ins)

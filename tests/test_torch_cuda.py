@@ -1083,6 +1083,46 @@ def test_kv_append_quantized_matches_plain_bytewise(dev, mode, n):
         assert torch.equal(a[live], b[live])
 
 
+@pytest.mark.parametrize("mode", QMODES)
+def test_kv_append_quantized_non_finite_rows_follow_the_plain_form(dev, mode):
+    """K9 on rows holding a NaN or an Inf (in the first and in the last
+    warp's elements, alone and together, a whole NaN row) against the
+    plain form on the CPU, which the JAX package's is held to
+    (``test_torch_quantize.py``): scales equal (1.0 for a NaN row, Inf
+    for an Inf row); e4m3 codes equal as values, NaN where the plain
+    form's are NaN; int8 codes equal wherever the quotient x / scale is
+    not NaN, and 0 where it is."""
+    n, h, d = 6, 16, 128
+    rows = _randn(dev, n, h, d, seed=11)
+    rows[1, 3, 5] = float("nan")
+    rows[2, 15, 127] = float("inf")
+    rows[3, 0, 0], rows[3, 9, 64] = float("nan"), -float("inf")
+    rows[4] = float("nan")
+    rows[5, 7, 7] = -float("inf")
+    pages = torch.arange(n, device=dev)
+    offsets = torch.zeros(n, dtype=torch.int64, device=dev)
+    pools = [torch.zeros(n + 1, 4, h, d, dtype=Q.storage_dtype(mode),
+                         device=dev) for _ in range(2)] + \
+        [torch.ones(n + 1, 4, device=dev) for _ in range(2)]
+    before = _cuda.launches["kv_append_quantized"]
+    Q.kv_append_quantized(*pools, pages, offsets, rows, rows)
+    assert _cuda.launches["kv_append_quantized"] == before + 1
+    cq, cs = Q.kv_quantize_rows(rows.cpu(), mode)
+    assert cs[1] == 1.0 and cs[2] == float("inf") and cs[4] == 1.0
+    nan_q = torch.isnan(rows.cpu() / cs[:, None, None])
+    for codes, scales in ((pools[0], pools[2]), (pools[1], pools[3])):
+        got_q = codes[pages, offsets].cpu()
+        assert torch.equal(scales[pages, offsets].cpu(), cs)
+        if mode == "int8":
+            assert torch.equal(got_q[~nan_q], cq[~nan_q])
+            assert not got_q[nan_q].any()
+        else:
+            torch.testing.assert_close(Q.codes_to_float(got_q),
+                                       Q.codes_to_float(cq), rtol=0,
+                                       atol=0, equal_nan=True)
+            assert torch.isnan(Q.codes_to_float(got_q)[nan_q]).all()
+
+
 def _quant_session(dev, **kw):
     cfg = serve.ModelConfig(vocab_size=61, num_layers=2, d_model=64,
                             num_heads=2, max_len=64)
@@ -1241,6 +1281,104 @@ def test_quant_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(MXNetError, match="float32"):
         Q.kv_append_quantized(pool, pool, sc, sc, pages, pages,
                               rows.double(), rows)
+
+
+# ---------------------------------------------------------------------------
+# ops and optimizers: the card against the CPU
+# ---------------------------------------------------------------------------
+
+OPT_CASES = [("sgd", dict(momentum=0.9)), ("nag", dict(momentum=0.9)),
+             ("dcasgd", dict(momentum=0.9)), ("adam", {}), ("adagrad", {}),
+             ("rmsprop", {}), ("rmsprop", dict(centered=True)),
+             ("adadelta", {}), ("ftrl", {}), ("adamax", {}), ("nadam", {}),
+             ("test", {}), ("sgd", dict(momentum=0.9, multi_precision=True))]
+
+
+@pytest.mark.parametrize("name,kw", OPT_CASES,
+                         ids=["%s-%d" % (c[0], i)
+                              for i, c in enumerate(OPT_CASES)])
+def test_fused_update_on_the_card_matches_the_cpu(dev, name, kw):
+    """Three ``fused_update`` steps of every optimizer (SGD also with
+    bf16 weights and fp32 masters) on the card and on the CPU from the
+    same weights and gradients, with ``rescale_grad``, ``clip_gradient``
+    and weight decay: weights and states within rtol 1e-5, atol 1e-6 (the
+    same elementwise fp32 arithmetic; the card's sqrt, division and pow
+    are IEEE or within an ulp)."""
+    from mxnet_tpu_torch import optimizer as opt
+
+    mp = kw.get("multi_precision", False)
+    o = opt.create(name, learning_rate=0.1, wd=0.01, rescale_grad=0.5,
+                   clip_gradient=1.0, **kw)
+    w = _randn(dev, 64, 33, seed=1)
+    if mp:
+        w = w.bfloat16()
+    cw, gw = w.cpu(), w
+    cs, gs = o.init_fused_state(cw), o.init_fused_state(gw)
+    for t in range(1, 4):
+        g = 3 * _randn(dev, 64, 33, seed=10 + t)
+        cw, cs = o.fused_update(cw, g.cpu(), cs, 0.1, 0.01, t, None)
+        gw, gs = o.fused_update(gw, g, gs, 0.1, 0.01, t, None)
+    assert gw.is_cuda and gw.dtype == w.dtype
+    torch.testing.assert_close(gw.cpu(), cw, rtol=1e-5, atol=1e-6)
+    for a, b in zip(gs if isinstance(gs, tuple) else (gs,),
+                    cs if isinstance(cs, tuple) else (cs,)):
+        if b is not None:
+            assert a.is_cuda
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+def test_ops_put_their_outputs_on_the_inputs_device(dev):
+    """Every case of the sweep table (``testing/op_specs.py``: every op
+    the port registers, the 123 of this slice among them): outputs on
+    the card; an op without tensor inputs makes its output on the
+    context's device (``mx.gpu()``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import imperative_invoke
+    from mxnet_tpu_torch.testing import op_specs
+
+    with mx.gpu(0):
+        for name in sorted(op_specs.SPECS):
+            inputs, attrs = op_specs.SPECS[name]
+            ins = [mx.nd.array(np.asarray(x), dtype=np.asarray(x).dtype)
+                   for x in inputs]
+            for out in imperative_invoke(name, ins, dict(attrs)):
+                assert out._data.is_cuda, name
+                assert out.context == mx.gpu(0), name
+
+
+def test_adam_train_step_at_two_layers_runs_k7_k8_and_learns(dev):
+    """The optim phase's step (bf16 ``TrainStep`` under Adam with
+    ``clip_global_norm`` and a cosine schedule) at 2 layers, d_model 256:
+    K7 and K8 once per layer a step, and over 6 steps on one batch the
+    cross-entropy falls."""
+    from mxnet_tpu_torch import fused, lr_scheduler
+    from mxnet_tpu_torch.models import transformer
+
+    cfg = dict(vocab_size=512, num_layers=2, d_model=256, num_heads=2,
+               seq_len=128)
+    step = fused.TrainStep(
+        transformer.get_symbol(**cfg), optimizer="adam",
+        optimizer_params=dict(learning_rate=3e-3, wd=0.01,
+                              clip_global_norm=1.0, rescale_grad=0.5),
+        compute_dtype="bfloat16", device=dev)
+    state = list(step.init_state({"data": (2, 128),
+                                  "softmax_label": (2, 128)}, seed=0))
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(0, 256, (2, 128)).astype(
+        np.float32)).to(dev)
+    sched = lr_scheduler.CosineScheduler(max_update=16, base_lr=3e-3,
+                                         warmup_steps=2)
+    before = dict(_cuda.launches)
+    ces = []
+    for t in range(1, 7):
+        *state, outs = step(*state, {"data": toks, "softmax_label": toks},
+                            None, lr=sched(t), t=t)
+        p = outs[0].float().gather(1, toks.long().reshape(-1, 1))
+        ces.append(float(-torch.log(p).mean()))
+    for k in ("flash_attention_sm90", "flash_attention_backward_sm90"):
+        assert _cuda.launches[k] - before[k] == 6 * cfg["num_layers"], k
+    assert all(np.isfinite(ces)) and ces[-1] < ces[0], ces
+    assert all(bool(torch.isfinite(v).all()) for v in state[0].values())
 
 
 # last in the file: a capture that fails leaves no state behind, but no

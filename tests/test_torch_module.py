@@ -30,8 +30,10 @@ import pytest
 import torch
 
 import mxnet_tpu as jmx
+from mxnet_tpu import name as jname
 from mxnet_tpu.models import resnet as jresnet
 import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import name as tname
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import resnet as tresnet
 
@@ -439,7 +441,12 @@ def test_nhwc_resnet_forward_matches_jax():
     JSON, shapes and the forward in both modes from one state."""
     kw = dict(num_classes=4, num_layers=8, image_shape=(3, 32, 32),
               layout="NHWC")
-    tsym, jsym = tresnet.get_symbol(**kw), jresnet.get_symbol(**kw)
+    # fresh name scopes: the auto-generated names count per package and
+    # per process, so symbols other tests built first would shift them
+    with tname.NameManager():
+        tsym = tresnet.get_symbol(**kw)
+    with jname.NameManager():
+        jsym = jresnet.get_symbol(**kw)
     assert tsym.tojson() == jsym.tojson()
     shapes = {"data": (2, 32, 32, 3), "softmax_label": (2,)}
     assert tsym.infer_shape(**shapes) == jsym.infer_shape(**shapes)

@@ -188,6 +188,40 @@ def test_kv_quantize_rows_match_jax_bytewise(mode):
         Q.kv_quantize_rows(torch.from_numpy(x), "")
 
 
+def nonfinite_rows():
+    """Four KV rows (H 2, D 4): finite, one NaN, one +Inf, a NaN and a
+    -Inf together."""
+    x = np.random.RandomState(10).randn(4, 2, 4).astype(np.float32)
+    x[1, 0, 2] = np.nan
+    x[2, 1, 3] = np.inf
+    x[3, 0, 0], x[3, 1, 1] = np.nan, -np.inf
+    return x
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_kv_quantize_rows_non_finite_match_jax(mode):
+    """The plain form of K9 on rows holding a NaN or an Inf, against the
+    JAX package: scales exactly (1.0 for a NaN row, Inf for an Inf row);
+    int8 codes byte for byte (a NaN quotient casts to 0 on the CPU, in
+    both packages); e4m3 codes as decoded values, NaN where JAX's are NaN
+    (a NaN byte's sign bit is the platform's)."""
+    import jax.numpy as jnp
+
+    x = nonfinite_rows()
+    q, s = Q.kv_quantize_rows(torch.from_numpy(x), mode)
+    jqv, js = jq.kv_quantize_rows(jnp.asarray(x), mode)
+    _same(s, js)
+    assert s[1] == 1.0 and s[2] == float("inf")
+    if mode == "int8":
+        _same(q, jqv)
+        assert q[1, 0, 2] == 0 and q[2, 1, 3] == 0
+    else:
+        got = Q.codes_to_float(q).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jqv).astype(np.float32))
+        assert np.isnan(got[1, 0, 2]) and np.isnan(got[2, 1, 3])
+
+
 def test_page_bytes_match_jax():
     for mode in ("", "int8", "fp8", "e4m3"):
         assert PagedKVCache.page_bytes(8, 16, 128, 16, kv_quant=mode) == \

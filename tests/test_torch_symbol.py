@@ -110,7 +110,7 @@ def test_scopes_and_errors():
         with pytest.raises(MXNetError, match=r"mx\.cpu\(\)"):
             fc.simple_bind(None, x=(2, 4))
     with pytest.raises(MXNetError, match="not registered"):
-        tsym.load_json(json.dumps({"nodes": [{"op": "ROIPooling",
+        tsym.load_json(json.dumps({"nodes": [{"op": "RNN",
                                               "name": "c", "inputs": []}],
                                    "arg_nodes": [], "heads": [[0, 0, 0]]}))
 

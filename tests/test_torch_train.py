@@ -218,9 +218,11 @@ def test_optimizer_surface():
     from mxnet_tpu_torch import optimizer as opt
 
     with pytest.raises(MXNetError, match="not registered"):
-        opt.create("adam")
-    with pytest.raises(MXNetError, match="later slice"):
-        opt.create("sgd", clip_global_norm=1.0)
+        opt.create("lamb")
+    with pytest.raises(MXNetError, match="must be > 0"):
+        opt.create("sgd", clip_global_norm=0.0)
+    assert opt.create("sgd", clip_global_norm=1.0).clip_global_norm == 1.0
+    assert opt.create("adam").supports_fused
     sgd = opt.create("SGD", momentum=0.5, rescale_grad=2.0, clip_gradient=1.0,
                      wd=0.1)
     assert sgd.supports_fused
