@@ -551,6 +551,7 @@ def profiled_window(fn, groups):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
+    count = dict.fromkeys(by, 0)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
@@ -558,13 +559,15 @@ def profiled_window(fn, groups):
         name = next((g for g, keys in groups
                      if any(k in ev.key for k in keys)), "other")
         by[name] += ev.self_device_time_total / 1e3
+        count[name] += ev.count
         key = ev.key[:60]
         kernels[key] = kernels.get(key, 0.0) + ev.self_device_time_total / 1e3
     busy = sum(by.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=max(0.0, 1.0 - busy / wall_ms),
-                device_ms_by_group=by, top_kernels_ms=dict(top))
+                device_ms_by_group=by, kernels_by_group=count,
+                top_kernels_ms=dict(top))
 
 
 # the ring and prefill kernels' first template argument is the weight or
@@ -1859,14 +1862,22 @@ def main():
         return ms
 
     def device_ms(fn, key, reps=20):
-        """Device time per call of the kernels whose name holds ``key``,
-        from the profiler over ``reps`` calls: the kernel alone, without
-        the host's launch path, which the CUDA-event time of a
-        launch-bound kernel includes."""
+        """Device time per call of ``fn``'s kernels whose name holds
+        ``key`` (one a call), or of every kernel of a call for "", from
+        the profiler over ``reps`` calls: the kernel alone, without the
+        host's launch path, which the CUDA-event time of a launch-bound
+        kernel includes.  For a key, the mean over the launches the
+        profiler saw (it may drop a launch of a library loaded apart from
+        PyTorch's runtime); None where it saw none in three windows."""
         fn()
-        prof = profiled_window(lambda: [fn() for _ in range(reps)],
-                               ((key, (key,)),))
-        return prof["device_ms_by_group"][key] / reps
+        for _ in range(3):
+            prof = profiled_window(lambda: [fn() for _ in range(reps)],
+                                   ((key, (key,)),))
+            seen = prof["kernels_by_group"][key]
+            if seen:
+                return prof["device_ms_by_group"][key] / (seen if key
+                                                          else reps)
+        return None
 
     def record(name, case, err, ok, tolerance, kernel, plain, library,
                nbytes, flops, peak=FP32_FLOP_PER_S, device_key=None,
@@ -1887,6 +1898,8 @@ def main():
         row.update(extra or {})
         if device_key:
             row["kernel_device_ms"] = device_ms(kernel, device_key)
+            if library:  # every kernel the one PyTorch call launches
+                row["library_device_ms"] = device_ms(library, "")
         if bandwidth:  # bytes the bound counts over the kernel's time
             row["effective_gb_s"] = nbytes / row["kernel_ms"] / 1e6
             row["bound_gb_s"] = HBM_BYTES_PER_S / 1e9
@@ -2347,7 +2360,7 @@ def main():
                    lambda: Q.kv_append_quantized_plain(*want, pages, offs,
                                                        krows, vrows),
                    None, nbytes=2 * n * (4 * h * d + h * d + 4) + 16 * n,
-                   flops=2 * 2 * n * h * d)
+                   flops=2 * 2 * n * h * d, device_key="kv_quant_kernel")
             del krows, vrows, got, again, want
 
     # K5/K6: BatchNorm's channel sums at ResNet-50's shapes at batch 256
@@ -2822,6 +2835,7 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "kernel_device_ms": row.get("kernel_device_ms"),
+            "library_device_ms": row.get("library_device_ms"),
             "shape": main_case[name]})
     log("wall", total_s=time.perf_counter() - t_start,
         added_phases_s=phase_s)

@@ -757,6 +757,14 @@ def test_module_fit_tiny_resnet_on_the_card(dev):
 
 # -- rtc: CUDA bodies compiled at run time ------------------------------
 
+def _off16(t):
+    """A contiguous copy of ``t`` that starts one float past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
 _AXPY_BODIES = {
     torch.float32: "o[i] = 2.0f * x[i] + y[i];",
     torch.bfloat16: "o[i] = __float2bfloat16(2.0f * __bfloat162float(x[i])"
@@ -766,23 +774,36 @@ _AXPY_BODIES = {
 }
 
 
+@pytest.mark.parametrize("shape", [(33, 129), (1, 1), (3, 5), (257, 1023)])
 @pytest.mark.parametrize("dtype", list(_AXPY_BODIES))
-def test_rtc_kernel_matches_plain(dev, dtype):
+def test_rtc_kernel_matches_plain(dev, dtype, shape):
     """``o = 2x + y`` compiled at run time, in each dtype of the map: fp32
     on both sides with -fmad=false gives the same bits; bf16 and half
-    compute in fp32 and round once on both sides."""
+    compute in fp32 and round once on both sides.  In fp32 also the
+    loss head's ``rtc_axpy`` (its grid-stride float4 loop and scalar
+    tail; a view one float off a 16-byte boundary takes its scalar loop),
+    bit-equal to ``axpy_plain`` and on a rerun."""
     from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.testing import rtc_ops
 
     body = ("const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
             "if (i < x_dims[0] * x_dims[1]) " + _AXPY_BODIES[dtype])
-    x, y = (_randn(dev, 33, 129, seed=s).to(dtype) for s in (1, 2))
-    k = rtc.CudaKernel(body, [((33, 129), dtype)], ["x", "y", "o"],
+    x, y = (_randn(dev, *shape, seed=s).to(dtype) for s in (1, 2))
+    k = rtc.CudaKernel(body, [(shape, dtype)], ["x", "y", "o"],
                        name="axpy_test")
     before = _cuda.launches.get("rtc:axpy_test", 0)
     (out,) = k(x, y)
     assert _cuda.launches["rtc:axpy_test"] == before + 1
     want = (2.0 * x.float() + y.float()).to(dtype)
     assert torch.equal(out.handle, want)
+    if dtype != torch.float32:
+        return
+    for a, b in ((x, y), (_off16(x), _off16(y))):
+        before = _cuda.launches.get("rtc:rtc_axpy", 0)
+        got = rtc_ops.axpy(a, b)
+        assert _cuda.launches["rtc:rtc_axpy"] == before + 1
+        assert torch.equal(got, rtc_ops.axpy_plain(a, b))
+        assert torch.equal(rtc_ops.axpy(a, b), got)
 
 
 def test_rtc_cached_build_does_not_call_nvcc(dev, monkeypatch):
@@ -812,20 +833,35 @@ def test_rtc_compile_error_carries_nvcc_message(dev):
     assert "nvcc" in str(err.value)
 
 
+@pytest.mark.parametrize("n", [1, 37, 256])
+@pytest.mark.parametrize("c", [1, 3, 1000, 4097])
 @pytest.mark.parametrize("scale", [1.0, 1e4])
-def test_rtc_softmax_kernels_match_plain(dev, scale):
+def test_rtc_softmax_kernels_match_plain(dev, scale, c, n):
     """The softmax head's two kernels: probabilities within atol 1e-6
     (fp32, expf against torch's exp, one row sum each), and the backward
-    bit-equal (one subtraction and one division on both sides)."""
+    bit-equal (one subtraction and one division on both sides), with
+    labels outside [0, C) (-1, C, C + 0.5: no one), on rows held in
+    registers (C <= 2048) and longer ones read in groups (4097), on
+    float4 rows and on rows no float4 load can take (C not a multiple of
+    4, or a view one float off a 16-byte boundary); reruns bit-equal."""
     from mxnet_tpu_torch.testing import rtc_ops
 
-    x = scale * _randn(dev, 37, 1000, seed=4)
-    label = torch.randint(0, 1000, (37,), device=dev).float()
-    p = rtc_ops.softmax_forward(x)
-    torch.testing.assert_close(p, rtc_ops.softmax_forward_plain(x),
-                               rtol=0, atol=1e-6)
-    assert torch.equal(rtc_ops.softmax_backward(p, label),
-                       rtc_ops.softmax_backward_plain(p, label))
+    x = scale * _randn(dev, n, c, seed=4)
+    label = torch.randint(0, c, (n,), device=dev).float()
+    for i, bad in ((1, -1.0), (2, float(c)), (3, c + 0.5)):
+        label[i::5] = bad
+    for logits in (x, _off16(x)):
+        before = _cuda.launches.get("rtc:rtc_softmax_forward", 0)
+        p = rtc_ops.softmax_forward(logits)
+        assert _cuda.launches["rtc:rtc_softmax_forward"] == before + 1
+        torch.testing.assert_close(p, rtc_ops.softmax_forward_plain(logits),
+                                   rtol=0, atol=1e-6)
+        assert torch.equal(rtc_ops.softmax_forward(logits), p)
+        for probs in (p, _off16(p)):
+            g = rtc_ops.softmax_backward(probs, label)
+            assert torch.equal(g, rtc_ops.softmax_backward_plain(probs,
+                                                                 label))
+            assert torch.equal(rtc_ops.softmax_backward(probs, label), g)
     with pytest.raises(MXNetError, match="float32"):
         rtc_ops.softmax_forward(x.double())
 
@@ -1017,8 +1053,9 @@ def _kv_rows(dev, n, h, d, mode, seed):
     of x / scale (int8) or halfway between two e4m3 values, an all-zero
     row, a row of one value, and rows within an ulp of +-qmax * scale."""
     qmax = Q.INT8_MAX if mode == "int8" else Q.FP8_MAX
-    x = _randn(dev, n, h, d, seed=seed) * torch.logspace(
-        -3, 3, n, device=dev)[:, None, None]
+    m = max(n, 5)  # fewer than 5 rows: the last n of the edge cases
+    x = _randn(dev, m, h, d, seed=seed) * torch.logspace(
+        -3, 3, m, device=dev)[:, None, None]
     x[0] = 0.0
     x[1] = -2.5
     # row 2: amax = qmax / 4, so scale = 1 / 4 exactly, and every other
@@ -1032,19 +1069,27 @@ def _kv_rows(dev, n, h, d, mode, seed):
     x[2] = ties
     x[3] = torch.nextafter(x[2], torch.full_like(x[2], float("inf")))
     x[4] = -x[3]
-    return x
+    return x[m - n:]
 
 
 @pytest.mark.parametrize("mode", QMODES)
-@pytest.mark.parametrize("n", [8, 40, 256])
-def test_kv_append_quantized_matches_plain_bytewise(dev, mode, n):
-    page, h, d, n_pages = 16, 16, 128, 20
+@pytest.mark.parametrize("n", [1, 8, 40, 256, 4096])
+@pytest.mark.parametrize("h,d", [(16, 128), (16, 72)])
+def test_kv_append_quantized_matches_plain_bytewise(dev, mode, n, h, d):
+    """K9's codes and scales byte-equal to the plain form's, at a decode
+    step's rows and above, at serving's H x D = 2048 (the registers'
+    path) and at 16 x 72 (its strided loop), from contiguous rows and
+    from the K and V thirds of an (N, 3, H, D) QKV output; reruns
+    byte-equal."""
+    page = 16
+    n_pages = max(20, n // page + 4)
     krows = _kv_rows(dev, n, h, d, mode, seed=7)
     vrows = _kv_rows(dev, n, h, d, mode, seed=8)[torch.randperm(
         n, generator=torch.Generator().manual_seed(0)).to(dev)]
     rs = np.random.RandomState(n)
     slots = rs.permutation(n_pages * page)[:n]
-    slots[-3:] = n_pages * page  # three rows into the trash page (row 0)
+    # up to three rows into the trash page (row 0)
+    slots[n - min(3, n - 1):] = n_pages * page
     pages = torch.from_numpy(slots // page).to(dev)
     offsets = torch.from_numpy(np.where(slots == n_pages * page, 0,
                                         slots % page)).to(dev)
@@ -1072,30 +1117,35 @@ def test_kv_append_quantized_matches_plain_bytewise(dev, mode, n):
         at = (pages.cpu().numpy()[keep], offsets.cpu().numpy()[keep])
         assert torch.equal(codes.cpu()[at], cq[keep])
         assert torch.equal(scales.cpu()[at], cs[keep])
-    # strided rows (a fused QKV projection's K and V thirds) read alike
-    qkv = torch.cat([krows.reshape(n, -1), krows.reshape(n, -1),
-                     vrows.reshape(n, -1)], -1)
     again = fresh()
-    Q.kv_append_quantized(*again, pages, offsets,
-                          qkv[:, h * d:2 * h * d].reshape(n, h, d),
-                          qkv[:, 2 * h * d:].reshape(n, h, d))
+    Q.kv_append_quantized(*again, pages, offsets, krows, vrows)
+    for a, b in zip(again, got):
+        assert torch.equal(a[live], b[live])
+    # strided rows (a fused QKV projection's K and V thirds) read alike
+    qkv = torch.stack([krows, krows, vrows], 1)
+    again = fresh()
+    Q.kv_append_quantized(*again, pages, offsets, qkv[:, 1], qkv[:, 2])
     for a, b in zip(again, got):
         assert torch.equal(a[live], b[live])
 
 
 @pytest.mark.parametrize("mode", QMODES)
-def test_kv_append_quantized_non_finite_rows_follow_the_plain_form(dev, mode):
+@pytest.mark.parametrize("n", [6, 40])
+@pytest.mark.parametrize("h,d", [(16, 128), (16, 72)])
+def test_kv_append_quantized_non_finite_rows_follow_the_plain_form(dev, mode,
+                                                                   n, h, d):
     """K9 on rows holding a NaN or an Inf (in the first and in the last
     warp's elements, alone and together, a whole NaN row) against the
     plain form on the CPU, which the JAX package's is held to
     (``test_torch_quantize.py``): scales equal (1.0 for a NaN row, Inf
     for an Inf row); e4m3 codes equal as values, NaN where the plain
     form's are NaN; int8 codes equal wherever the quotient x / scale is
-    not NaN, and 0 where it is."""
-    n, h, d = 6, 16, 128
+    not NaN, and 0 where it is.  At a decode step's rows and above, on
+    the registers' path (H x D = 2048) and the strided loop (16 x 72);
+    reruns byte-equal."""
     rows = _randn(dev, n, h, d, seed=11)
     rows[1, 3, 5] = float("nan")
-    rows[2, 15, 127] = float("inf")
+    rows[2, h - 1, d - 1] = float("inf")
     rows[3, 0, 0], rows[3, 9, 64] = float("nan"), -float("inf")
     rows[4] = float("nan")
     rows[5, 7, 7] = -float("inf")
@@ -1107,6 +1157,11 @@ def test_kv_append_quantized_non_finite_rows_follow_the_plain_form(dev, mode):
     before = _cuda.launches["kv_append_quantized"]
     Q.kv_append_quantized(*pools, pages, offsets, rows, rows)
     assert _cuda.launches["kv_append_quantized"] == before + 1
+    again = [torch.zeros_like(p) if p.dtype != torch.float32 else
+             torch.ones_like(p) for p in pools]
+    Q.kv_append_quantized(*again, pages, offsets, rows, rows)
+    for a, b in zip(again, pools):
+        assert torch.equal(a, b)
     cq, cs = Q.kv_quantize_rows(rows.cpu(), mode)
     assert cs[1] == 1.0 and cs[2] == float("inf") and cs[4] == 1.0
     nan_q = torch.isnan(rows.cpu() / cs[:, None, None])

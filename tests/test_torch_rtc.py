@@ -157,3 +157,57 @@ def test_cached_library_is_loaded_without_nvcc(tmp_path, monkeypatch):
     fn, err = _cuda.build_source(text, entry, ())
     assert fn() == 7 and err(0) == b"e"
     assert os.listdir(lib_dir) == ["librtc.so"]
+
+
+def _softmax_columns(c, vec, k_vec, threads):
+    """The columns the softmax bodies give the threads of a row: thread
+    t's chunk k of a group at g holds columns g + 4 T k + 4 t + j (float4)
+    or g + 4 T k + T j + t (scalars), j < 4, T threads a row, masked to
+    c."""
+    cols = []
+    for g in range(0, c, 4 * threads * k_vec):
+        for t in range(threads):
+            for k in range(k_vec):
+                for j in range(4):
+                    e = g + 4 * threads * k + (4 * t + j if vec else
+                                               threads * j + t)
+                    if e < c:
+                        cols.append(e)
+    return cols
+
+
+@pytest.mark.parametrize("name", ["rtc_axpy", "rtc_softmax_forward",
+                                  "rtc_softmax_backward"])
+def test_kernel_launch_shapes_cover_their_bodies(name):
+    """``_kernel`` hands each body the grid and block its text assumes, at
+    the card tests' shapes: axpy a 1-D grid-stride launch over float4,
+    one a thread up to 512 blocks of 256 an SM; the softmax bodies whole warps a
+    row, a float4 a thread up to 128 threads, rows of 256 threads a block
+    (block (threads a row, rows a block)), every row and column visited
+    once, the row in registers up to 2048 columns; an input without rows
+    raises."""
+    shapes = {"rtc_axpy": [(1, 1), (3, 5), (33, 129), (8192, 8192)],
+              "rtc_softmax_forward": [(n, c) for n in (1, 37, 256)
+                                      for c in (1, 3, 1000, 4097)]}
+    shapes["rtc_softmax_backward"] = shapes["rtc_softmax_forward"]
+    for n, c in shapes[name]:
+        k = rtc_ops._kernel(name, (n, c))
+        (gx, gy, gz), (bx, by, bz) = k._launch_shape(None, None)
+        assert (gy, gz, bz) == (1, 1, 1) and k.name == name
+        if name == "rtc_axpy":
+            assert by == 1 and bx == rtc_ops.AXPY_THREADS
+            assert gx == max(1, min(132 * 512, -(-n * c // 1024)))
+            assert "i += step" in k._body and "ld(x4 + i)" in k._body
+            continue
+        threads = min(128, 32 * -(-c // 128))
+        assert (bx, by) == (threads, 256 // threads)
+        rows = [b * by + ty for b in range(gx) for ty in range(by)]
+        assert [r for r in rows if r < n] == list(range(n))
+        k_vec = max(1, min(4, -(-c // (4 * threads))))
+        assert k._body.startswith("\n  constexpr int kVec = %d;" % k_vec)
+        assert (c <= 4 * threads * k_vec) == (c <= 2048)
+        for vec in (True, False):
+            assert sorted(_softmax_columns(c, vec, k_vec, threads)) == \
+                list(range(c))
+    with pytest.raises(MXNetError, match="no rows"):
+        rtc_ops._kernel(name, (0, 1000))
