@@ -178,7 +178,37 @@ a checkout that holds ``mxnet_tpu_torch/``):
    variance of 10^5 draws.  Any failure fails the run; the ops that
    synchronise the host under ``torch.cuda.set_sync_debug_mode("warn")``
    are listed, not failed.
-12. a ``wall`` line (the script's seconds and the new phases'), a
+12. multistep — ``bench_fit.py``'s own recipe on the card: the MLP
+   ``FC 1024 -> relu -> FC 1024 -> relu -> FC 10 -> SoftmaxOutput`` over
+   512 features, batch 64, 32 batches an epoch from ``RandomState(0)``,
+   ``Xavier``, SGD lr 0.01, through ``Module.fit(prefetch_to_device=True,
+   steps_per_call=16, metric_sync_period=50)`` for 8 epochs, and again at
+   ``steps_per_call=1``: img/s over the epochs after the first at both,
+   the pure-step rate (``TrainStep`` over one resident batch, as
+   ``bench_fit.py`` measures it, and the captured 16-step call over one
+   resident super-batch), ``pipeline_efficiency`` (fit over pure step),
+   capture seconds, graph pool MB, and the replays, which must equal the
+   batches / 16.  The K = 16 fit's parameters must equal the K = 1
+   fit's within rtol 1e-5, atol 1e-6 (TF32 off).  Then, under SGD with
+   momentum and under Adam with ``clip_global_norm``, one captured
+   16-step call must equal the same 16 steps run eagerly
+   (``TrainStep.run_eager``) bit for bit, and a second replay at a new lr
+   and first step number must equal the eager loop at those values.
+13. zoo — the model zoo's seven other symbols at their published widths
+   through ``Module.fit`` in bf16, SGD momentum 0.9, lr 0.01,
+   ``steps_per_call=4``, 2 calls (8 steps) over numpy-seeded images,
+   batch 128: lenet and mlp at 1x28x28 and 10 classes; alexnet, vgg16,
+   inception_bn and mobilenet at 3x224x224, inception_v3 at 3x299x299,
+   1000 classes.  Each graph is captured before the fit
+   (``TrainStep.compile``).  Per model: img/s over the second call,
+   capture seconds, pool MB; the cross-entropy finite; every parameter
+   and moving statistic finite and changed; for the BatchNorm models K5
+   and K6 launched exactly once per training-mode BatchNorm a step (8 x
+   the count from the symbol, i.e. 2 replays x the launches recorded);
+   for alexnet and vgg16 one more replay over four copies of one batch at
+   lr 0 with the momentum zeroed, whose inner steps' outputs must differ
+   (each inner step draws its own dropout masks).
+14. a ``wall`` line (the script's seconds and the new phases'), a
    ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1769,6 +1799,310 @@ def ops_phase(dev):
                 moments=moments), failures, syncs
 
 
+def fit_mlp_sym(mx, feat=512, hidden=1024, classes=10):
+    """``bench_fit.py``'s ``build_sym(512, 1024, 10)`` over the port."""
+    net = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(net, num_hidden=hidden, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=hidden, name="fc2")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=classes, name="fc3")
+    return mx.sym.SoftmaxOutput(net, name="softmax", normalization="batch")
+
+
+def clone_state(state):
+    def one(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(one(e) for e in x)
+        return x.clone()
+    return [{k: one(v) for k, v in d.items()} for d in state]
+
+
+def state_diff(got, want):
+    """(bit-equal, largest |difference|) over params, aux, states and
+    the stacked outputs of two multi-step results."""
+    import torch
+
+    pairs = []
+    for g, w in zip(got[:3], want[:3]):
+        for k in w:
+            gs = g[k] if isinstance(g[k], tuple) else (g[k],)
+            ws = w[k] if isinstance(w[k], tuple) else (w[k],)
+            pairs += [(a, b) for a, b in zip(gs, ws) if b is not None]
+    pairs += list(zip(got[3], want[3]))
+    equal = all(bool(torch.equal(a, b)) for a, b in pairs)
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    return equal, worst
+
+
+ADAM_CLIP = {"learning_rate": 0.01, "wd": 0.01, "clip_global_norm": 0.5}
+GEMM_GROUPS = (("gemm", ("gemm", "Gemm", "sm90_", "cutlass", "xmma")),)
+ZOO_GROUPS = (("bn_stats", ("StatsOp",)), ("bn_grad_sums", ("GradOp",)),
+              ("cudnn_conv_gemm", ("cudnn", "conv", "xmma", "implicit",
+                                   "gemm", "Gemm", "sm90_", "cutlass",
+                                   "dgrad", "wgrad", "nchwToNhwc",
+                                   "nhwcToNchw")))
+MULTISTEP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def multistep_phase(dev, batch=64, n_batches=32, epochs=8, K=16,
+                    pure_iters=60):
+    """``bench_fit.py``'s recipe: Module.fit at ``steps_per_call=K`` and
+    at 1, the pure-step rates, and the captured call against its eager
+    loop bit for bit.  Returns the phase's numbers."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+
+    cuda = dev.type == "cuda"
+    ctx = mx.context.context_of(dev)
+    feat, classes = 512, 10
+    rs = np.random.RandomState(0)
+    X = rs.randn(n_batches * batch, feat).astype("float32")
+    y = rs.randint(0, classes, size=n_batches * batch).astype("float32")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fit(steps_per_call):
+        mod = mx.mod.Module(fit_mlp_sym(mx), context=ctx)
+        marks = []
+
+        def epoch_cb(epoch, sym_, arg, aux):
+            sync()
+            marks.append(time.perf_counter())
+
+        mod.fit(mx.io.NDArrayIter(X, y, batch_size=batch), num_epoch=epochs,
+                optimizer="sgd", initializer=mx.init.Xavier(),
+                optimizer_params={"learning_rate": 0.01},
+                epoch_end_callback=epoch_cb, prefetch_to_device=True,
+                steps_per_call=steps_per_call, metric_sync_period=50)
+        steps = (n_batches // steps_per_call) * steps_per_call
+        rate = steps * batch * (len(marks) - 1) / (marks[-1] - marks[0])
+        return mod, rate
+
+    mod_k, fit_k = fit(K)
+    # no graph on the CPU (a rehearsal): the K steps run eagerly there
+    report = mod_k._fused.graph_report() or [dict(
+        capture_s=0.0, pool_bytes=0, replays=None, launches={})]
+    if cuda and report[0]["replays"] != epochs * n_batches // K:
+        raise AssertionError("multistep fit: graphs %r, want one replayed "
+                             "%d times (batches / %d)"
+                             % (report, epochs * n_batches // K, K))
+    mod_1, fit_1 = fit(1)
+    a = {k: v.asnumpy() for k, v in mod_k.get_params()[0].items()}
+    b = {k: v.asnumpy() for k, v in mod_1.get_params()[0].items()}
+    worst = 0.0
+    for k in b:
+        np.testing.assert_allclose(a[k], b[k], err_msg=k, **MULTISTEP_TOL)
+        worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+    if mod_k._optimizer.num_update != mod_1._optimizer.num_update:
+        raise AssertionError("num_update %d at K=%d, %d at K=1" % (
+            mod_k._optimizer.num_update, K, mod_1._optimizer.num_update))
+
+    # pure step: bench_fit.py's TrainStep over one resident batch, and
+    # the captured K-step call over one resident super-batch
+    shapes = {"data": (batch, feat), "softmax_label": (batch,)}
+    sgd = {"learning_rate": 0.01, "rescale_grad": 1.0 / batch}
+    rsb = np.random.RandomState(1)
+    xb = torch.from_numpy(rsb.randn(K, batch, feat).astype("float32")).to(dev)
+    yb = torch.from_numpy(rsb.randint(0, classes, (K, batch)).astype(
+        "float32")).to(dev)
+    rates, profiles = {}, {}
+    for steps_per_call in (1, K):
+        step = fused.TrainStep(fit_mlp_sym(mx), optimizer="sgd",
+                               optimizer_params=sgd, device=dev,
+                               steps_per_call=steps_per_call)
+        state = step.init_state(shapes)
+        bd = ({"data": xb[0], "softmax_label": yb[0]} if steps_per_call == 1
+              else {"data": xb, "softmax_label": yb})
+        state = step(*state, bd, None)[:3]
+        calls = max(2, pure_iters // steps_per_call)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            state = step(*state, bd, None)[:3]
+        sync()
+        rates[steps_per_call] = calls * steps_per_call * batch / (
+            time.perf_counter() - t0)
+        if cuda:
+            # K eager steps, or one replay of K: the same K updates
+            def window(step=step, bd=bd, n=K // steps_per_call):
+                nonlocal state
+                for _ in range(n):
+                    state = step(*state, bd, None)[:3]
+            profiles[steps_per_call] = profiled_window(window, GEMM_GROUPS)
+
+    # the captured call against its eager loop, then a replay at a new
+    # lr and first step number
+    bitwise = {}
+    for name, params in (("sgd", dict(momentum=0.9, **sgd)),
+                         ("adam", dict(ADAM_CLIP,
+                                       rescale_grad=1.0 / batch))):
+        step = fused.TrainStep(fit_mlp_sym(mx), optimizer=name,
+                               optimizer_params=params, device=dev,
+                               steps_per_call=K)
+        state = step.init_state(shapes, seed=2)
+        sb = {"data": xb, "softmax_label": yb}
+        want = step.run_eager(*clone_state(state), sb, None, 0.01, 1)
+        got = step(*state, sb, None, lr=0.01, t=1)
+        eq1, d1 = state_diff(got, want)
+        sb2 = {"data": xb.flip(0), "softmax_label": yb.flip(0)}
+        want2 = step.run_eager(*clone_state(got[:3]), sb2, None, 0.003, 57)
+        got2 = step(*got[:3], sb2, None, lr=0.003, t=57)
+        eq2, d2 = state_diff(got2, want2)
+        moved = not bool(torch.equal(got2[0]["fc1_weight"],
+                                     want[0]["fc1_weight"]))
+        bitwise[name] = dict(first_call_equal=eq1, first_call_max_diff=d1,
+                             new_lr_t0_equal=eq2, new_lr_t0_max_diff=d2)
+        if not (eq1 and eq2 and moved):
+            raise AssertionError("multistep %s: the captured call is not "
+                                 "its eager loop bit for bit: %r"
+                                 % (name, bitwise[name]))
+    g = report[0]
+    return dict(model="bench_fit build_sym(512, 1024, 10)", batch=batch,
+                batches_per_epoch=n_batches, epochs=epochs,
+                steps_per_call=K, metric_sync_period=50,
+                fit_img_per_s_k=fit_k, fit_img_per_s_k1=fit_1,
+                fit_speedup_k_over_k1=fit_k / fit_1,
+                pure_step_img_per_s=rates[1],
+                pure_step_img_per_s_captured_k=rates[K],
+                pipeline_efficiency=fit_k / rates[1],
+                pipeline_efficiency_k1=fit_1 / rates[1],
+                capture_s=g["capture_s"], pool_mb=g["pool_bytes"] / 2.0 ** 20,
+                replays=g["replays"], batches=epochs * n_batches,
+                launches_per_replay=g["launches"],
+                k_vs_k1_max_abs_diff=worst, k_vs_k1_tolerance=MULTISTEP_TOL,
+                captured_vs_eager=bitwise,
+                profile_k1_steps=profiles.get(1),
+                profile_one_replay=profiles.get(K))
+
+
+ZOO = (("lenet", {}, (1, 28, 28), 10),
+       ("mlp", {}, (1, 28, 28), 10),
+       ("alexnet", {}, (3, 224, 224), 1000),
+       ("vgg", dict(num_layers=16), (3, 224, 224), 1000),
+       ("inception_bn", {}, (3, 224, 224), 1000),
+       ("mobilenet", {}, (3, 224, 224), 1000),
+       ("inception_v3", {}, (3, 299, 299), 1000))
+ZOO_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+
+
+def zoo_phase(dev, name, kwargs, image, classes, batch=128, K=4, calls=2,
+              seed=0):
+    """One zoo symbol through ``Module.fit`` in bf16 at ``steps_per_call=
+    K`` for ``calls`` calls, its graph captured ahead.  Returns the
+    phase's numbers and the kernel launches counted over the fit."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _cuda, models
+
+    cuda = dev.type == "cuda"
+    sym = models.get_model(name, num_classes=classes, **kwargs)
+    n = batch * K * calls
+    rng = np.random.default_rng(seed)
+    x = rng.random((n,) + image, dtype=np.float32)
+    # labels below 256: the bf16 step casts them to bf16 too
+    y = rng.integers(0, min(classes, 256), n).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(sym, context=mx.context.context_of(dev))
+    mod.bind(it.provide_data, it.provide_label)
+    init = mx.init.Xavier(**XAVIER)
+    mod.init_params(init)
+    arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in mod.get_params())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=ZOO_SGD,
+                       compute_dtype="bfloat16", steps_per_call=K)
+    shapes = {"data": (batch,) + image, "softmax_label": (batch,)}
+    mod._fused.compile(shapes)
+    marks = []
+
+    def tick(param):
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    ce = mx.metric.CrossEntropy()
+    _cuda.reset_launches()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=ZOO_SGD,
+            compute_dtype="bfloat16", eval_metric=ce, steps_per_call=K,
+            batch_end_callback=tick)
+    launches = dict(_cuda.launches)
+    report = mod._fused.graph_report() or [dict(
+        capture_s=0.0, pool_bytes=0, replays=None, launches={})]
+    if cuda and (len(report) != 1 or report[0]["replays"] != calls):
+        raise AssertionError("%s: graphs %r, want one replayed %d times"
+                             % (name, report, calls))
+    nodes = bn_nodes(sym)
+    want = {"bn_stats": len(nodes) * K * calls,
+            "bn_grad_sums": len(nodes) * K * calls}
+    if cuda and any(launches[k] != v for k, v in want.items()):
+        raise AssertionError("%s: BatchNorm kernel launches %r, want %r (%d "
+                             "BatchNorm nodes x %d steps)" % (
+                                 name, {k: launches[k] for k in want}, want,
+                                 len(nodes), K * calls))
+    loss = ce.get()[1]
+    if not np.isfinite(loss):
+        raise AssertionError("%s: cross-entropy %r" % (name, loss))
+    fixed = {nd.name + "_gamma" for nd in nodes
+             if nd.attrs.get("fix_gamma", True)}
+    arg, aux = ({k: v.asnumpy() for k, v in d.items()}
+                for d in mod.get_params())
+    for kind, new, old in (("parameter", arg, arg0),
+                           ("moving stat", aux, aux0)):
+        bad = [k for k, v in new.items() if not np.isfinite(v).all()]
+        same = [k for k, v in new.items()
+                if k not in fixed and np.array_equal(v, old[k])]
+        if bad or same:
+            raise AssertionError("%s: %s not finite %r / unchanged %r"
+                                 % (name, kind, bad[:5], same[:5]))
+    stats = dict(model=name, kwargs=kwargs,
+                 image="x".join(str(d) for d in image), classes=classes,
+                 batch=batch, steps_per_call=K, steps=K * calls,
+                 img_per_s_call2=K * batch / (marks[-1] - marks[-2]),
+                 capture_s=report[0]["capture_s"],
+                 pool_mb=report[0]["pool_bytes"] / 2.0 ** 20,
+                 cross_entropy=float(loss), bn_nodes=len(nodes),
+                 launches_per_replay=report[0]["launches"],
+                 params=int(sum(v.size for v in arg.values())))
+    step = mod._fused
+    params = {k: v._data for k, v in mod._exec.arg_dict.items()
+              if k in step.param_names}
+    aux_t = {k: v._data for k, v in mod._exec.aux_dict.items()}
+    one = {"data": torch.from_numpy(x[:batch]).to(dev),
+           "softmax_label": torch.from_numpy(y[:batch]).to(dev)}
+    sb = {k: v.unsqueeze(0).expand((K,) + v.shape).contiguous()
+          for k, v in one.items()}
+    if cuda:
+        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        # one more replay (K steps), profiled
+        stats["profile_one_replay"] = profiled_window(
+            lambda: step(params, aux_t, mod._fused_states, sb, None),
+            ZOO_GROUPS)
+    if any(nd.op.name == "Dropout" for nd in sym._topo()
+           if not nd.is_variable):
+        # four copies of one batch at lr 0 with the momentum zeroed: the
+        # weights and batch statistics stay put, so the inner steps'
+        # outputs differ only by their dropout masks
+        states = {k: None if v is None else torch.zeros_like(v)
+                  for k, v in mod._fused_states.items()}
+        outs = step(params, aux_t, states, sb, None, lr=0.0)[3][0]
+        diff = float((outs[0].float() - outs[1].float()).abs().max())
+        stats["dropout_inner_steps_max_diff"] = diff
+        if not diff > 0:
+            raise AssertionError("%s: two inner steps drew the same dropout "
+                                 "masks" % name)
+    return stats, launches
+
+
 def main():
     import torch
 
@@ -2781,7 +3115,28 @@ def main():
         raise AssertionError("ops on the card: %d failures %r"
                              % (len(failures), sorted(failures)))
 
-    # -- 12. summary ------------------------------------------------------
+    # -- 12. multistep: bench_fit.py's recipe, K = 16 against K = 1 --------
+    t0 = time.perf_counter()
+    log("multistep", nvidia_smi=smi, **multistep_phase(dev))
+    torch.cuda.empty_cache()
+    phase_s["multistep"] = time.perf_counter() - t0
+
+    # -- 13. zoo: the seven other symbols at full width, K = 4 --------------
+    t0 = time.perf_counter()
+    zoo_launches = dict.fromkeys(("bn_stats", "bn_grad_sums"), 0)
+    for name, kwargs, image, classes in ZOO:
+        stats, zl = zoo_phase(dev, name, kwargs, image, classes)
+        log("zoo", nvidia_smi=smi, launches={k: v for k, v in zl.items()
+                                             if v}, **stats)
+        torch.cuda.empty_cache()
+        for k, v in zl.items():
+            launches[k] = launches.get(k, 0) + v
+            if k in zoo_launches:
+                zoo_launches[k] += v
+    log("zoo_launches", **zoo_launches)
+    phase_s["zoo"] = time.perf_counter() - t0
+
+    # -- 14. summary ------------------------------------------------------
     if min(launches.values()) < 1:
         raise AssertionError("a kernel never ran on a main path: %r"
                              % launches)

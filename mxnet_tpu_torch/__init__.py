@@ -4,7 +4,7 @@ A package of its own beside the JAX one, with the same module layout.
 The kernels the JAX package runs on a TPU are CUDA C++ written for the
 H100 (``csrc/``, built at first use by :mod:`._cuda`); the rest is plain
 PyTorch.  Entry points run on the card unless the caller passes
-``device="cpu"`` or the context ``mx.cpu()``.  Five slices are ported:
+``device="cpu"`` or the context ``mx.cpu()``.  Six slices are ported:
 
 * serving — :mod:`.serve` runs the built-in transformer LM end to end;
 * transformer training — :mod:`.symbol` builds the LM (:mod:`.models`),
@@ -19,11 +19,17 @@ PyTorch.  Entry points run on the card unless the caller passes
   (CUDA kernel bodies compiled at run time);
 * ops and optimizers — the JAX package's op registry but for the contrib
   ops, ``RNN`` and ``MoE``, every optimizer in its split and fused forms,
-  :mod:`.lr_scheduler` and ``clip_global_norm``.
+  :mod:`.lr_scheduler` and ``clip_global_norm``;
+* the rest of the training surface — multi-step dispatch
+  (``steps_per_call=K``: K updates as one CUDA-graph replay) with its
+  recompile guard (:mod:`.compile_cache`), the model zoo's image
+  symbols, and the remaining metrics, initializers, callbacks,
+  iterators and ``FeedForward``.
 """
-from . import (autograd, callback, context, executor, fused, gluon,
-               initializer, io, lr_scheduler, metric, model, models, module,
-               ndarray, operator, optimizer, random, rtc, serve, symbol)
+from . import (autograd, callback, compile_cache, context, executor, fused,
+               gluon, initializer, io, lr_scheduler, metric, model, models,
+               module, ndarray, operator, optimizer, random, rtc, serve,
+               symbol)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, tpu
 from .model import load_checkpoint, save_checkpoint
@@ -36,7 +42,7 @@ nd = ndarray
 sym = symbol
 
 __all__ = ["Context", "MXNetError", "Module", "NDArray", "autograd",
-           "callback", "context", "cpu", "current_context", "executor",
+           "callback", "compile_cache", "context", "cpu", "current_context", "executor",
            "fused", "gluon", "gpu", "init", "initializer", "io",
            "load_checkpoint", "lr_scheduler", "metric", "mod", "model",
            "models", "module",

@@ -10,8 +10,8 @@ from __future__ import annotations
 import logging
 import os
 
-__all__ = ["MXNetError", "TrainingPreempted", "get_env", "later_slice",
-           "logger", "resolve_device"]
+__all__ = ["MXNetError", "RecompileStorm", "TrainingPreempted", "get_env",
+           "later_slice", "logger", "resolve_device"]
 
 logger = logging.getLogger("mxnet_tpu_torch")
 
@@ -19,6 +19,22 @@ logger = logging.getLogger("mxnet_tpu_torch")
 class MXNetError(RuntimeError):
     """Framework error type (mirrors ``MXNetError`` raised through the
     reference's C ABI ``MXGetLastError``, ``python/mxnet/base.py``)."""
+
+
+class RecompileStorm(MXNetError):
+    """Raised (under ``MXNET_RECOMPILE_ERROR=1``) when one captured
+    callable has met more distinct input signatures than
+    ``MXNET_RECOMPILE_WARN`` allows: in the port every new signature of a
+    multi-step ``TrainStep`` is a new CUDA-graph capture.  ``name`` is the
+    registered owner, ``signatures`` the distinct count, ``diff`` the
+    leaf-level difference against the previous signature (see
+    :mod:`mxnet_tpu_torch.compile_cache`)."""
+
+    def __init__(self, msg, name=None, signatures=None, diff=None):
+        super().__init__(msg)
+        self.name = name
+        self.signatures = signatures
+        self.diff = diff
 
 
 class TrainingPreempted(MXNetError):

@@ -1,13 +1,15 @@
 """Training callbacks (reference ``python/mxnet/callback.py``).
 
-Counterpart of ``mxnet_tpu/callback.py`` for ``Speedometer``,
-``do_checkpoint`` and ``log_train_metric``."""
+Counterpart of ``mxnet_tpu/callback.py``: ``Speedometer``,
+``ProgressBar``, ``do_checkpoint``, ``module_checkpoint`` and
+``log_train_metric``."""
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer", "do_checkpoint", "log_train_metric"]
+__all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
+           "ProgressBar", "module_checkpoint"]
 
 
 def do_checkpoint(prefix, period=1):
@@ -20,6 +22,19 @@ def do_checkpoint(prefix, period=1):
     def _callback(iter_no, sym, arg, aux):
         if (iter_no + 1) % period == 0:
             save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback writing ``mod``'s checkpoint through
+    ``Module.save_checkpoint`` every ``period`` epochs (reference
+    ``module_checkpoint``); ``save_optimizer_states=True`` raises there
+    until the optimizer-state files are ported."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
     return _callback
 
 
@@ -69,3 +84,19 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, count, speed)
         self.tic = time.time()
+
+
+class ProgressBar:
+    """Progress bar over ``total`` batches, logged at every batch end
+    (reference ``ProgressBar``)."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = int(round(100.0 * count / float(self.total)))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")

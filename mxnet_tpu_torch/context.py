@@ -38,7 +38,6 @@ class Context:
                 raise MXNetError("unknown device type %r" % (device_type,))
             self.device_typeid = Context.devstr2type[device_type]
             self.device_id = int(device_id)
-        self._old_ctx = None
 
     @property
     def device_type(self):
@@ -58,12 +57,18 @@ class Context:
     __repr__ = __str__
 
     def __enter__(self):
-        self._old_ctx = getattr(Context._default_ctx, "value", None)
-        Context._default_ctx.value = self
+        # the context to restore goes on a per-thread stack, not on the
+        # instance: ``with c: with c:`` then restores the outer default
+        local = Context._default_ctx
+        if not hasattr(local, "stack"):
+            local.stack = []
+        local.stack.append(getattr(local, "value", None))
+        local.value = self
         return self
 
     def __exit__(self, ptype, value, trace):
-        Context._default_ctx.value = self._old_ctx
+        local = Context._default_ctx
+        local.value = local.stack.pop()
 
     @property
     def torch_device(self):

@@ -9,11 +9,15 @@ initializer's rule, ``*_gamma`` -> 1, ``*_beta``/``*_bias``/
 (``mx.random`` seed, parameter name), so a value does not depend on the
 order of initialization or on the device; they differ from the JAX
 package's numpy draws, so tests carry one state across instead.
+``Bilinear`` and ``LSTMBias`` draw nothing and equal the JAX package's;
+``Load`` and ``Mixed`` route parameters to saved arrays and to
+initializers by name pattern.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import zlib
 
 import numpy as np
@@ -22,7 +26,8 @@ from .base import MXNetError, _Registry
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Constant",
-           "Zero", "One", "Xavier", "MSRAPrelu", "register", "create"]
+           "Zero", "One", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Load", "Mixed", "register", "create"]
 
 _registry = _Registry("initializer")
 
@@ -85,7 +90,9 @@ class Initializer:
             create(init)._init_weight(desc, arr)
             return
         name = desc.lower()
-        if name.endswith("bias"):
+        if name.endswith("upsampling"):
+            self._init_bilinear(desc, arr)
+        elif name.endswith("bias"):
             self._init_bias(desc, arr)
         elif name.endswith("gamma"):
             self._init_gamma(desc, arr)
@@ -116,6 +123,20 @@ class Initializer:
 
     def _init_beta(self, _, arr):
         arr[:] = 0.0
+
+    def _init_bilinear(self, _, arr):
+        """The bilinear upsampling kernel (reference ``_init_bilinear``,
+        with its float ``i / shape[3]`` kept as the JAX package keeps
+        it)."""
+        weight = np.zeros(int(np.prod(arr.shape)), dtype="float32")
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.)
+        c = (2 * f - 1 - f % 2) / (2. * f)
+        for i in range(weight.size):
+            x = i % shape[3]
+            y = (i / shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
 
     def _init_weight(self, desc, arr):
         raise NotImplementedError("virtual")
@@ -221,3 +242,103 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """An orthogonal matrix times ``scale`` (reference Orthogonal): the
+    left or right singular vectors of a uniform or normal draw, whichever
+    has the weight's (rows, fan-in) shape."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        import torch
+
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        gen = _param_gen(desc)
+        if self.rand_type == "uniform":
+            tmp = 2.0 * torch.rand((nout, nin), generator=gen,
+                                   dtype=torch.float64) - 1.0
+        else:
+            tmp = torch.randn((nout, nin), generator=gen,
+                              dtype=torch.float64)
+        u, _, v = np.linalg.svd(tmp.numpy(), full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * q.reshape(arr.shape)).astype("float32")
+
+
+@register
+class Bilinear(Initializer):
+    """Every weight the bilinear upsampling kernel."""
+
+    def _init_weight(self, desc, arr):
+        self._init_bilinear(desc, arr)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zero bias but ``forget_bias`` on the forget gate's quarter
+    (reference LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        b = np.zeros(arr.shape, dtype="float32")
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = b
+
+    _init_bias = _init_weight
+
+
+class Load:
+    """Initialize from a dict of arrays, e.g. ``nd.load`` of a ``.params``
+    file (``arg:``/``aux:`` prefixes dropped), falling back to
+    ``default_init`` for names it lacks (reference Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {
+            (k[4:] if k.startswith(("arg:", "aux:")) else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if tuple(self.param[name].shape) != tuple(arr.shape):
+                raise MXNetError(
+                    "Parameter %s has wrong shape %s vs %s"
+                    % (name, arr.shape, self.param[name].shape))
+            arr[:] = self.param[name]
+        else:
+            if self.default_init is None:
+                raise MXNetError("Cannot init %s: not in loaded param and no "
+                                 "default init" % name)
+            self.default_init(name, arr)
+
+
+class Mixed:
+    """Route each parameter to the first initializer whose pattern
+    matches its name (reference Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("Mixed: %d patterns for %d initializers"
+                             % (len(patterns), len(initializers)))
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise MXNetError("Parameter name %s did not match any pattern"
+                         % name)

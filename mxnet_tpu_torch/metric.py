@@ -1,15 +1,16 @@
 """Evaluation metrics (reference ``python/mxnet/metric.py``).
 
-Counterpart of ``mxnet_tpu/metric.py`` for ``EvalMetric``,
+Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``,
 ``CompositeEvalMetric``, ``LazyEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``Loss``, ``CustomMetric``, ``np``
-and ``create``; F1, Perplexity and the regression metrics come with a
-later slice.  Metrics read their inputs on the host (``asnumpy``), as in
-the JAX package.
+``TopKAccuracy``, ``F1``, ``Perplexity``, ``MAE``, ``MSE``, ``RMSE``,
+``CrossEntropy``, ``Loss``, ``CustomMetric``, ``np`` and ``create``.
+Metrics read their inputs on the host (``asnumpy``), as in the JAX
+package.
 """
 from __future__ import annotations
 
 import logging
+import math
 
 import numpy as _np
 
@@ -19,8 +20,9 @@ from .ndarray import NDArray
 _logger = logging.getLogger(__name__)
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "LazyEvalMetric",
-           "Accuracy", "TopKAccuracy", "CrossEntropy", "Loss",
-           "CustomMetric", "np", "create", "register"]
+           "Accuracy", "TopKAccuracy", "F1", "Perplexity", "MAE", "MSE",
+           "RMSE", "CrossEntropy", "Loss", "CustomMetric", "np", "create",
+           "register"]
 
 _registry = _Registry("metric")
 
@@ -148,8 +150,9 @@ class LazyEvalMetric(EvalMetric):
     """Deferred-sync wrapper for the training loop: buffers (labels,
     preds) references and replays them into the wrapped metric at an
     explicit :meth:`flush`, at any ``get`` (what a ``Speedometer``
-    calls), or every ``sync_period`` updates.  The port never writes a
-    tensor in place, so a buffered reference still holds the step's
+    calls), or every ``sync_period`` updates.  What it buffers is never
+    written in place (a multi-step call's outputs come back as copies of
+    its graph's buffers), so a buffered reference still holds the step's
     value when it is read."""
 
     def __init__(self, base, sync_period=None, **kwargs):
@@ -218,6 +221,112 @@ class TopKAccuracy(EvalMetric):
                     pred_idx[:, num_classes - 1 - j].ravel() ==
                     label.astype("int32").ravel()).sum()
             self.num_inst += num_samples
+
+
+@register
+class F1(EvalMetric):
+    """Binary F1 (reference F1: predictions argmax'd, labels in {0, 1}),
+    averaged over the updates."""
+
+    def __init__(self, name="f1", **kwargs):
+        super().__init__(name, **kwargs)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label).ravel()
+            pred = _as_numpy(pred)
+            if pred.ndim > 1:
+                pred = pred.argmax(axis=1)
+            pred = pred.ravel()
+            if not set(_np.unique(label)).issubset({0., 1.}):
+                raise ValueError("F1 currently only supports binary labels")
+            tp = ((pred == 1) & (label == 1)).sum()
+            fp = ((pred == 1) & (label == 0)).sum()
+            fn = ((pred == 0) & (label == 1)).sum()
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.
+            if precision + recall > 0:
+                self.sum_metric += 2 * precision * recall / (precision +
+                                                             recall)
+            self.num_inst += 1
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-probability of the labels; positions
+    whose label is ``ignore_label`` count neither way."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 **kwargs):
+        super().__init__(name, **kwargs)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        loss, num = 0., 0
+        for label, pred in zip(labels, preds):
+            label, pred = _as_numpy(label), _as_numpy(pred)
+            label = label.astype("int32").ravel()
+            pred = pred.reshape(-1, pred.shape[-1])
+            probs = pred[_np.arange(label.shape[0]), label]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label)
+                probs = _np.where(ignore, 1.0, probs)
+                num -= ignore.sum()
+            loss += -_np.log(_np.maximum(1e-10, probs)).sum()
+            num += label.shape[0]
+        try:
+            ppl = math.exp(loss / max(1, num))
+        except OverflowError:
+            ppl = float("inf")
+        self._accumulate(ppl, 1)
+
+
+def _as_2d(label, pred):
+    label, pred = _as_numpy(label), _as_numpy(pred)
+    if label.ndim == 1:
+        label = label.reshape(label.shape[0], 1)
+    if pred.ndim == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+@register
+class MAE(EvalMetric):
+    def __init__(self, name="mae", **kwargs):
+        super().__init__(name, **kwargs)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_2d(label, pred)
+            self._accumulate(_np.abs(label - pred).mean(), 1)
+
+
+@register
+class MSE(EvalMetric):
+    def __init__(self, name="mse", **kwargs):
+        super().__init__(name, **kwargs)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_2d(label, pred)
+            self._accumulate(((label - pred) ** 2.0).mean(), 1)
+
+
+@register
+class RMSE(EvalMetric):
+    def __init__(self, name="rmse", **kwargs):
+        super().__init__(name, **kwargs)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_2d(label, pred)
+            self._accumulate(_np.sqrt(((label - pred) ** 2.0).mean()), 1)
 
 
 @register

@@ -9,10 +9,12 @@ The loop is the JAX package's pipelined one: the train iterator is
 wrapped in ``io.DevicePrefetchIter`` so batch n+1 is staged onto the
 card while step n runs, and the next batch is pulled after the step is
 launched.  A SIGTERM/SIGINT stops the loop at the next batch boundary
-with :class:`~mxnet_tpu_torch.base.TrainingPreempted`.  Checkpoint
-managers, resume, run health, loss scaling, the step watchdog, ZeRO,
-plans, elasticity, parameter sharding, monitors and ``steps_per_call >
-1`` come with later slices and raise.
+with :class:`~mxnet_tpu_torch.base.TrainingPreempted`.  With
+``steps_per_call=K`` the prefetcher packs K batches into a super-batch
+and each call runs K updates (one CUDA-graph replay on the card).
+Checkpoint managers, resume, run health, loss scaling, the step
+watchdog, ZeRO, plans, elasticity, parameter sharding and monitors come
+with later slices and raise.
 """
 from __future__ import annotations
 
@@ -220,13 +222,23 @@ class BaseModule:
         * ``compute_dtype`` — e.g. ``"bfloat16"``: the fused step casts
           parameters, aux states and the batch to it
           (``MXNET_COMPUTE_DTYPE``).
+        * ``steps_per_call`` — K updates a call over super-batches of K
+          batches (``MXNET_STEPS_PER_CALL``); the epoch's last ``len %
+          K`` batches are dropped.  ``num_update`` and ``nbatch`` advance
+          by K a call, the metric is updated once an inner step, the
+          batch callback runs once a call.
         """
         from ..initializer import Uniform
 
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
-        steps = int(steps_per_call if steps_per_call is not None
-                    else get_env("MXNET_STEPS_PER_CALL", 1, int))
+        K = max(1, int(steps_per_call if steps_per_call is not None
+                       else get_env("MXNET_STEPS_PER_CALL", 1, int)))
+        if K > 1 and monitor is not None:
+            raise MXNetError(
+                "steps_per_call > 1 is incompatible with a Monitor: the "
+                "monitor needs the per-node executor path, which has no "
+                "multi-step form")
         timeout = float(step_timeout_s if step_timeout_s is not None
                         else get_env("MXNET_STEP_TIMEOUT_S", 0.0, float))
         for field, value, fine in (
@@ -240,8 +252,7 @@ class BaseModule:
                 ("elastic", elastic, elastic in (None, False)),
                 ("param_sharding", param_sharding,
                  param_sharding in (None, "replicated")),
-                ("monitor", monitor, monitor is None),
-                ("steps_per_call", steps, steps == 1)):
+                ("monitor", monitor, monitor is None)):
             if not fine:
                 raise later_slice(field, value)
         if initializer is None:
@@ -255,6 +266,8 @@ class BaseModule:
         opt_kwargs = {}
         if compute_dtype is not None:
             opt_kwargs["compute_dtype"] = compute_dtype
+        if K > 1:
+            opt_kwargs["steps_per_call"] = K
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params, **opt_kwargs)
 
@@ -262,10 +275,13 @@ class BaseModule:
         if pipeline is None:
             pipeline = get_env("MXNET_FIT_PIPELINE", True, bool)
         fit_data = train_data
-        if pipeline:
+        if pipeline or K > 1:
+            # super-batches come only from the staging iterator, so K > 1
+            # wraps even with the pipeline switched off
             fit_data = io_mod.prefetch_to_device(
                 train_data, prefetch_depth=prefetch_depth,
-                context=getattr(self, "_context", [None])[0])
+                context=getattr(self, "_context", [None])[0],
+                steps_per_call=K)
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _as_metric(eval_metric)
@@ -278,7 +294,8 @@ class BaseModule:
             self._fit_epochs(fit_data, eval_data, eval_metric,
                              validation_metric, batch_end_callback,
                              epoch_end_callback, eval_end_callback,
-                             eval_batch_end_callback, begin_epoch, num_epoch)
+                             eval_batch_end_callback, begin_epoch, num_epoch,
+                             K)
         finally:
             if fit_data is not train_data:
                 # the staging worker must not outlive fit: it would go on
@@ -300,7 +317,8 @@ class BaseModule:
     def _fit_epochs(self, fit_data, eval_data, eval_metric,
                     validation_metric, batch_end_callback,
                     epoch_end_callback, eval_end_callback,
-                    eval_batch_end_callback, begin_epoch, num_epoch):
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    steps_per_call=1):
         from ..testing import faults
 
         with _PreemptionGuard() as guard:
@@ -325,13 +343,22 @@ class BaseModule:
                         next_data_batch = next(data_iter)
                     except StopIteration:
                         end_of_batch = True
-                    self.update_metric(eval_metric, data_batch.label)
+                    if steps_per_call > 1:
+                        # one metric update an inner step
+                        outs = self.get_outputs()
+                        labels = data_batch.label or []
+                        for k in range(steps_per_call):
+                            self.update_metric(eval_metric,
+                                               [l[k] for l in labels],
+                                               outputs=[o[k] for o in outs])
+                    else:
+                        self.update_metric(eval_metric, data_batch.label)
                     if batch_end_callback is not None:
                         for cb in _as_list(batch_end_callback):
                             cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                              eval_metric=eval_metric,
                                              locals=locals()))
-                    nbatch += 1
+                    nbatch += steps_per_call
                     if guard.fired is not None:
                         self._preempt(guard.fired, fit_data, epoch, nbatch)
 

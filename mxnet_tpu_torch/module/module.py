@@ -103,6 +103,7 @@ class Module(BaseModule):
         self._fused = None
         self._fused_states = None
         self._fused_ran = False
+        self._steps_per_call = 1
         self._grad_req = None
 
     # -- introspection -----------------------------------------------------
@@ -214,7 +215,11 @@ class Module(BaseModule):
         """Create the optimizer (``rescale_grad`` = 1/batch unless given)
         and, when it has a fused form, the ``fused.TrainStep`` that
         ``fit`` drives.  ``compute_dtype`` (or ``MXNET_COMPUTE_DTYPE``):
-        bf16 activations over fp32 master weights."""
+        bf16 activations over fp32 master weights.  ``steps_per_call=K``
+        (or ``MXNET_STEPS_PER_CALL``): each ``forward_backward`` takes a
+        ``(K, batch, ...)`` super-batch and runs K updates, one CUDA-graph
+        replay on the card; the split path has no such form, so K > 1
+        raises where the fused step is unavailable."""
         from ..fused import TrainStep
 
         if not (self.binded and self.params_initialized):
@@ -223,10 +228,13 @@ class Module(BaseModule):
             return
         if steps_per_call is None:
             steps_per_call = get_env("MXNET_STEPS_PER_CALL", 1, int)
+        steps_per_call = int(steps_per_call)
+        if steps_per_call < 1:
+            raise MXNetError("steps_per_call must be >= 1, got %d"
+                             % steps_per_call)
         for field, value, fine in (
                 ("param_sharding", param_sharding,
                  param_sharding in (None, "replicated")),
-                ("steps_per_call", steps_per_call, int(steps_per_call) == 1),
                 ("health", health, health is None),
                 ("loss_scale", loss_scale, loss_scale is None),
                 ("zero", zero, zero is None),
@@ -254,20 +262,26 @@ class Module(BaseModule):
         optimizer.set_wd_mult({})
         self._updater = opt.get_updater(optimizer)
         self._fused, self._fused_states, self._fused_ran = None, None, False
+        self._steps_per_call = steps_per_call
         reason = self._fused_blocker()
         if reason is None:
             self._fused = TrainStep(
                 self._symbol, optimizer=optimizer,
                 data_names=self._data_names, label_names=self._label_names,
                 fixed_param_names=self._fixed_param_names,
-                compute_dtype=compute_dtype,
+                compute_dtype=compute_dtype, steps_per_call=steps_per_call,
                 device=self._context[0].torch_device)
-        elif compute_dtype is not None:
-            # an explicit mixed-precision request never trains fp32
-            # through the split path silently
-            raise MXNetError("compute_dtype=%r was requested but the fused "
-                             "step is unavailable: %s"
-                             % (compute_dtype, reason))
+        else:
+            # an explicit mixed-precision or multi-step request never
+            # trains through the split path silently: it has neither
+            for field, value, fine in (
+                    ("compute_dtype", compute_dtype, compute_dtype is None),
+                    ("steps_per_call", steps_per_call,
+                     steps_per_call == 1)):
+                if not fine:
+                    raise MXNetError("%s=%r was requested but the fused "
+                                     "step is unavailable: %s"
+                                     % (field, value, reason))
         self.optimizer_initialized = True
 
     def _fused_blocker(self):
@@ -307,13 +321,17 @@ class Module(BaseModule):
                 batch[name] = t if t.device == dev else t.to(dev)
         # the scheduler read at the pre-increment count, the step number
         # t at the post-increment one: the split path's order
-        # (mxnet_tpu/module/module.py:831-838)
+        # (mxnet_tpu/module/module.py:831-838).  A multi-step call holds
+        # lr for its K steps and advances the count by K; t is its first
+        # step's number
+        K = self._steps_per_call
         lr = o.lr_scheduler(o.num_update) if o.lr_scheduler else o.lr
-        for i in range(len(self._param_names)):
-            o._update_count(i)
+        for _ in range(K):
+            for i in range(len(self._param_names)):
+                o._update_count(i)
         new_params, new_aux, self._fused_states, outs = self._fused(
             params, aux, self._fused_states, batch,
-            _rnd.next_key(self._context[0]), lr, o.num_update)
+            _rnd.next_key(self._context[0]), lr, o.num_update - K + 1)
         for n, v in new_params.items():
             self._exec.arg_dict[n]._set_data(v)
         for n, v in new_aux.items():

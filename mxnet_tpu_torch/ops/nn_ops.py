@@ -176,8 +176,10 @@ def _pooling(attrs, data):
             denom = 1
             for k in kernel:
                 denom *= k
-            out = out / torch.tensor(denom, dtype=out.dtype,
-                                     device=out.device)
+            # a fill on the device, not a host copy: a CUDA graph can
+            # hold it
+            out = out / torch.full((), denom, dtype=out.dtype,
+                                   device=out.device)
     return _to_channels_last(out) if ch_last else out
 
 
@@ -652,8 +654,9 @@ def _bshape(data, axis):
 
 def _as_scalar(value, like):
     """A Python scalar in ``like``'s dtype: JAX's weak typing casts the
-    scalar to the array's dtype before the arithmetic."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    scalar to the array's dtype before the arithmetic.  Made by a fill on
+    the device, not a host copy, so a CUDA graph can hold it."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 @register("BatchNorm", aliases=("BatchNorm_v1",), uses_train_mode=True,

@@ -1436,8 +1436,173 @@ def test_adam_train_step_at_two_layers_runs_k7_k8_and_learns(dev):
     assert all(bool(torch.isfinite(v).all()) for v in state[0].values())
 
 
+def _multistep_mlp(mx, bn=False):
+    net = mx.sym.Variable("data")
+    if bn:
+        net = mx.sym.Convolution(net, kernel=(3, 3), pad=(1, 1),
+                                 num_filter=8, name="conv1")
+        net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn1")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.Convolution(net, kernel=(3, 3), num_filter=8,
+                                 name="conv2")
+        net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn2")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.Flatten(net)
+    net = mx.sym.FullyConnected(net, num_hidden=64, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    return mx.sym.SoftmaxOutput(net, name="softmax", normalization="batch")
+
+
+def _super_batch(dev, K, shape, seed=0):
+    rs = np.random.RandomState(seed)
+    return {"data": torch.from_numpy(rs.randn(K, *shape).astype(
+                np.float32)).to(dev),
+            "softmax_label": torch.from_numpy(rs.randint(
+                0, 10, (K, shape[0])).astype(np.float32)).to(dev)}
+
+
+def _clone_state(state):
+    def one(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(one(e) for e in x)
+        return x.clone()
+    return [{k: one(v) for k, v in d.items()} for d in state]
+
+
+def _assert_bitwise(got, want):
+    for g, w in zip(got[:3], want[:3]):
+        for k in w:
+            gs = g[k] if isinstance(g[k], tuple) else (g[k],)
+            ws = w[k] if isinstance(w[k], tuple) else (w[k],)
+            for a, b in zip(gs, ws):
+                if b is not None:
+                    assert torch.equal(a, b), k
+    for a, b in zip(got[3], want[3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("optimizer,params", [
+    ("sgd", dict(learning_rate=0.1, momentum=0.9, rescale_grad=1 / 32.)),
+    ("adam", dict(learning_rate=0.01, wd=0.01, clip_global_norm=0.5,
+                  rescale_grad=1 / 32.)),
+])
+def test_multistep_capture_equals_its_eager_loop_bitwise(dev, optimizer,
+                                                         params):
+    """A 4-step call captured as one CUDA graph gives the bits of the
+    same 4 steps run eagerly (``run_eager``) from the same state; the
+    next replay, at another lr and first step number, again equals the
+    eager loop at those values (neither is frozen at capture)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+
+    step = fused.TrainStep(_multistep_mlp(mx), optimizer=optimizer,
+                           optimizer_params=params, steps_per_call=4,
+                           device=dev)
+    state = step.init_state({"data": (32, 24), "softmax_label": (32,)})
+    batch = _super_batch(dev, 4, (32, 24))
+    want = step.run_eager(*_clone_state(state), batch, None, 0.1, 1)
+    got = step(*state, batch, None, lr=0.1, t=1)
+    _assert_bitwise(got, want)
+    batch2 = _super_batch(dev, 4, (32, 24), seed=1)
+    want2 = step.run_eager(*_clone_state(got[:3]), batch2, None, 0.03, 40)
+    got2 = step(*got[:3], batch2, None, lr=0.03, t=40)
+    _assert_bitwise(got2, want2)
+    assert step.graph_report()[0]["replays"] == 2 and step._t == 43
+    assert not torch.equal(got2[0]["fc1_weight"], want[0]["fc1_weight"])
+
+
+def test_multistep_batchnorm_launches_are_replays_times_recorded(dev):
+    """K5/K6 inside a captured 2-step call: each records once per
+    BatchNorm per inner step at capture, and a run's launches equal the
+    replays times those."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+
+    step = fused.TrainStep(_multistep_mlp(mx, bn=True), steps_per_call=2,
+                           optimizer_params=dict(learning_rate=0.05,
+                                                 momentum=0.9),
+                           compute_dtype="bfloat16", device=dev)
+    shapes = {"data": (16, 3, 12, 12), "softmax_label": (16,)}
+    stats = step.compile(shapes)
+    assert stats["launches"] == {"bn_stats": 4, "bn_grad_sums": 4}
+    state = step.init_state(shapes, seed=1)
+    before = dict(_cuda.launches)
+    for call in range(3):
+        state = step(*state, _super_batch(dev, 2, shapes["data"],
+                                          seed=call), None)[:3]
+    for k in ("bn_stats", "bn_grad_sums"):
+        assert _cuda.launches[k] - before[k] == 3 * 4, k
+    assert len(step.graph_report()) == 1
+    assert all(bool(torch.isfinite(v).all()) for v in state[1].values())
+
+
+def test_multistep_module_set_params_is_seen_by_the_next_replay(dev):
+    """``Module.set_params`` between two 2-step calls rebinds the
+    parameters; the next replay writes them into the graph's buffers
+    first, so it equals the eager loop from the values set."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+
+    ctx = mx.gpu(0)
+    mod = mx.mod.Module(_multistep_mlp(mx), context=ctx)
+    mod.bind([("data", (32, 24))], [("softmax_label", (32,))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", steps_per_call=2,
+                       optimizer_params=dict(learning_rate=0.1,
+                                             momentum=0.9))
+    b1, b2 = (_super_batch(dev, 2, (32, 24), seed=s) for s in (0, 1))
+
+    def fb(b):
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.NDArray(b["data"], ctx)],
+            [mx.nd.NDArray(b["softmax_label"], ctx)]))
+
+    fb(b1)
+    rs = np.random.RandomState(7)
+    new = {k: mx.nd.array(rs.randn(*v.shape).astype(np.float32) * 0.1, ctx)
+           for k, v in mod.get_params()[0].items()}
+    mod.set_params(new, {})
+    params = {k: v._data.clone() for k, v in new.items()}
+    states = _clone_state([mod._fused_states])[0]
+    want = mod._fused.run_eager(params, {}, states, b2, None, 0.1, 3)
+    fb(b2)
+    assert mod._optimizer.num_update == 4
+    got = {k: v._data for k, v in mod.get_params()[0].items()}
+    for k, v in want[0].items():
+        assert torch.equal(got[k], v), k
+    assert isinstance(mod._fused, fused.TrainStep)
+    assert mod._fused.graph_report()[0]["replays"] == 2
+
+
 # last in the file: a capture that fails leaves no state behind, but no
 # other test should depend on that
+def test_multistep_capture_failure_raises(dev, monkeypatch):
+    """A step that reads a value back to the host cannot be captured:
+    the multi-step call raises, and no eager loop runs in its place."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+
+    step = fused.TrainStep(_multistep_mlp(mx), steps_per_call=2,
+                           device=dev)
+    state = step.init_state({"data": (8, 24), "softmax_label": (8,)})
+    plain = fused.TrainStep._step
+    calls = []
+
+    def syncing(self, *args):
+        out = plain(self, *args)
+        calls.append(float(out[3][0].sum()))
+        return out
+
+    monkeypatch.setattr(fused.TrainStep, "_step", syncing)
+    with pytest.raises(MXNetError, match="capturing the call"):
+        step(*state, _super_batch(dev, 2, (8, 24)), None)
+    assert len(calls) == 1  # the warm-up step; no eager loop after
+    torch.cuda.synchronize()
+
+
 def test_serve_capture_failure_raises(dev, monkeypatch):
     """A function that reads a value back to the host cannot be captured:
     the session raises, and runs no eager step in the graph's place."""

@@ -196,7 +196,6 @@ def test_state_from_numpy_keeps_optimizer_structure():
     (dict(), {"MXNET_PLAN": "data=2"}),
     (dict(health=object()), {}),
     (dict(remat="full"), {}),
-    (dict(steps_per_call=2), {}),
     (dict(param_sharding="fsdp"), {}),
     (dict(), {"MXNET_FP8": "on"}),
 ])
