@@ -44,7 +44,16 @@ a checkout that holds ``mxnet_tpu_torch/``):
    line adds ``chain_floor_ms``, one output's chain of C
    dependent FMAs at ~4 cycles each), and K9 (a decode step's 8 and a
    prefill's 256 K and V rows quantized and appended, byte-equal to the
-   plain form; no PyTorch call computes it).  The K2/K3 lines add the
+   plain form; no PyTorch call computes it).  Hybrid stacks' kernels: K1
+   with a window of 128 at n1 h16 T1024 D128 block 16 (yardstick SDPA
+   with the window as a mask); K2 and K2q (int8, e4m3) over rings of 25
+   pages a slot through rotated tables at decode (8 slots, rings
+   wrapped), the verify (8 x 5 rows) and a 256-row prefill, every K2 row
+   K1's windowed row bit for bit (yardstick SDPA over the ring gathered
+   in position order, masked by position); and K10, the SSM scan, at a
+   decode step (S8 T1), a 256-row prefill (S1) and the verify (S8 W5,
+   every row's state kept), bit-equal to its plain version (no PyTorch
+   call computes it).  The K2/K3 lines add the
    effective bandwidth (the bound's bytes over the kernel's time) beside
    the card's 3.35 TB/s, the kernel's and the library's times in the
    window without the spin (``*_ms_with_launch``), and their host launch
@@ -91,6 +100,18 @@ a checkout that holds ``mxnet_tpu_torch/``):
    numbers and a ``quant_profile`` line the profile line's.  Then the
    int8 session speculative (``spec_k`` 4, draft ``layers:2``): its streams
    must equal the int8 session's (``quant_spec``).
+4d. hybrid — the same model as hybrid stacks, 16 seeded requests of
+   300-960 prompt tokens (32 new tokens each, 50 ms apart; prompts above
+   the largest bucket admitted as a resume's are, chunked prefill over
+   256-row buckets): ``layers="full,window,ssm"`` with window 128 (rings
+   of 25 pages wrap, the SSM state crosses up to four chunks), then
+   ``layers="window,ssm"`` with int8 rings (admission by slots), each
+   bit-exact against the oracle (every first token, two whole streams),
+   its run's launches of K2 over pages and rings, K3, K9 and K10 the
+   graphs' replays times the launches recorded, the oracle's K1, K1
+   windowed and K10 launches one a layer of their kind a check; ring and
+   state MB and a profile of the first.  Then the first under ``spec_k``
+   4 with the ``ngram`` draft: every stream equal to its plain run's.
 5. train — the same LM trains through ``models.transformer.get_symbol``
    -> ``fused.TrainStep(optimizer="sgd", compute_dtype="bfloat16")`` ->
    ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
@@ -444,6 +465,21 @@ def seeded_requests(cfg, n_requests, prompt_lens, max_new, arrival_gap_s):
             for i in range(n_requests)]
 
 
+def admit_long_prompts(sess):
+    """Let the scheduler admit prompts longer than the session's largest
+    bucket the way it admits a preempted request's transcript
+    (``try_alloc(resume=True)``): chunked prefill covers them at
+    page-aligned offsets, and the slot's page reservation still bounds
+    them.  The JAX package's ``try_alloc`` refuses such a prompt unless
+    ``resume``; the hybrid phase's long-context traffic needs it."""
+    alloc = sess.try_alloc
+
+    def try_alloc(prompt_len, max_new=None, tokens=None, resume=False):
+        return alloc(prompt_len, max_new, tokens=tokens, resume=True)
+
+    sess.try_alloc = try_alloc
+
+
 def replayed_launches(sess, launched):
     """Hold the kernel launches counted over a run (``launched``) against
     the session's graph replays in that run times the launches each graph
@@ -465,7 +501,8 @@ def replayed_launches(sess, launched):
 
 
 def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
-                arrival_gap_s=0.05, params=None):
+                arrival_gap_s=0.05, params=None, max_new=None,
+                long_prompts=False):
     """Serve ``n_requests`` greedy requests of numpy-seeded prompts through
     the continuous-batching scheduler on a session over ``params``
     (default ``init_params(cfg, seed=0)``; on the card its entry points
@@ -473,9 +510,12 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     logits, and every token's logits of ``whole_streams`` streams,
     against ``reference_last_logits`` bit for bit — at the session's
     precision: over its dequantized params and at its ``kv_quant``.
-    Returns the session, the phase's numbers (``run_launches``: the
-    kernel launches of the scheduler's run) and each request's token
-    stream."""
+    Each request asks ``max_new`` tokens (default ``sconf.max_new``);
+    ``long_prompts`` admits prompts above the largest bucket
+    (:func:`admit_long_prompts`).  Returns the session, the phase's
+    numbers (``run_launches``: the kernel launches of the scheduler's
+    run; ``oracle_launches``: those of the oracle's checks) and each
+    request's token stream."""
     import torch
 
     from mxnet_tpu_torch import _cuda, serve
@@ -486,7 +526,10 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     sess = serve.InferenceSession(params, num_heads=cfg.num_heads,
                                   config=sconf, device=dev)
     session_s = time.perf_counter() - t0
-    reqs = seeded_requests(cfg, n_requests, prompt_lens, sconf.max_new,
+    if long_prompts:
+        admit_long_prompts(sess)
+    max_new = sconf.max_new if max_new is None else max_new
+    reqs = seeded_requests(cfg, n_requests, prompt_lens, max_new,
                            arrival_gap_s)
 
     # record what a client sees: per stream, each transcript beside the
@@ -520,12 +563,13 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     failed = [r.rid for r in done if r.failed]
     if failed or summary["completed"] != n_requests:
         raise AssertionError("requests failed: %r" % failed)
-    if any(len(r.tokens) != sconf.max_new for r in done):
+    if any(len(r.tokens) != max_new for r in done):
         raise AssertionError("a request stopped short of max_new")
     checked = 0
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_oracle = time.perf_counter()
+    before = dict(_cuda.launches)
     oracle_params = sess.dequantized_params()
     for sid, st in enumerate(streams):
         for seq, logits in st["checks"][:None if sid < whole_streams else 1]:
@@ -543,6 +587,8 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t_oracle
+    oracle_launches = {k: n - before[k] for k, n in _cuda.launches.items()
+                       if n > before[k]}
     del oracle_params
     sess.prefill, sess.step = prefill_fn, step_fn
     graphs = sess.graph_report()
@@ -559,6 +605,7 @@ def serve_phase(dev, cfg, sconf, n_requests, prompt_lens, whole_streams=2,
                 graph_pool_mb=(graphs["graph_pool_bytes"] or 0) / 2.0 ** 20,
                 kv_pool_mb=sess.cache.pool_bytes() / 2.0 ** 20,
                 replays=replays, run_launches=run_launches,
+                oracle_launches=oracle_launches,
                 launches_per_replay=graphs["launches_per_replay"]), \
         {r.rid: list(r.tokens) for r in done}
 
@@ -613,7 +660,8 @@ SERVE_GROUPS = (("mi_linear", ("linear_kernel", "linear_stream_kernel",
                 ("paged_attention_q", ("paged_attention_q_kernel",
                                        "paged_prefill_kernel<1,",
                                        "paged_prefill_kernel<2,")),
-                ("kv_append_quantized", ("kv_quant_kernel",)))
+                ("kv_append_quantized", ("kv_quant_kernel",)),
+                ("ssm_scan", ("ssm_scan_kernel",)))
 
 
 def replay_ms(exe, reps=20):
@@ -680,18 +728,22 @@ def profile_phase(sess, steps=4):
     return out
 
 
-def spec_phase(dev, cfg, params, sconf, reqs, want, steps=2):
+def spec_phase(dev, cfg, params, sconf, reqs, want, steps=2,
+               long_prompts=False):
     """Serve ``reqs`` again on a speculative session (``sconf``'s
     ``spec_k`` and ``draft``) over the serve phase's ``params``: every
     request's stream must equal ``want`` (the serve phase's), the launches
     must be the graphs' replays, and the identity draft (all the target's
     layers) must accept every proposal.  Then ``steps`` spec steps of a
     full batch at 250-token prompts are profiled and the verify and draft
-    graphs timed alone.  Returns the phase's numbers."""
+    graphs timed alone.  ``long_prompts`` as in :func:`serve_phase`.
+    Returns the phase's numbers."""
     from mxnet_tpu_torch import _cuda, serve
 
     sess = serve.InferenceSession(params, num_heads=cfg.num_heads,
                                   config=sconf, device=dev)
+    if long_prompts:
+        admit_long_prompts(sess)
     step_ms = []
     spec_fn = sess.spec_step
 
@@ -770,6 +822,119 @@ def logit_drift(sess, qsess, prompt, steps=6):
     sess.release(bslot)
     qsess.release(qslot)
     return drift
+
+
+# the hybrid phase: the serving LM's layers as full,window,ssm cycled over
+# its 8 layers (f,w,s,f,w,s,f,w), windows of 128 keys, serving's slots,
+# pages and buckets; requests of 300-960 prompt tokens ask 32 tokens each.
+# The session's max_new is its reservation cap: a full layer holds a
+# 960-token prompt and its 32 new tokens in 62 pages (256 + 736 = 992)
+HYBRID_WINDOW = 128
+HYBRID_PROMPTS = (300, 960)
+HYBRID_NEW = 32
+
+
+def hybrid_phases(dev, cfg, smi):
+    """Serve the serve phase's model as hybrid stacks on the card, 16
+    seeded requests of 300-960 prompt tokens 50 ms apart (rings of 25
+    pages wrap; a prompt's SSM state crosses up to four 256-row chunks):
+    ``layers="full,window,ssm"``; ``layers="window,ssm"`` with int8 KV
+    rings, which admits by slots; and ``spec_k=4`` with the ngram draft on
+    the first stack, whose streams must equal its plain decode's.  Every
+    first token's logits and two whole streams must equal the oracle's
+    bit for bit; the run's launches of K2 (over pages and rings), K3, K9
+    and K10 are the graphs' replays times the launches they recorded, and
+    the oracle's checks launch K1, K1 with the window and K10 once a
+    layer of their kind each.  Returns the launches of all three."""
+    import torch
+
+    from mxnet_tpu_torch import _cuda, serve
+
+    card = dev.type == "cuda"
+    params = serve.init_params(cfg, seed=0, device=dev)
+    base = serve.ServeConfig(slots=8, page_size=16, buckets=(64, 128, 256),
+                             max_new=HYBRID_NEW, exact=True,
+                             window=HYBRID_WINDOW)
+    total = {}
+    fws = dataclasses.replace(base, layers="full,window,ssm",
+                              max_new=1024 - 256 - 32)
+    streams = None
+    for conf, tag in ((fws, "hybrid"),
+                      (dataclasses.replace(base, layers="window,ssm",
+                                           kv_quant="int8"),
+                       "hybrid_window_ssm_int8")):
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        sess, stats, got = serve_phase(
+            dev, cfg, conf, n_requests=16, prompt_lens=HYBRID_PROMPTS,
+            params=params, max_new=HYBRID_NEW, long_prompts=True)
+        kinds = sess.model.kinds
+        run, oracle = stats["run_launches"], stats["oracle_launches"]
+        suffix = "_q" if conf.kv_quant else ""
+        need = ["mi_linear", "ssm_scan", "paged_attention%s_ring" % suffix]
+        if "full" in kinds:
+            need.append("paged_attention" + suffix)
+        if conf.kv_quant:
+            need.append("kv_append_quantized")
+        checks = stats["bitexact_logits_checked"]
+        want = {"flash_attention": checks * kinds.count("full"),
+                "flash_attention_window": checks * kinds.count("window"),
+                "ssm_scan": checks * kinds.count("ssm")}
+        if card and min(run.get(k, 0) for k in need) < 1:
+            raise AssertionError("%s: a kernel of the path never ran: %r"
+                                 % (tag, run))
+        for kernel, n in want.items():
+            if card and oracle.get(kernel, 0) != n:
+                raise AssertionError("%s: the oracle launched %s %d times, "
+                                     "not %d" % (tag, kernel,
+                                                 oracle.get(kernel, 0), n))
+        if not kinds.count("full") and sess.cache.pages_needed(
+                HYBRID_PROMPTS[1], HYBRID_NEW):
+            raise AssertionError("%s: a stack without full layers reserved "
+                                 "pages" % tag)
+        graphs = sess.graph_report()
+        log(tag, model="8L-d2048-h16-V32768", layers=conf.layers,
+            kinds="".join(k[0] for k in kinds), window=conf.window,
+            kv_quant=conf.kv_quant, ring_pages=sess.cache.ring_pages,
+            ring_mb=sess.cache.ring_bytes() / 2.0 ** 20,
+            ssm_state_mb=sess.cache.state_bytes() / 2.0 ** 20,
+            pages_needed_960=sess.cache.pages_needed(HYBRID_PROMPTS[1],
+                                                     HYBRID_NEW),
+            failed_requests=0, nvidia_smi=smi,
+            peak_mem_gib=(torch.cuda.max_memory_allocated() / 2.0 ** 30
+                          if card else None),
+            executables=sorted(sess.executables),
+            launches=dict(_cuda.launches), **stats)
+        for name, n in _cuda.launches.items():
+            total[name] = total.get(name, 0) + n
+        if tag == "hybrid":
+            streams = got
+            if card:
+                log("hybrid_profile", nvidia_smi=smi, **profile_phase(sess))
+        del graphs
+        del sess
+    # speculative decoding on the full,window,ssm stack: the verify selects
+    # each slot's committed SSM state in the graph
+    if card:
+        torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    spec = spec_phase(
+        dev, cfg, params, dataclasses.replace(fws, spec_k=4, draft="ngram"),
+        seeded_requests(cfg, 16, HYBRID_PROMPTS, HYBRID_NEW, 0.05), streams,
+        long_prompts=True)
+    if card and min(_cuda.launches[k] for k in (
+            "ssm_scan", "paged_attention_ring", "paged_attention")) < 1:
+        raise AssertionError("a kernel never ran on the hybrid speculative "
+                             "path: %r" % _cuda.launches)
+    log("hybrid_spec", layers=fws.layers, window=fws.window, nvidia_smi=smi,
+        launches=dict(_cuda.launches), **spec)
+    for name, n in _cuda.launches.items():
+        total[name] = total.get(name, 0) + n
+    del params
+    return total
 
 
 def train_config(num_layers=8):
@@ -2591,6 +2756,196 @@ def main():
     del cases, got, want
     torch.cuda.empty_cache()
 
+    # K1 with a sliding window: the oracle of a hybrid stack's windowed
+    # layers at the serving LM's shape (block = page 16, window 128); the
+    # yardstick is SDPA with the window as an explicit mask
+    n, h, t, d, block, window = 1, 16, 1024, 128, 16, 128
+    q, k, v = randn(n, h, t, d), randn(n, h, t, d), randn(n, h, t, d)
+    scale = 1.0 / d ** 0.5
+    got = A.flash_attention(q, k, v, scale=scale, block=block, window=window)
+    if not torch.equal(got, A.flash_attention(q, k, v, scale=scale,
+                                              block=block, window=window)):
+        raise AssertionError("flash_attention_window: a rerun gave other "
+                             "bits")
+    want = A.flash_attention_plain(q, k, v, True, scale, block, mi=True,
+                                   window=window)
+    pos = torch.arange(t, device=dev)
+    win_mask = (pos[None, :] <= pos[:, None]) & \
+        (pos[:, None] - pos[None, :] < window)
+    err = (got - want).abs().max().item()
+    record("flash_attention_window", "n1-h16-T1024-D128-causal-b16-w128",
+           err, err <= ATTN_ATOL, ATTN_NOTE + "; rerun bit-equal",
+           lambda: A.flash_attention(q, k, v, scale=scale, block=block,
+                                     window=window),
+           lambda: A.flash_attention_plain(q, k, v, True, scale, block,
+                                           mi=True, window=window),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, attn_mask=win_mask, scale=scale),
+           nbytes=4 * 4 * n * h * t * d,
+           flops=4 * d * n * h * int(win_mask.sum()))
+    win_full = got  # K2 over rings must give these rows
+
+    # K2 and K2q over windowed layers' rings: 25 pages of 16 rows a slot
+    # (window 128 + the 256-row bucket - 1, plus a page), read through
+    # rotated tables, at decode (8 slots, every ring wrapped), the verify
+    # (8 slots x 5 rows) and a 256-row prefill at offset 512.  K2's rows
+    # must be K1's windowed rows bit for bit; the yardstick is SDPA over
+    # the ring gathered in position order, masked by position
+    from mxnet_tpu_torch.serve.model import ring_table
+
+    rp, page = 25, 16
+    ring_rows = [k[0].transpose(0, 1), v[0].transpose(0, 1)]  # (T, h, d)
+
+    def ring_of(rows_, lasts):
+        """Each slot's ring after positions 0 .. last were written in
+        order; rows nothing wrote hold NaN (fp32, scales) or 0 (codes)."""
+        pools = []
+        for x in rows_:
+            shape = (len(lasts) * rp, page) + tuple(x.shape[1:])
+            pools.append(torch.full(shape, float("nan"), device=dev)
+                         if x.dtype.is_floating_point else
+                         torch.zeros(shape, dtype=x.dtype, device=dev))
+        for slot, last in enumerate(lasts):
+            p = torch.arange(max(last + 1 - rp * page, 0), last + 1,
+                             device=dev)
+            for pool, x in zip(pools, rows_):
+                pool[slot * rp + (p // page) % rp, p % page] = x[p]
+        return pools
+
+    ring_cases = []
+    hz = np.array([420, 512, 600, 777, 850, 901, 1000, 1024])
+    ring_cases.append(("decode-S8-Q1-ring", hz - 1, (hz - 1) // page,
+                       torch.stack([q[0, :, n - 1] for n in hz])[:, :, None],
+                       torch.from_numpy(hz.astype(np.int32)).to(dev)))
+    committed = np.array([400, 455, 512, 600, 701, 800, 900, 1019])
+    hor = committed[:, None] + np.arange(5) + 1
+    ring_cases.append(("verify-S8-Q5-ring", committed + 4,
+                       (committed + 4) // page,
+                       torch.stack([torch.stack([q[0, :, n - 1] for n in row],
+                                                1) for row in hor]),
+                       torch.from_numpy(hor.astype(np.int32)).to(dev)))
+    hor = (512 + np.arange(256) + 1)[None]
+    ring_cases.append(("prefill-S1-Q256-offset512-ring", np.array([767]),
+                       np.array([767 // page]), q[:, :, 512:768],
+                       torch.from_numpy(hor.astype(np.int32)).to(dev)))
+
+    def ring_sdpa(qr, pools, table, k_pos0, hor_):
+        """SDPA over each slot's ring gathered in position order, each row
+        masked to 0 <= p <= pos and p > pos - window (the gather is not
+        timed)."""
+        kpos = A.table_positions(k_pos0, table, page)        # (S, L)
+        hr = hor_ if hor_.dim() == 2 else hor_[:, None]      # (S, Q|1)
+        posq = (hr - 1)[:, None, :, None]
+        kp = kpos[:, None, None, :]
+        mask = (kp >= 0) & (kp <= posq) & (kp > posq - window)
+        kc, vc = (A.gather_pages(pool, table) for pool in pools[:2])
+        if len(pools) == 4:  # codes: dequantize the gathered rows
+            kc = Q.codes_to_float(kc) * A.gather_scales(
+                pools[2], table)[:, None, :, None]
+            vc = Q.codes_to_float(vc) * A.gather_scales(
+                pools[3], table)[:, None, :, None]
+        kc, vc = kc.contiguous(), vc.contiguous()
+        qc = qr.contiguous()
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask, scale=scale)
+
+    for mode in (None, "int8", "fp8"):
+        rows_ = ring_rows
+        if mode:
+            (kc_, ks_), (vc_, vs_) = (Q.kv_quantize_rows(x, mode)
+                                      for x in ring_rows)
+            rows_ = [kc_, vc_, ks_, vs_]
+        name = "paged_attention_q_ring" if mode else "paged_attention_ring"
+        for case, lasts, pb_max, qr, hor_ in ring_cases:
+            pools = ring_of(rows_, lasts)
+            table, k_pos0 = ring_table(
+                torch.arange(len(lasts), device=dev),
+                torch.from_numpy(pb_max).to(dev), rp, page)
+            kw = dict(window=window, k_pos0=k_pos0)
+            if mode:
+                kw.update(k_scale=pools[2], v_scale=pools[3])
+            qr = qr.contiguous()
+            got = A.paged_attention(qr, pools[0], pools[1], table, hor_, **kw)
+            if not torch.equal(got, A.paged_attention(qr, pools[0], pools[1],
+                                                      table, hor_, **kw)):
+                raise AssertionError("%s %s: a rerun gave other bits"
+                                     % (name, case))
+            hr = hor_ if hor_.dim() == 2 else hor_[:, None]
+            if not mode:  # every row is K1's windowed row, bit for bit
+                for i in range(hr.shape[0]):
+                    for j in range(hr.shape[1]):
+                        if not torch.equal(got[i, :, j],
+                                           win_full[0, :, int(hr[i, j]) - 1]):
+                            raise AssertionError(
+                                "%s %s: row (%d, %d) is not K1's windowed "
+                                "row" % (name, case, i, j))
+            want = A.paged_attention_plain(qr, pools[0], pools[1], table,
+                                           hor_, **kw)
+            err = (got - want).abs().max().item()
+            library = ring_sdpa(qr, pools, table, k_pos0, hor_)
+            lib_err = (library() - want).abs().max().item()
+            if not lib_err <= 1e-3:
+                raise AssertionError("%s %s: the ring SDPA is %.3g off the "
+                                     "plain version" % (name, case, lib_err))
+            hn = hr.cpu().numpy()
+            # keys a slot reads: the union of its rows' windows
+            keys = np.minimum(hn.max(-1), window + hn.shape[1] - 1)
+            vis = np.minimum(hn, window)
+            row_bytes = h * d * (1 if mode else 4) + (4 if mode else 0)
+            nbytes = (4 * (2 * qr.numel() + table.numel() + hor_.numel())
+                      + 2 * int(keys.sum()) * row_bytes)
+            record(name, "%s%s" % (mode + "-" if mode else "", case), err,
+                   err <= ATTN_ATOL,
+                   ATTN_NOTE + "; rerun bit-equal" + (
+                       "" if mode else "; every row K1's windowed row"),
+                   lambda: A.paged_attention(qr, pools[0], pools[1], table,
+                                             hor_, **kw),
+                   lambda: A.paged_attention_plain(qr, pools[0], pools[1],
+                                                   table, hor_, **kw),
+                   library, nbytes=nbytes,
+                   flops=4 * d * h * int(vis.sum()), bandwidth=True)
+            del pools
+    del ring_cases, win_full
+    torch.cuda.empty_cache()
+
+    # K10: the SSM scan at serving's shapes — a decode step (8 slots, one
+    # row each), a 256-row prefill chunk (one slot) and the verify (8
+    # slots x 5 rows, the state after every row kept) — bit-equal to the
+    # plain version, which runs K10's operations in its order; no single
+    # PyTorch call computes the scan
+    from mxnet_tpu_torch.ops import ssm_ops as SSM
+
+    h, d = 16, 128
+    gamma = SSM.ssm_decay(h, dev)
+    for s_, t_, collect, case in ((8, 1, False, "decode-S8-T1-H16-D128"),
+                                  (1, 256, False, "prefill-S1-T256-H16-D128"),
+                                  (8, 5, True,
+                                   "verify-S8-W5-H16-D128-collect")):
+        q, k, v = (randn(s_, t_, h, d) for _ in range(3))
+        state0 = 0.1 * randn(s_, h, d, d)
+        got = SSM.ssm_scan(q, k, v, state0, gamma, collect=collect)
+        again = SSM.ssm_scan(q, k, v, state0, gamma, collect=collect)
+        want = SSM.ssm_scan_plain(q, k, v, state0, gamma, collect=collect)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("ssm_scan %s: a rerun gave other bits"
+                                 % case)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        # q, k, v read, y written, the state read once and written once a
+        # row kept (the last snapshot is the state)
+        nbytes = 4 * (4 * s_ * t_ * h * d + h
+                      + (1 + (t_ if collect else 1)) * s_ * h * d * d)
+        record("ssm_scan", case, err, same,
+               "bit-equal: the plain version runs K10's operations in its "
+               "order; rerun bit-equal",
+               lambda: SSM.ssm_scan(q, k, v, state0, gamma, collect=collect),
+               lambda: SSM.ssm_scan_plain(q, k, v, state0, gamma,
+                                          collect=collect),
+               None, nbytes=nbytes, flops=5 * s_ * t_ * h * d * d,
+               device_key="ssm_scan_kernel")
+        del q, k, v, state0, got, again, want
+    torch.cuda.empty_cache()
+
     # K3: every projection shape of the path at decode rows, the
     # speculative verify's 8 x 5 rows and prefill rows.  Tolerance: both
     # sides sum C products in fp32 in different orders, so each output
@@ -2996,6 +3351,14 @@ def main():
     del sess
     torch.cuda.empty_cache()
 
+    # -- 4d. hybrid stacks: window rings and SSM states at full width ------
+    t0 = time.perf_counter()
+    hybrid_launches = hybrid_phases(dev, cfg, smi)
+    for name, n in hybrid_launches.items():
+        launches[name] += n
+    phase_s["hybrid"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # -- 5. train at full width -------------------------------------------
     stats, train_launches = train_phase(dev, train_config(), batch=8)
     log("train", nvidia_smi=smi, launches=train_launches, **stats)
@@ -3158,7 +3521,12 @@ def main():
                  "rtc_softmax_backward": "fp32-256x1000",
                  "mi_linear_q": "int8-M8-F6144-C2048",
                  "paged_attention_q": "int8-decode-S8-Q1",
-                 "kv_append_quantized": "int8-decode-N8"}
+                 "kv_append_quantized": "int8-decode-N8",
+                 "flash_attention_window": "n1-h16-T1024-D128-causal-b16-"
+                                           "w128",
+                 "paged_attention_ring": "decode-S8-Q1-ring",
+                 "paged_attention_q_ring": "int8-decode-S8-Q1-ring",
+                 "ssm_scan": "decode-S8-T1-H16-D128"}
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
         "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
@@ -3172,6 +3540,15 @@ def main():
                        "mxnet_tpu/quantize.py:146",
         "paged_attention_q": "mxnet_tpu/ops/attention.py:368",
         "kv_append_quantized": "mxnet_tpu/quantize.py:337",
+        # the windowed forward is the lax _flash_forward (the Pallas kernel
+        # takes no window); rings: decode_attention's window half with
+        # serve/model.py's _ring_gather
+        "flash_attention_window": "mxnet_tpu/ops/attention.py:211",
+        "paged_attention_ring": "mxnet_tpu/ops/attention.py:368 + "
+                                "mxnet_tpu/serve/model.py:378",
+        "paged_attention_q_ring": "mxnet_tpu/ops/attention.py:368 + "
+                                  "mxnet_tpu/serve/model.py:378",
+        "ssm_scan": "mxnet_tpu/ops/ssm_ops.py:62",
     }
     sources = {name: ("cuda", "mxnet_tpu_torch/csrc/%s.cu" % stem)
                for name, (stem, _, _) in _cuda.KERNELS.items()}

@@ -11,9 +11,11 @@ process with the same sources reuses the libraries.  nvcc's output
 library as ``lib<source>.log``.
 
 Flags are per source (:func:`nvcc_flags`).  The exact sources — K1, K2
-and K2q (``online_softmax.cuh``'s users), K3 and K3q (the projection),
-K9 (``kv_quant.cu``, the KV rows' quantize-and-append), the BatchNorm
-sums and run-time ``rtc`` kernels — build with ``-fmad=false``, so that
+and K2q (``online_softmax.cuh``'s users, windowed and over rings too), K3
+and K3q (the projection), K9 (``kv_quant.cu``, the KV rows'
+quantize-and-append), K10 (``ssm_scan.cu``, the SSM recurrence), the
+BatchNorm sums and run-time ``rtc`` kernels — build with ``-fmad=false``,
+so that
 no add and multiply are contracted behind serving's bit-exactness
 contract.  The backward kernels K4 and K8 and the Hopper forward K7 build
 without it (:data:`SOURCE_FLAGS`): none has a bit contract, and
@@ -100,6 +102,22 @@ KERNELS = {
     "kv_append_quantized": (
         "kv_quant", "mxt_kv_append_quantized",
         (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # hybrid stacks: K1 with a sliding window, K2/K2q over windowed
+    # layers' rings (rotated tables, position labels), K10 the SSM scan
+    "flash_attention_window": (
+        "flash_attention", "mxt_flash_attention_window",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
+    "paged_attention_ring": (
+        "paged_attention", "mxt_paged_attention_ring",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P)),
+    "paged_attention_q_ring": (
+        "paged_attention", "mxt_paged_attention_q_ring",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _F, _I, _P)),
+    "ssm_scan": (
+        "ssm_scan", "mxt_ssm_scan",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "bn_stats": (
         "batch_norm", "mxt_bn_stats",
         (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),

@@ -36,8 +36,15 @@
 //     did), then the fold  x * corr + sum  (online_softmax.cuh: rescale,
 //     block_prob, fold).
 // A block with no visible key is an exact no-op (correction 1 and +0
-// added; l and acc are never -0), so blocks past a tile's last row are
-// skipped and a block masked for some rows of a tile may be run for all.
+// added; l and acc are never -0, and while nothing is seen correction 0
+// keeps them +0), so blocks past a tile's last row are skipped and a
+// block masked for some rows of a tile may be run for all.
+//
+// A sliding window (window > 0: row i sees keys i - window < j, the JAX
+// package's _flash_forward with window, :211-246) raises each row's lower
+// bound; the groups of keys wholly left of the tile's window are skipped
+// (flash_tile.cuh), and at window = 0 the kernel runs exactly the
+// operations it ran without one.
 //
 // Design: a CTA (8 warps) takes a tile of TQ = 16 or 32 query rows of
 // one (batch, head), chosen at launch so the grid fills the card (the
@@ -84,13 +91,13 @@ struct Params {
   const float* v;
   float* out;
   float* lse;
-  int n_bh, T, D, causal, block, group, tiles;
+  int n_bh, T, D, causal, block, group, tiles, window;
   float scale;
 };
 
 // K1's tile source: query rows row0 .. of one (batch, head), keys and
 // values of the same (T, D) block, row i seeing keys j <= i (causal) or
-// all T.
+// all T, and with a window only keys j > i - window.
 struct DenseTile {
   const float* q;  // the tile's first query row
   const float* k;
@@ -98,12 +105,17 @@ struct DenseTile {
   float* o;
   float* lse_p;  // the tile's first row's lse, or null
   int T, D, row0, n, causal;  // n: rows of the tile below T
+  int window, block;
   static constexpr bool kGroupState = false;
 
   __device__ int rows() const { return n; }
   __device__ int horizon(int r) const {
     return r < n ? (causal ? row0 + r + 1 : T) : 0;
   }
+  __device__ int lower(int r) const {
+    return window > 0 ? max(row0 + r - window + 1, 0) : 0;
+  }
+  __device__ int key_begin() const { return lower(0) / block * block; }
   __device__ int key_end() const { return causal ? row0 + n : T; }
   __device__ mxt_tile::DenseRows keys(int j0) const {
     return {k + static_cast<size_t>(j0) * D, D};
@@ -129,7 +141,7 @@ flash_forward_kernel(const Params p) {
       p.q + base + static_cast<size_t>(row0) * p.D, p.k + base, p.v + base,
       p.out + base + static_cast<size_t>(row0) * p.D,
       p.lse ? p.lse + static_cast<size_t>(bh) * p.T + row0 : nullptr, p.T,
-      p.D, row0, min(TQ, p.T - row0), p.causal};
+      p.D, row0, min(TQ, p.T - row0), p.causal, p.window, p.block};
   mxt_tile::tile_forward<DPL, RM>(src, p.D, p.block, p.group, p.scale);
 }
 
@@ -163,6 +175,25 @@ int launch_rows(const Params& p, cudaStream_t stream) {
   return launch<DPL, 2>(p, stream);
 }
 
+int forward(const void* q, const void* k, const void* v, void* out,
+            void* lse, int n_bh, int T, int D, float scale, int causal,
+            int block, int window, void* stream) {
+  if (D < 1 || D > mxt::kMaxHeadDim || block < 1 ||
+      block > mxt::kMaxBlock || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a group is as many whole blocks as fit in kGroup keys
+  const int group = block * (kGroup / block);
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+           static_cast<const float*>(v), static_cast<float*>(out),
+           static_cast<float*>(lse), n_bh, T, D, causal, block, group, 0,
+           window, scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return launch_rows<1>(p, st);
+  if (D <= 64) return launch_rows<2>(p, st);
+  if (D <= 128) return launch_rows<4>(p, st);
+  return launch_rows<8>(p, st);
+}
+
 }  // namespace
 
 // q, k, v, out: (n_bh, T, D) contiguous fp32 on the current device, D <=
@@ -174,17 +205,18 @@ extern "C" int mxt_flash_attention_forward(const void* q, const void* k,
                                            void* lse, int n_bh, int T,
                                            int D, float scale, int causal,
                                            int block, void* stream) {
-  if (D < 1 || D > mxt::kMaxHeadDim || block < 1 || block > mxt::kMaxBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // a group is as many whole blocks as fit in kGroup keys
-  const int group = block * (kGroup / block);
-  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-           static_cast<const float*>(v), static_cast<float*>(out),
-           static_cast<float*>(lse), n_bh, T, D, causal, block, group, 0,
-           scale};
-  auto st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return launch_rows<1>(p, st);
-  if (D <= 64) return launch_rows<2>(p, st);
-  if (D <= 128) return launch_rows<4>(p, st);
-  return launch_rows<8>(p, st);
+  return forward(q, k, v, out, lse, n_bh, T, D, scale, causal, block, 0,
+                 stream);
+}
+
+// K1 with a sliding window of ``window`` >= 1 keys (row i sees keys j with
+// i - window < j, and j <= i when causal); otherwise as above.
+extern "C" int mxt_flash_attention_window(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          void* lse, int n_bh, int T, int D,
+                                          float scale, int causal, int block,
+                                          int window, void* stream) {
+  if (window < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, out, lse, n_bh, T, D, scale, causal, block,
+                 window, stream);
 }

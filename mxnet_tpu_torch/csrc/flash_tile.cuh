@@ -6,10 +6,22 @@
 // the row of K1 with block = page).  flash_attention.cu's header comment
 // sets out the order and the design; testing/flash_order.py emulates it.
 // What differs between the two kernels is only where the rows come from:
-// a tile source gives the query rows, each row's horizon (keys j <
-// horizon are visible: causal or full for K1, serving's per-row lengths
-// for K2) and row sources of keys and values, which K2q dequantizes as
-// it stages them (code * scale, codes.cuh).
+// a tile source gives the query rows, each row's visible keys lower(r)
+// <= j < horizon(r) (causal or full for K1, serving's per-row lengths
+// for K2; a sliding window raises the lower bound, and K2 over a ring
+// labels its table rows with absolute positions from k_pos0 on) and row
+// sources of keys and values, which K2q dequantizes as it stages them
+// (code * scale, codes.cuh).
+//
+// A sliding window skips the blocks of keys wholly left of every row of
+// the tile, the way causal skips those past its last row.  That is exact:
+// keys are visited in increasing order, so a block left of a row's window
+// comes before any key the row sees, while its running max is still -inf,
+// and a fully masked block at m = -inf is the identity (rescale gives
+// corr 0, the probabilities are -0 and their sum +0, so l = 0 * 0 + 0 and
+// acc = 0 * 0 + (+0) stay +0).  key_begin() is a multiple of the block,
+// so the blocks keep their boundaries.  Groups then start at key_begin()
+// plus multiples of G.
 #pragma once
 
 #include <cstddef>
@@ -303,8 +315,9 @@ __device__ __forceinline__ void tile_scores(float (&res)[SR][4],
 // ``block`` keys, G keys (whole blocks) scored before they are summed.
 // ``src`` (a tile source: DenseTile in flash_attention.cu, PagedTile in
 // paged_attention.cu) gives the tile's query rows (rows(), q: row-major,
-// row stride D), each row's horizon (keys j < horizon(r) are visible; 0
-// past rows()), the keys any row sees (key_end()), row sources of keys
+// row stride D), each row's visible keys (lower(r) <= j < horizon(r); a
+// horizon of 0 past rows()), the keys any row sees (from key_begin(), a
+// multiple of ``block``, to key_end()), row sources of keys
 // and values from key j0 on (keys(j0), values(j0): get4 / get), and where
 // a row's output goes (out(r); lse(r), null where none is kept).  A
 // source with kGroupState gets begin_group(g0, n, tid) from every thread
@@ -344,11 +357,14 @@ __device__ __forceinline__ void tile_forward(const Src& src, int D,
     for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
   const int ty = tid / 16, tc = tid % 16;
   const int my_row = warp * RM + lane;  // for lanes < RM
-  int hz[SR];  // the horizons of this thread's score rows
+  int hz[SR], lo[SR];  // the visible keys of this thread's score rows
 #pragma unroll
-  for (int r = 0; r < SR; ++r) hz[r] = src.horizon(ty * SR + r);
+  for (int r = 0; r < SR; ++r) {
+    hz[r] = src.horizon(ty * SR + r);
+    lo[r] = src.lower(ty * SR + r);
+  }
 
-  for (int g0 = 0; g0 < key_end; g0 += G) {
+  for (int g0 = src.key_begin(); g0 < key_end; g0 += G) {
     const int n_g = min(G, key_end - g0);
     const int nb = (n_g + block - 1) / block;
     if constexpr (Src::kGroupState) {  // where the group's rows lie
@@ -370,7 +386,7 @@ __device__ __forceinline__ void tile_forward(const Src& src, int D,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = g0 + c0 + tc * 4 + c;
-          w[c] = j < hz[r] ? s[r][c] : -INFINITY;
+          w[c] = (j < hz[r] && j >= lo[r]) ? s[r][c] : -INFINITY;
         }
         if (c0 + tc * 4 < G)
           *reinterpret_cast<float4*>(sc + (ty * SR + r) * L.s_ld + c0 +

@@ -4,7 +4,10 @@
 //
 // Replaces: mxnet_tpu/ops/attention.py::decode_attention (:368-490)
 // together with the page gathers that feed it in serve/model.py
-// (k_pool[i][tables], :586-589 for prefill and :719-722 for decode).
+// (k_pool[i][tables], :586-589 for prefill and :719-722 for decode), and
+// for windowed layers of hybrid stacks its window half with position
+// labels together with the ring gather (serve/model.py::_ring_gather,
+// :378-412).
 // One entry serves decode (Q = 1 query per slot, one horizon per slot),
 // prefill (S = 1, Q = bucket rows, per-row horizons offset + j + 1) and
 // the speculative verify (S slots of Q = K + 1 rows, per-row horizons),
@@ -67,6 +70,22 @@
 // serves the whole tile from shared memory, and no score takes a
 // shuffle.
 //
+// Windowed layers (the _ring entries) read a slot's per-slot ring of
+// pages through a rotated table: table row j is the ring page holding
+// absolute page pb_max - RP + 1 + j, and table position j * page + o is
+// absolute position k_pos0[s] + j * page + o (k_pos0 a multiple of the
+// page, negative before the ring first wraps).  A row with horizon n
+// (keys at positions < n) sees positions p with max(n - window, 0) <= p
+// < n: in table positions lo <= j < hz.  The gathered context the JAX
+// package builds is never materialised.  Pages left of every row's lo
+// come first, while the running max is -inf, where a page's fold is the
+// identity (corr 0, +0 added to +0), so the kernels start at the first
+// page any row sees (decode) or the first group (prefill, K1's tile).
+// The table's pages keep absolute page boundaries, so a ring row visits
+// the blocks K1 visits with a window over the whole context, with the
+// same masks, and gives its bits.  Without a window and with k_pos0 0
+// (the plain entries) the kernels run exactly their old operations.
+//
 // K2q replaces the same function over quantized pages
 // (decode_attention's k_scale/v_scale, :368-430, with the scale gathers
 // of serve/model.py).  It dequantizes each key and value element with
@@ -105,25 +124,35 @@ struct Params {
   const float* v_scale;
   const int* tables;
   const int* lengths;
+  const int* k_pos0;  // (S,) position of table row 0, or null: 0
   float* out;
-  int H, Q, D, page, max_pages, per_row, tiles, chunk;
+  int H, Q, D, page, max_pages, per_row, tiles, chunk, window;
   float scale;
 };
 
+// Row length n's visible table positions [lo, hz) for a slot whose table
+// starts at position k0: positions max(n - window, 0) <= p < n (window 0:
+// 0 <= p < n), at most the table's capacity.
+__device__ __forceinline__ int2 visible(int n, int k0, int window, int cap) {
+  const int lo = window > 0 ? max(n - window, 0) : 0;
+  return make_int2(min(max(lo - k0, 0), cap), min(max(n - k0, 0), cap));
+}
+
 // Offsets (in 4-byte words) of a CTA's shared arrays.  Per tile row: the
 // scaled query and the accumulator (D each), l, the running max after
-// the previous chunk (two, alternating), the horizon; per row and page
-// of the chunk: the scores, block max, correction, probability sum and
-// value sum (D).
+// the previous chunk (two, alternating), the horizon and the lower bound;
+// per row and page of the chunk: the scores, block max, correction,
+// probability sum and value sum (D).
 struct Layout {
-  int qs, acc, l, mrun, hz, sc, bmax, corr, psum, pv, words;
+  int qs, acc, l, mrun, hz, lo, sc, bmax, corr, psum, pv, words;
   __host__ __device__ Layout(int rows, int D, int page, int chunk) {
     qs = 0;
     acc = qs + rows * D;
     l = acc + rows * D;
     mrun = l + rows;
     hz = mrun + 2 * rows;
-    sc = hz + rows;
+    lo = hz + rows;
+    sc = lo + rows;
     bmax = sc + rows * chunk * page;
     corr = bmax + rows * chunk;
     psum = corr + rows * chunk;
@@ -185,6 +214,7 @@ __device__ __forceinline__ void paged_body(const Params& p) {
   float* lsum = smem + L.l;
   float* mrun = smem + L.mrun;
   int* hz = reinterpret_cast<int*>(smem + L.hz);
+  int* lo = reinterpret_cast<int*>(smem + L.lo);
   float* sc = smem + L.sc;
   float* bmax = smem + L.bmax;
   float* corr = smem + L.corr;
@@ -202,9 +232,12 @@ __device__ __forceinline__ void paged_body(const Params& p) {
   const int rows = min(QT, p.Q - r0);
   const int cap = p.max_pages * page;
 
+  const int k0 = p.k_pos0 != nullptr ? p.k_pos0[s] : 0;
   for (int r = tid; r < rows; r += kThreads) {
     const int n = p.per_row ? p.lengths[s * p.Q + r0 + r] : p.lengths[s];
-    hz[r] = min(max(n, 0), cap);
+    const int2 vis = visible(n, k0, p.window, cap);
+    lo[r] = vis.x;
+    hz[r] = vis.y;
     lsum[r] = 0.f;
     mrun[r] = -INFINITY;
   }
@@ -214,15 +247,18 @@ __device__ __forceinline__ void paged_body(const Params& p) {
     acc[e] = 0.f;
   }
   __syncthreads();
-  int hmax = 0;
-  for (int r = 0; r < rows; ++r) hmax = max(hmax, hz[r]);
+  int hmax = 0, lmin = cap;
+  for (int r = 0; r < rows; ++r) {
+    hmax = max(hmax, hz[r]);
+    lmin = min(lmin, lo[r]);
+  }
   const int npages = (hmax + page - 1) / page;  // pages some row sees
   const int* table = p.tables + static_cast<size_t>(s) * p.max_pages;
   const size_t key_stride = static_cast<size_t>(p.H) * D;
   const size_t page_words = static_cast<size_t>(page) * key_stride;
 
   int cur = 0;  // which half of mrun holds the max before this chunk
-  for (int c0 = 0; c0 < npages; c0 += chunk) {
+  for (int c0 = lmin / page; c0 < npages; c0 += chunk) {
     const int nb = min(chunk, npages - c0);
     // 1. scores, then each row's block max in key order
     for (int bl = warp; bl < nb; bl += NW) {
@@ -237,7 +273,10 @@ __device__ __forceinline__ void paged_body(const Params& p) {
                          key_stride,
                          min(kKeys, min(page, hmax - start) - kc), D, lane);
         for (int r = 0; r < rows; ++r) {
-          const int vis = hz[r] - start - kc;  // keys of the slice r sees
+          // keys of the slice r sees: those below its horizon, none
+          // where the slice lies left of its lower bound
+          const int vis =
+              start + kc + kKeys > lo[r] ? hz[r] - start - kc : 0;
           float mine = -INFINITY;
           if (vis > 0) {
             float qv[DPL];
@@ -250,7 +289,8 @@ __device__ __forceinline__ void paged_body(const Params& p) {
             for (int j = 0; j < kKeys; ++j) {
               const float sj = mxt::warp_sum(mxt::lane_dot(
                   qv, [&](int i) { return kr[j][i]; }, D, lane));
-              if (lane == j && j < vis) mine = sj;
+              if (lane == j && j < vis && start + kc + j >= lo[r])
+                mine = sj;
             }
           }
           if (lane < kKeys && kc + lane < page)
@@ -429,7 +469,8 @@ struct PagedRows {
 
 // The tile source of query rows row0 .. row0 + n - 1 of slot s's head h:
 // row r sees the keys below its length (per_row: its own, else the
-// slot's), at most the table's capacity.
+// slot's) and, with a window, at or above its length - window, in table
+// positions from k0 on, at most the table's capacity.
 template <int kCode>
 struct PagedTile {
   using T = typename mxt::Codes<kCode>::T;
@@ -446,12 +487,15 @@ struct PagedTile {
   float* ks;        // shared: K2q's key and value scales of the group
   float* vs;
   size_t stride;
-  int per_row, cap, n, D, page, group, hmax;
+  int per_row, cap, n, D, page, group, hmax, lmin, k0, window;
 
-  __device__ int rows() const { return n; }
-  __device__ int horizon(int r) const {
-    return r < n ? min(max(lens[per_row ? r : 0], 0), cap) : 0;
+  __device__ int2 vis(int r) const {
+    return visible(lens[per_row ? r : 0], k0, window, cap);
   }
+  __device__ int rows() const { return n; }
+  __device__ int horizon(int r) const { return r < n ? vis(r).y : 0; }
+  __device__ int lower(int r) const { return r < n ? vis(r).x : 0; }
+  __device__ int key_begin() const { return lmin / page * page; }
   __device__ int key_end() const { return hmax; }
   __device__ void begin_group(int g0, int n_g, int tid) const {
     for (int j = tid; j < n_g; j += mxt_tile::kThreads) {
@@ -464,12 +508,13 @@ struct PagedTile {
       }
     }
   }
+  // key j0 of the group that begins at key_begin() + a multiple of group
   __device__ PagedRows<kCode> keys(int j0) const {
-    const int j = j0 % group;
+    const int j = (j0 - key_begin()) % group;
     return {k_pool, at + j, ks + j, stride};
   }
   __device__ PagedRows<kCode> values(int j0) const {
-    const int j = j0 % group;
+    const int j = (j0 - key_begin()) % group;
     return {v_pool, at + j, vs + j, stride};
   }
   __device__ float* out(int r) const { return o + static_cast<size_t>(r) * D; }
@@ -508,8 +553,13 @@ paged_prefill_kernel(const Params p) {
       p.per_row ? p.lengths + static_cast<size_t>(s) * p.Q + row0
                 : p.lengths + s,
       at, ks, ks + p.chunk, static_cast<size_t>(p.H) * p.D, p.per_row,
-      p.max_pages * p.page, min(TQ, p.Q - row0), p.D, p.page, p.chunk, 0};
-  for (int r = 0; r < src.n; ++r) src.hmax = max(src.hmax, src.horizon(r));
+      p.max_pages * p.page, min(TQ, p.Q - row0), p.D, p.page, p.chunk, 0,
+      p.max_pages * p.page, p.k_pos0 != nullptr ? p.k_pos0[s] : 0,
+      p.window};
+  for (int r = 0; r < src.n; ++r) {
+    src.hmax = max(src.hmax, src.horizon(r));
+    src.lmin = min(src.lmin, src.lower(r));
+  }
   mxt_tile::tile_forward<DPL, RM>(src, p.D, p.page, p.chunk, p.scale);
 }
 
@@ -574,8 +624,30 @@ extern "C" int mxt_paged_attention(const void* q, const void* k_pool,
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{static_cast<const float*>(q), k_pool, v_pool, nullptr, nullptr,
            static_cast<const int*>(tables), static_cast<const int*>(lengths),
-           static_cast<float*>(out), H, Q, D, page, max_pages, per_row, 0, 0,
-           scale};
+           nullptr, static_cast<float*>(out), H, Q, D, page, max_pages,
+           per_row, 0, 0, 0, scale};
+  return launch_code<0>(p, S, Q, static_cast<cudaStream_t>(stream));
+}
+
+// K2 over a windowed layer's rings: as mxt_paged_attention through the
+// rotated tables, with k_pos0 (S,) int32 the absolute position of each
+// slot's table row 0 (a multiple of the page) and a window of ``window``
+// keys (0: every key below the horizon).
+extern "C" int mxt_paged_attention_ring(const void* q, const void* k_pool,
+                                        const void* v_pool,
+                                        const void* tables,
+                                        const void* lengths,
+                                        const void* k_pos0, void* out, int S,
+                                        int H, int Q, int D, int page,
+                                        int max_pages, int per_row,
+                                        int window, float scale,
+                                        void* stream) {
+  if (D > mxt::kMaxHeadDim || page > mxt::kMaxBlock || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const float*>(q), k_pool, v_pool, nullptr, nullptr,
+           static_cast<const int*>(tables), static_cast<const int*>(lengths),
+           static_cast<const int*>(k_pos0), static_cast<float*>(out), H, Q,
+           D, page, max_pages, per_row, 0, 0, window, scale};
   return launch_code<0>(p, S, Q, static_cast<cudaStream_t>(stream));
 }
 
@@ -595,8 +667,28 @@ extern "C" int mxt_paged_attention_q(const void* q, const void* k_pool,
            static_cast<const float*>(k_scale),
            static_cast<const float*>(v_scale),
            static_cast<const int*>(tables), static_cast<const int*>(lengths),
-           static_cast<float*>(out), H, Q, D, page, max_pages, per_row, 0, 0,
-           scale};
+           nullptr, static_cast<float*>(out), H, Q, D, page, max_pages,
+           per_row, 0, 0, 0, scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  return e4m3 ? launch_code<2>(p, S, Q, st) : launch_code<1>(p, S, Q, st);
+}
+
+// K2q over a windowed layer's one-byte rings and their scale rings, as
+// mxt_paged_attention_ring.
+extern "C" int mxt_paged_attention_q_ring(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lengths, const void* k_pos0, void* out, int S, int H, int Q,
+    int D, int page, int max_pages, int per_row, int window, float scale,
+    int e4m3, void* stream) {
+  if (D > mxt::kMaxHeadDim || page > mxt::kMaxBlock || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const float*>(q), k_pool, v_pool,
+           static_cast<const float*>(k_scale),
+           static_cast<const float*>(v_scale),
+           static_cast<const int*>(tables), static_cast<const int*>(lengths),
+           static_cast<const int*>(k_pos0), static_cast<float*>(out), H, Q,
+           D, page, max_pages, per_row, 0, 0, window, scale};
   auto st = static_cast<cudaStream_t>(stream);
   return e4m3 ? launch_code<2>(p, S, Q, st) : launch_code<1>(p, S, Q, st);
 }

@@ -34,8 +34,17 @@ online-softmax step of :func:`online_block_merge` (the kernels through
 ``csrc/online_softmax.cuh``), so a paged decode row reproduces the
 matching row of a full-context forward bit for bit — the serving
 contract; K2q dequantizes each element before K2's arithmetic, so it
-keeps that contract over the dequantized context.  Sliding windows are
-ported in a later slice and raise here.
+keeps that contract over the dequantized context.
+
+Sliding windows (hybrid serving stacks): ``window > 0`` lets a query at
+position i see only keys j with ``i - window < j``.  The forward runs
+kernel K1 with the window on fp32 CUDA tensors; its backward (K4, K8)
+and the bf16 forward (K7) take no window yet, so a windowed call under
+autograd, or in bf16 on the card, raises.  :func:`paged_attention` takes
+the window and ``k_pos0``, the absolute position of each slot's first
+table row, which reads a windowed layer's per-slot ring through a
+rotated table (K2/K2q's ``_ring`` entries); the plain version labels the
+gathered rows with their positions, the JAX package's ``k_positions``.
 """
 from __future__ import annotations
 
@@ -46,14 +55,15 @@ import torch
 
 from .. import _cuda
 from .. import quantize as Q
-from ..base import MXNetError, get_env
+from ..base import MXNetError, get_env, later_slice
 
 __all__ = ["attention_impl", "attention_block_size", "dot_product_attention",
            "reference_attention", "flash_attention", "flash_attention_plain",
            "flash_forward_plain", "flash_backward_plain",
            "flash_attention_backward", "online_block_merge",
            "finalize_attention", "decode_attention", "gather_pages",
-           "gather_scales", "paged_attention", "paged_attention_plain"]
+           "gather_scales", "table_positions", "paged_attention",
+           "paged_attention_plain"]
 
 _IMPLS = ("auto", "flash", "reference")
 _MAX_HEAD_DIM = 256   # csrc/online_softmax.cuh: kMaxHeadDim
@@ -66,12 +76,6 @@ def attention_block_size():
     if block < 1:
         raise MXNetError("MXNET_ATTN_BLOCK must be >= 1, got %d" % block)
     return block
-
-
-def _no_window(window, who):
-    if window:
-        raise MXNetError("%s: window=%d — sliding-window attention is "
-                         "ported in a later slice" % (who, window))
 
 
 # ---------------------------------------------------------------------------
@@ -134,16 +138,30 @@ def _init_state(q, dv):
 # reference (materialized) path
 # ---------------------------------------------------------------------------
 
-def reference_attention(q, k, v, causal=True, scale=None):
+def _window_mask(q_pos, k_pos, causal, window):
+    """(Tq, Tk) visibility: ``k <= q`` when causal, ``q - k < window``
+    when ``window > 0``; None when every key is visible."""
+    mask = None
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        wmask = k_pos[None, :] > q_pos[:, None] - window
+        mask = wmask if mask is None else mask & wmask
+    return mask
+
+
+def reference_attention(q, k, v, causal=True, scale=None, window=0):
     """Exact softmax attention over the full (..., Tq, Tk) score matrix:
-    the numeric ground truth, scores in fp32, O(T^2) memory."""
+    the numeric ground truth, scores in fp32, O(T^2) memory.  ``window >
+    0`` restricts row i to keys j with ``i - j < window``."""
     t, d = q.shape[-2], q.shape[-1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     scores = (q @ k.transpose(-1, -2)).float() * scale
-    if causal:
-        mask = torch.ones((t, k.shape[-2]), dtype=torch.bool,
-                          device=q.device).tril()
+    mask = _window_mask(torch.arange(t, device=q.device),
+                        torch.arange(k.shape[-2], device=q.device), causal,
+                        window)
+    if mask is not None:
         scores = torch.where(mask, scores,
                              torch.full_like(scores, -torch.inf))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -163,12 +181,13 @@ def _padded_block(x, start, block):
     return xb
 
 
-def flash_forward_plain(q, k, v, causal, scale, block, mi=False):
+def flash_forward_plain(q, k, v, causal, scale, block, mi=False, window=0):
     """The JAX package's ``_flash_forward``: visit K/V blocks of ``block``
     rows from position 0 in order, carrying (acc, m, l) in fp32; padded
-    keys of a ragged last block mask out.  Returns ``(out, lse)``, ``out``
-    in q's dtype and the fp32 logsumexp ``lse = m + log l`` of shape
-    (..., T, 1) that the backward recomputes probabilities from."""
+    keys of a ragged last block mask out, and with ``window > 0`` keys at
+    or left of ``i - window``.  Returns ``(out, lse)``, ``out`` in q's
+    dtype and the fp32 logsumexp ``lse = m + log l`` of shape (..., T, 1)
+    that the backward recomputes probabilities from."""
     t = q.shape[-2]
     q32 = q.float() * scale
     q_pos = torch.arange(t, device=q.device)
@@ -176,8 +195,9 @@ def flash_forward_plain(q, k, v, causal, scale, block, mi=False):
     for start in range(0, t, block):
         k_pos = torch.arange(start, start + block, device=q.device)
         mask = (k_pos < t)[None, :]
-        if causal:
-            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        vis = _window_mask(q_pos, k_pos, causal, window)
+        if vis is not None:
+            mask = mask & vis
         acc, m, l = _attend_block(q32, _padded_block(k, start, block),
                                   _padded_block(v, start, block), acc, m, l,
                                   mask, mi)
@@ -187,10 +207,12 @@ def flash_forward_plain(q, k, v, causal, scale, block, mi=False):
     return out, lse
 
 
-def flash_attention_plain(q, k, v, causal, scale, block, mi=False):
+def flash_attention_plain(q, k, v, causal, scale, block, mi=False,
+                          window=0):
     """Plain version of kernel K1's output: :func:`flash_forward_plain`
     without the logsumexp."""
-    return flash_forward_plain(q, k, v, causal, scale, block, mi=mi)[0]
+    return flash_forward_plain(q, k, v, causal, scale, block, mi=mi,
+                               window=window)[0]
 
 
 def flash_backward_plain(q, k, v, out, lse, g, causal, scale, block):
@@ -347,11 +369,16 @@ def _flash_backward_sm90(q, k, v, out, lse, g, causal, scale):
     return tuple(x[..., :d].reshape(q.shape) for x in (dq, dk, dv))
 
 
-def _flash_forward_cuda(q, k, v, causal, scale, block, with_lse):
+def _flash_forward_cuda(q, k, v, causal, scale, block, with_lse,
+                        window=0):
     """The forward on the card, by dtype: K7 for bf16, K1 for fp32 (out,
-    lse or None).  No fallback: another dtype or shape raises."""
+    lse or None); a window runs K1's windowed entry.  No fallback: another
+    dtype or shape raises."""
     _check_inputs("flash_attention", (q, k, v))
     if q.dtype == torch.bfloat16:
+        if window:
+            raise later_slice("flash_attention(window) in bfloat16 (K7's "
+                              "window)", window)
         return _flash_forward_sm90(q, k, v, causal, scale, with_lse)
     t, d = q.shape[-2], q.shape[-1]
     q3, k3, v3 = _kernel_rows("flash_attention", t, d, block, q, k, v)
@@ -359,12 +386,15 @@ def _flash_forward_cuda(q, k, v, causal, scale, block, with_lse):
     lse = (torch.empty(q3.shape[:-1], dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel():
+        args = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None, q3.shape[0], t, d,
+                float(scale), int(bool(causal)), int(block))
         with torch.cuda.device(q.device):
-            _cuda.launch("flash_attention", q3.data_ptr(), k3.data_ptr(),
-                         v3.data_ptr(), out.data_ptr(),
-                         lse.data_ptr() if with_lse else None, q3.shape[0],
-                         t, d, float(scale), int(bool(causal)), int(block),
-                         _cuda.stream_of(q))
+            if window:
+                _cuda.launch("flash_attention_window", *args, int(window),
+                             _cuda.stream_of(q))
+            else:
+                _cuda.launch("flash_attention", *args, _cuda.stream_of(q))
     out = out.reshape(q.shape)
     return out, (lse.reshape(q.shape[:-1] + (1,)) if with_lse else None)
 
@@ -403,10 +433,12 @@ def flash_attention_backward(q, k, v, out, lse, g, causal, scale, block):
     return flash_backward_plain(q, k, v, out, lse, g, causal, scale, block)
 
 
-def _flash_forward(q, k, v, causal, scale, block, mi, with_lse):
+def _flash_forward(q, k, v, causal, scale, block, mi, with_lse, window=0):
     if q.is_cuda:
-        return _flash_forward_cuda(q, k, v, causal, scale, block, with_lse)
-    return flash_forward_plain(q, k, v, causal, scale, block, mi=mi)
+        return _flash_forward_cuda(q, k, v, causal, scale, block, with_lse,
+                                   window)
+    return flash_forward_plain(q, k, v, causal, scale, block, mi=mi,
+                               window=window)
 
 
 class _FlashFn(torch.autograd.Function):
@@ -443,18 +475,28 @@ def flash_attention(q, k, v, causal=True, scale=None, block=None, mi=False,
     the logsumexp); without a gradient the kernel writes no logsumexp.
     An explicit ``block`` is honoured verbatim by K1 and the plain
     versions (serving bit-exactness needs the accumulation width fixed
-    across T)."""
-    _no_window(window, "flash_attention")
+    across T).  ``window > 0`` limits row i to keys j with ``i - window <
+    j``: K1's windowed forward on fp32 CUDA tensors, the plain forward on
+    CPU tensors; the windowed backward (K4/K7/K8's window) is a later
+    slice, so a windowed call that autograd records raises, as does a
+    bf16 one on the card."""
     d = q.shape[-1]
     t = k.shape[-2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if block is None:
         block = min(attention_block_size(), max(t, 1))
+    window = int(window)
+    if window < 0:
+        raise MXNetError("flash_attention: window must be >= 0, got %d"
+                         % window)
     cfg = (bool(causal), float(scale), int(block))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if window:
+            raise later_slice("flash_attention(window) under autograd "
+                              "(K4/K7/K8's window)", window)
         return _FlashFn.apply(q, k, v, *cfg, bool(mi))
-    return _flash_forward(q, k, v, *cfg, mi, False)[0]
+    return _flash_forward(q, k, v, *cfg, mi, False, window)[0]
 
 
 def attention_impl():
@@ -473,14 +515,15 @@ def dot_product_attention(q, k, v, causal=True, scale=None, impl=None,
     ``auto`` and ``flash`` run :func:`flash_attention` — kernels K1/K4
     (fp32) or K7/K8 (bf16) on CUDA tensors, where the JAX package's
     ``auto`` picks its TPU flash kernel, and the plain blockwise versions
-    elsewhere."""
+    elsewhere.  ``window`` as in :func:`flash_attention`."""
     impl = (impl or attention_impl()).strip().lower()
     if impl not in _IMPLS:
         raise MXNetError("attention impl %r not in %s" % (impl, _IMPLS))
-    _no_window(window, "dot_product_attention")
     if impl == "reference":
-        return reference_attention(q, k, v, causal=causal, scale=scale)
-    return flash_attention(q, k, v, causal=causal, scale=scale, block=block)
+        return reference_attention(q, k, v, causal=causal, scale=scale,
+                                   window=window)
+    return flash_attention(q, k, v, causal=causal, scale=scale, block=block,
+                           window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -499,14 +542,19 @@ def _valid_len(lengths, q):
 
 
 def decode_attention(q, k_ctx, v_ctx, lengths, scale=None, block=None,
-                     mi=False, k_scale=None, v_scale=None):
+                     mi=False, k_scale=None, v_scale=None, window=0,
+                     k_positions=None):
     """Attention of (S, H, Q, D) queries over a gathered (S, H, Tcap, D)
     context, the JAX package's ``decode_attention``: ``lengths`` (S,) or
     per-row (S, Q) counts the keys each query sees; all ``Tcap/block``
     blocks are visited in order with the validity mask, and a slot with
     length 0 gives 0.  ``k_scale``/``v_scale`` (S, Tcap) float32 make the
     context quantized codes, dequantized block by block (``code *
-    scale``)."""
+    scale``).  ``window > 0`` adds the lower bound: with ``pos = length -
+    1`` a row sees positions ``p > pos - window``.  ``k_positions`` (S,
+    Tcap) int gives each context row its absolute position (a rotated
+    ring gather): visible iff ``0 <= p <= pos`` (and the window); without
+    it row j is position j."""
     d = q.shape[-1]
     t_cap = k_ctx.shape[-2]
     if scale is None:
@@ -521,8 +569,18 @@ def decode_attention(q, k_ctx, v_ctx, lengths, scale=None, block=None,
     q32 = q.float() * scale
     acc, m, l = _init_state(q, v_ctx.shape[-1])
     for start in range(0, t_cap, block):
-        k_pos = torch.arange(start, start + block, device=q.device)
-        mask = k_pos < valid_len
+        if k_positions is not None:
+            # (S, 1, 1, block) labels against the (S, 1, Q|1, 1) horizons
+            kp = k_positions[:, None, None, start:start + block]
+            pos = valid_len - 1
+            mask = (kp >= 0) & (kp <= pos)
+            if window:
+                mask = mask & (kp > pos - window)
+        else:
+            k_pos = torch.arange(start, start + block, device=q.device)
+            mask = k_pos < valid_len
+            if window:
+                mask = mask & (k_pos >= valid_len - window)
         kb = k_ctx[..., start:start + block, :]
         vb = v_ctx[..., start:start + block, :]
         if k_scale is not None:  # the quantized context's dequantization
@@ -549,22 +607,36 @@ def gather_scales(scales, tables):
     return scales[tables.long()].reshape(tables.shape[0], -1)
 
 
+def table_positions(k_pos0, tables, page):
+    """(S, max_pages * page) absolute positions of the rows a rotated
+    ring table gathers: ``k_pos0[s] + j`` (the JAX package's
+    ``k_positions`` of ``_ring_gather``)."""
+    cap = tables.shape[1] * page
+    return k_pos0.long()[:, None] + torch.arange(cap, device=tables.device)
+
+
 def paged_attention_plain(q, k_pool, v_pool, tables, lengths, scale=None,
-                          mi=True, k_scale=None, v_scale=None):
+                          mi=True, k_scale=None, v_scale=None, window=0,
+                          k_pos0=None):
     """Plain version of kernels K2 and K2q: gather the slots' pages (and
     their scale rows), then :func:`decode_attention` with ``block =
-    page_size``."""
+    page_size``; with ``k_pos0`` the gathered rows carry their absolute
+    positions (:func:`table_positions`)."""
     ks = vs = None
     if k_scale is not None:
         ks, vs = gather_scales(k_scale, tables), gather_scales(v_scale, tables)
+    kpos = None
+    if k_pos0 is not None:
+        kpos = table_positions(k_pos0, tables, k_pool.shape[1])
     return decode_attention(q, gather_pages(k_pool, tables),
                             gather_pages(v_pool, tables), lengths,
                             scale=scale, block=k_pool.shape[1], mi=mi,
-                            k_scale=ks, v_scale=vs)
+                            k_scale=ks, v_scale=vs, window=window,
+                            k_positions=kpos)
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale,
-                          k_scale=None, v_scale=None):
+                          k_scale=None, v_scale=None, window=0, k_pos0=None):
     s, h, nq, d = q.shape
     _, page, ph, pd = k_pool.shape
     quant = k_scale is not None or v_scale is not None
@@ -599,7 +671,17 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale,
     if tuple(lengths.shape) != ((s, nq) if per_row else (s,)):
         raise MXNetError("paged_attention: lengths %r do not match queries "
                          "%r" % (tuple(lengths.shape), tuple(q.shape)))
-    for x in (k_pool, v_pool, tables, lengths):
+    ring = bool(window) or k_pos0 is not None
+    if ring:
+        if k_pos0 is None:
+            k_pos0 = torch.zeros((s,), dtype=torch.int32, device=q.device)
+        if k_pos0.dtype != torch.int32 or tuple(k_pos0.shape) != (s,):
+            raise MXNetError("paged_attention: k_pos0 must be (%d,) int32"
+                             % s)
+        if window < 0:
+            raise MXNetError("paged_attention: window must be >= 0")
+        k_pos0 = k_pos0.contiguous()
+    for x in (k_pool, v_pool, tables, lengths) + ((k_pos0,) if ring else ()):
         if x.device != q.device:
             raise MXNetError("paged_attention: inputs on different devices")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
@@ -612,27 +694,30 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, scale,
     tables = tables.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
-    if out.numel() and quant:
-        with torch.cuda.device(q.device):
-            _cuda.launch("paged_attention_q", q.data_ptr(), k_pool.data_ptr(),
-                         v_pool.data_ptr(), k_scale.data_ptr(),
-                         v_scale.data_ptr(), tables.data_ptr(),
-                         lengths.data_ptr(), out.data_ptr(), s, h, nq, d,
-                         page, tables.shape[1], int(per_row), float(scale),
-                         int(Q.code_mode(k_pool) == "fp8"),
-                         _cuda.stream_of(q))
-    elif out.numel():
-        with torch.cuda.device(q.device):
-            _cuda.launch("paged_attention", q.data_ptr(), k_pool.data_ptr(),
-                         v_pool.data_ptr(), tables.data_ptr(),
-                         lengths.data_ptr(), out.data_ptr(), s, h, nq, d,
-                         page, tables.shape[1], int(per_row), float(scale),
-                         _cuda.stream_of(q))
+    if not out.numel():
+        return out
+    pools = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    if quant:
+        pools += (k_scale.data_ptr(), v_scale.data_ptr())
+    rows = (tables.data_ptr(), lengths.data_ptr())
+    if ring:
+        rows += (k_pos0.data_ptr(),)
+    dims = (out.data_ptr(), s, h, nq, d, page, tables.shape[1], int(per_row))
+    if ring:
+        dims += (int(window),)
+    tail = (float(scale),)
+    if quant:
+        tail += (int(Q.code_mode(k_pool) == "fp8"),)
+    name = "paged_attention_q" if quant else "paged_attention"
+    with torch.cuda.device(q.device):
+        _cuda.launch(name + ("_ring" if ring else ""), *pools, *rows, *dims,
+                     *tail, _cuda.stream_of(q))
     return out
 
 
 def paged_attention(q, k_pool, v_pool, tables, lengths, scale=None,
-                    mi=True, k_scale=None, v_scale=None):
+                    mi=True, k_scale=None, v_scale=None, window=0,
+                    k_pos0=None):
     """Attention of (S, H, Q, D) queries over one layer's paged KV pool.
 
     ``k_pool``/``v_pool``: (pages + 1, page, H, D); ``tables``: (S,
@@ -644,12 +729,19 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, scale=None,
     as uint8) with a scale a row.  On CUDA tensors this is kernel K2 (K2q
     over codes), which reads pages through the table and never builds the
     gathered context (its order is fixed whatever ``mi`` says); on CPU
-    tensors the plain gather + :func:`decode_attention`."""
+    tensors the plain gather + :func:`decode_attention`.
+
+    Windowed layers: ``window > 0`` lets a row with horizon n see
+    positions ``p >= n - window`` only, and ``k_pos0`` (S,) int32 is the
+    absolute position of each slot's table row 0 (a multiple of the page;
+    negative positions mask out), so the table may be a ring's rotated
+    one — K2/K2q's ``_ring`` entries on the card."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
         return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
-                                     scale, k_scale, v_scale)
+                                     scale, k_scale, v_scale, window, k_pos0)
     return paged_attention_plain(q, k_pool, v_pool, tables, lengths,
                                  scale=scale, mi=mi, k_scale=k_scale,
-                                 v_scale=v_scale)
+                                 v_scale=v_scale, window=window,
+                                 k_pos0=k_pos0)

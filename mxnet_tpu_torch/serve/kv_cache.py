@@ -32,8 +32,31 @@ codes (``quantize.storage_dtype``) and two fp32 scale pools,
 hold one scale per (layer, page, row), indexed by the same (page,
 offset) as the codes, so the page tables, copy-on-write and
 preempt/resume never see quantization; a copy-on-write copies a page's
-scale rows with its codes.  The ring/state pools of hybrid stacks are
-ported in a later slice.
+scale rows with its codes.
+
+Hybrid stacks (``layer_kinds``, per layer ``full``, ``window`` or
+``ssm``): only full layers occupy the page pools (their layer axis is the
+full-layer count), so a hybrid stack's page costs less and a stack with
+no full layer needs no pages at all — admission is by slots.  Windowed
+layers keep a ring of ``ring_pages`` pages a slot, for the session's
+whole life,
+
+    kw_pool, vw_pool : (n_window, slots * ring_pages, page_size, H, D)
+
+(slot s owns ring pages ``s * RP .. s * RP + RP - 1``; byte for byte the
+JAX package's (n_window, slots, ring_tokens, H, D)), with scale rings
+beside them under ``kv_quant``; SSM layers keep one fp32 (H, D, D) state
+a slot,
+
+    ssm_state : (n_ssm, slots, H, D, D)
+
+zeroed on the device when a slot is taken.  Rings need no zeroing: rows a
+request has not written carry positions outside its window (or below 0)
+and mask out.  Rings and states are slot-private, so the prefix cache
+opts out for hybrid stacks (no boundary but offset 0 can restore them
+from published pages), and :meth:`truncate` stays lengths-only (rejected
+ring rows are masked by the rolled-back length; the verify writes back
+only each slot's committed SSM state).
 """
 from __future__ import annotations
 
@@ -64,7 +87,8 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_heads, head_dim, page_size,
                  num_pages, slots, max_pages_per_slot, table_pad=0,
-                 prefix_pages=0, kv_quant="", device=None):
+                 prefix_pages=0, kv_quant="", device=None, layer_kinds=(),
+                 window=0, ring_pages=0):
         if min(num_layers, num_heads, head_dim, page_size, num_pages,
                slots, max_pages_per_slot) < 1:
             raise MXNetError("PagedKVCache: all dimensions must be >= 1")
@@ -89,8 +113,27 @@ class PagedKVCache:
         self.prefix_pages = int(prefix_pages)
         self.trash_page = self.num_pages  # reserved last pool row
         self.kv_quant = Q.quant_mode(kv_quant)
-        pool_shape = (self.num_layers, self.num_pages + 1, self.page_size,
-                      self.num_heads, self.head_dim)
+        self.layer_kinds = tuple(layer_kinds) or ("full",) * self.num_layers
+        if len(self.layer_kinds) != self.num_layers:
+            raise MXNetError("PagedKVCache: layer_kinds %r does not cover %d "
+                             "layers" % (self.layer_kinds, self.num_layers))
+        bad = set(self.layer_kinds) - {"full", "window", "ssm"}
+        if bad:
+            raise MXNetError("PagedKVCache: unknown layer kinds %r"
+                             % sorted(bad))
+        self.n_full = self.layer_kinds.count("full")
+        self.n_window = self.layer_kinds.count("window")
+        self.n_ssm = self.layer_kinds.count("ssm")
+        self.window = int(window)
+        self.ring_pages = int(ring_pages) if self.n_window else 0
+        if self.n_window and (self.window < 1 or self.ring_pages < 1):
+            raise MXNetError(
+                "PagedKVCache: windowed layers need window >= 1 and "
+                "ring_pages >= 1 (got window=%d, ring_pages=%d)"
+                % (self.window, int(ring_pages)))
+        self.ring_tokens = self.ring_pages * self.page_size
+        pool_shape = (max(self.n_full, 1), self.num_pages + 1,
+                      self.page_size, self.num_heads, self.head_dim)
         dtype = Q.storage_dtype(self.kv_quant) if self.kv_quant \
             else torch.float32
         self.k_pool = torch.zeros(pool_shape, dtype=dtype, device=self.device)
@@ -100,6 +143,25 @@ class PagedKVCache:
             self.k_scale = torch.ones(pool_shape[:3], dtype=torch.float32,
                                       device=self.device)
             self.v_scale = torch.ones_like(self.k_scale)
+        self.kw_pool = self.vw_pool = self.kw_scale = self.vw_scale = None
+        if self.n_window:
+            ring_shape = (self.n_window, self.slots * self.ring_pages,
+                          self.page_size, self.num_heads, self.head_dim)
+            self.kw_pool = torch.zeros(ring_shape, dtype=dtype,
+                                       device=self.device)
+            self.vw_pool = torch.zeros_like(self.kw_pool)
+            if self.kv_quant:
+                self.kw_scale = torch.ones(ring_shape[:3],
+                                           dtype=torch.float32,
+                                           device=self.device)
+                self.vw_scale = torch.ones_like(self.kw_scale)
+        # fp32 whatever kv_quant says: a running accumulator, whose
+        # rounding would break chunked prefill == serial decode
+        self.ssm_state = None
+        if self.n_ssm:
+            self.ssm_state = torch.zeros(
+                (self.n_ssm, self.slots, self.num_heads, self.head_dim,
+                 self.head_dim), dtype=torch.float32, device=self.device)
         # min-heaps: heappop yields the lowest free id (a sorted range is
         # already a valid heap)
         self._free_pages = list(range(self.num_pages))
@@ -145,8 +207,17 @@ class PagedKVCache:
         oversubscription watermark watches)."""
         return len(self._free_pages) + len(self._retained)
 
+    @property
+    def hybrid(self):
+        """True when the stack holds a windowed or SSM layer."""
+        return bool(self.n_window or self.n_ssm)
+
     def pages_needed(self, prompt_len, max_new):
-        """Worst-case page reservation for one request."""
+        """Worst-case page reservation for one request; 0 for a stack
+        with no full layer (rings and states are per slot, reserved up
+        front), so admission is bounded by slots alone."""
+        if not self.n_full:
+            return 0
         total = int(prompt_len) + int(max_new)
         return -(-total // self.page_size)
 
@@ -167,8 +238,10 @@ class PagedKVCache:
     def _usable_hit(self, tokens, prompt_len):
         """Longest mapped-page chain the prompt may reuse, capped so at
         least one prompt token is always left for prefill (the suffix
-        computes the request's first logits)."""
-        if tokens is None or not self.prefix_pages:
+        computes the request's first logits).  None for a hybrid stack:
+        its rings and states are slot-private, so only offset 0 restores
+        every layer."""
+        if tokens is None or not self.prefix_pages or self.hybrid:
             return []
         hit = self.match_prefix(tokens)
         cap = (int(prompt_len) - 1) // self.page_size
@@ -211,8 +284,9 @@ class PagedKVCache:
         """Publish the slot's full prompt pages into the token-hash index
         (after prefill, when their KV is final).  Pages already published
         under the same chain are left alone; a chain another slot
-        published first wins.  Returns pages published."""
-        if not self.prefix_pages:
+        published first wins.  Returns pages published (none for a
+        hybrid stack, whose rings and states cannot ride along)."""
+        if not self.prefix_pages or self.hybrid:
             return 0
         pages = self._pages_of.get(slot)
         if pages is None:
@@ -306,6 +380,10 @@ class PagedKVCache:
         # in the slot's private fresh pages, never inside a shared page
         self.lengths[slot] = self._cached_len[slot]
         self._tables_dev = None
+        # the recurrence starts from a zero state (a device op); rings need
+        # no scrub: rows this request has not written mask out
+        if self.ssm_state is not None:
+            self.ssm_state[:, slot].zero_()
         if tokens is not None and self.prefix_pages:
             self.prefix_stats["lookups"] += 1
             if hit:
@@ -415,7 +493,9 @@ class PagedKVCache:
         """Roll back the slot's last ``n_tokens`` KV rows.  Host-side
         O(1): only ``lengths`` shrinks; the vacated rows are invalidated
         by the length mask every kernel applies and overwritten by the
-        next append."""
+        next append.  Rings roll back the same way (a ring row's position
+        is a function of the length), and the verify already wrote each
+        slot's committed SSM state."""
         if slot not in self._pages_of:
             raise MXNetError("truncate of unallocated slot %r" % (slot,))
         n = int(n_tokens)
@@ -460,17 +540,36 @@ class PagedKVCache:
     # -- accounting -------------------------------------------------------
     def pools(self):
         """The pools the serving functions take, by keyword: ``k_pool``,
-        ``v_pool`` and, for quantized pages, ``k_scale``, ``v_scale`` (the
-        JAX package's ``_pool_names`` order)."""
+        ``v_pool``, for quantized pages ``k_scale``, ``v_scale``, then the
+        rings ``kw_pool``, ``vw_pool`` (and ``kw_scale``, ``vw_scale``)
+        and ``ssm_state`` of a hybrid stack (the JAX package's
+        ``_pool_names`` order)."""
         out = dict(k_pool=self.k_pool, v_pool=self.v_pool)
         if self.kv_quant:
             out.update(k_scale=self.k_scale, v_scale=self.v_scale)
+        if self.n_window:
+            out.update(kw_pool=self.kw_pool, vw_pool=self.vw_pool)
+            if self.kv_quant:
+                out.update(kw_scale=self.kw_scale, vw_scale=self.vw_scale)
+        if self.n_ssm:
+            out.update(ssm_state=self.ssm_state)
         return out
 
     def pool_bytes(self):
-        """Device bytes held by the pools (scale pools included) —
-        constant for the session's lifetime."""
+        """Device bytes held by the pools (scale pools, rings and states
+        included) — constant for the session's lifetime."""
         return sum(t.numel() * t.element_size() for t in self.pools().values())
+
+    def ring_bytes(self):
+        """Device bytes of the windowed layers' rings (and their scale
+        rings)."""
+        return sum(t.numel() * t.element_size() for name, t in
+                   self.pools().items() if name.startswith(("kw_", "vw_")))
+
+    def state_bytes(self):
+        """Device bytes of the SSM state pool."""
+        st = self.ssm_state
+        return 0 if st is None else st.numel() * st.element_size()
 
     @classmethod
     def page_bytes(cls, num_layers, num_heads, head_dim, page_size,

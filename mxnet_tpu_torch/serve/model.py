@@ -35,7 +35,20 @@ row as they are written (kernel K9) and dequantized inside the paged
 attention kernel (K2q).  The oracle then is :func:`reference_last_logits`
 over the dequantized params with ``kv_quant``, whose forward
 fake-quantizes its K and V per token row with the plain form of K9.
-Hybrid window/SSM layers are ported in a later slice.
+
+Hybrid stacks (``ModelConfig.layer_kinds``, per layer ``full``,
+``window`` or ``ssm``; every kind reuses the block's attention weights):
+a windowed layer attends over the last ``window`` keys, kept in a ring of
+pages a slot (``kw_pool``/``vw_pool``: the ring pages of slot s are pool
+pages ``s * RP .. s * RP + RP - 1``), written at ring page ``(pos //
+page) % RP`` through the same row writer as the page pools (K9 under
+``kv_quant``) and read by K2/K2q through a rotated table built on the
+device (:func:`ring_table`), with each table row labelled by its absolute
+position; an SSM layer runs the linear-attention recurrence
+(:mod:`..ops.ssm_ops`, kernel K10) over a (H, D, D) fp32 state a slot
+(``ssm_state``).  The oracle runs K1 with the window and K10 from a zero
+state, the same operations a row, so the contract above holds for
+hybrid stacks too.
 """
 from __future__ import annotations
 
@@ -46,14 +59,15 @@ import torch
 import torch.nn.functional as F
 
 from .. import quantize as Q
-from ..base import MXNetError, get_env, later_slice, resolve_device
+from ..base import MXNetError, get_env, resolve_device
 from ..ops.attention import flash_attention, paged_attention
 from ..ops.linear import mi_linear
+from ..ops.ssm_ops import ssm_decay, ssm_scan
 
 __all__ = ["ModelConfig", "exact_mode", "init_params", "params_from_numpy",
            "config_from_params", "full_forward", "prefill_forward",
            "decode_step", "verify_step", "draft_propose",
-           "reference_last_logits"]
+           "reference_last_logits", "ring_table"]
 
 
 def exact_mode():
@@ -64,29 +78,46 @@ def exact_mode():
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Static decoder geometry.  ``window``/``layer_kinds`` exist for
-    parity with the JAX package; anything but the classic all-full stack
-    is a later slice and raises in :meth:`validate`."""
+    """Static decoder geometry.  ``layer_kinds``/``window`` describe a
+    hybrid stack: per layer ``"full"`` (paged full-context attention),
+    ``"window"`` (attention over the last ``window`` keys, ring-buffered)
+    or ``"ssm"`` (the linear-attention recurrence); ``()`` is all
+    ``full``."""
     vocab_size: int
     num_layers: int
     d_model: int
     num_heads: int
     max_len: int          # pos_embed rows == the context ceiling
-    window: int = 0
-    layer_kinds: tuple = ()
+    window: int = 0       # sliding-window length of "window" layers
+    layer_kinds: tuple = ()  # per-layer kind; () = all "full"
 
     @property
     def head_dim(self):
         return self.d_model // self.num_heads
 
+    @property
+    def kinds(self):
+        """Per-layer kinds, expanded to ``num_layers`` entries."""
+        return tuple(self.layer_kinds) or ("full",) * self.num_layers
+
+    @property
+    def hybrid(self):
+        return any(k != "full" for k in self.kinds)
+
     def validate(self):
         if self.d_model % self.num_heads:
             raise MXNetError("d_model %d not divisible by num_heads %d"
                              % (self.d_model, self.num_heads))
-        if self.window:
-            raise later_slice("ModelConfig.window", self.window)
-        if set(self.layer_kinds) - {"full"}:
-            raise later_slice("ModelConfig.layer_kinds", self.layer_kinds)
+        if self.layer_kinds:
+            if len(self.layer_kinds) != self.num_layers:
+                raise MXNetError("layer_kinds %r does not cover %d layers"
+                                 % (self.layer_kinds, self.num_layers))
+            bad = set(self.layer_kinds) - {"full", "window", "ssm"}
+            if bad:
+                raise MXNetError("unknown layer kinds %r" % sorted(bad))
+            if "window" in self.layer_kinds and self.window < 1:
+                raise MXNetError("windowed layers need window >= 1 (got %d)"
+                                 % self.window)
         return self
 
 
@@ -283,13 +314,15 @@ def _kv_append(pools, i, pages, offsets, k_rows, v_rows):
         v_pool[i, pages, offsets] = v_rows
 
 
-def _paged(q, pools, i, tables, horizons, exact):
-    """Layer ``i``'s paged attention (K2, or K2q over quantized pages)."""
+def _paged(q, pools, i, tables, horizons, exact, window=0, k_pos0=None):
+    """Layer ``i``'s paged attention (K2, or K2q over quantized pages);
+    over a windowed layer's rings with ``window`` and ``k_pos0``."""
     k_pool, v_pool, k_scale, v_scale = pools
     quantized = k_scale is not None
     return paged_attention(q, k_pool[i], v_pool[i], tables, horizons,
                            mi=exact, k_scale=k_scale[i] if quantized else None,
-                           v_scale=v_scale[i] if quantized else None)
+                           v_scale=v_scale[i] if quantized else None,
+                           window=window, k_pos0=k_pos0)
 
 
 def _kv_fake_quant(k, v, kv_quant):
@@ -307,10 +340,32 @@ def _kv_fake_quant(k, v, kv_quant):
     return fake(k), fake(v)
 
 
+def _block_ssm(params, i, x, cfg, exact, state, row_valid=None,
+               collect=False, out_state=None):
+    """One SSM sublayer on (n, T, C): the block's q/k/v projections feed
+    the recurrence (kernel K10) from ``state`` (n, H, D, D) float32, the
+    state before row 0.  ``row_valid`` masks bucket padding out of the
+    state; ``out_state`` receives the state after the last row (it may be
+    ``state`` itself).  Returns ``(x + out, state[, states])``, states
+    (T, n, H, D, D) with ``collect``.  K and V are used in registers and
+    never stored, so ``kv_quant`` does not touch them."""
+    n, t, c = x.shape
+    h, d = cfg.num_heads, cfg.head_dim
+    q, k, v = (z.reshape(n, t, h, d) for z in _qkv(params, i, x, exact))
+    res = ssm_scan(q, k, v, state, ssm_decay(h, x.device),
+                   row_valid=row_valid, collect=collect, out_state=out_state)
+    ctx = res[0].reshape(n, t, c)
+    out = x + mi_linear(ctx, params["blk%d_attn_out_weight" % i],
+                        params["blk%d_attn_out_bias" % i], exact)
+    return (out,) + tuple(res[1:])
+
+
 def full_forward(params, tokens, cfg, exact=None, block=None, kv_quant=""):
     """Full-context forward: (n, T) int tokens -> (n, T, V) logits.
     ``kv_quant`` fake-quantizes each layer's keys and values per token
-    row (:func:`_kv_fake_quant`)."""
+    row (:func:`_kv_fake_quant`).  Windowed layers run the flash forward
+    with the window, SSM layers the recurrence from a zero state: the
+    oracle of hybrid stacks."""
     if exact is None:
         exact = exact_mode()
     kv_quant = Q.quant_mode(kv_quant)
@@ -320,18 +375,64 @@ def full_forward(params, tokens, cfg, exact=None, block=None, kv_quant=""):
                          % (t, cfg.max_len))
     h, d = cfg.num_heads, cfg.head_dim
     x = _tok_rows(params, tokens) + _pos_rows(params, slice(0, t))
-    for i in range(cfg.num_layers):
-        q, k, v = (_heads(z, n, t, h, d) for z in _qkv(params, i, x, exact))
-        k, v = _kv_fake_quant(k, v, kv_quant)
-        att = flash_attention(q, k, v, causal=True, block=block, mi=exact)
-        x = _attn_out(params, i, x, att, exact)
+    for i, kind in enumerate(cfg.kinds):
+        if kind == "ssm":
+            zero = torch.zeros((n, h, d, d), dtype=torch.float32,
+                               device=x.device)
+            x, _ = _block_ssm(params, i, x, cfg, exact, zero, out_state=zero)
+        else:
+            q, k, v = (_heads(z, n, t, h, d)
+                       for z in _qkv(params, i, x, exact))
+            k, v = _kv_fake_quant(k, v, kv_quant)
+            att = flash_attention(q, k, v, causal=True, block=block, mi=exact,
+                                  window=cfg.window if kind == "window" else 0)
+            x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     return _lm_head(params, x, exact)
 
 
+def ring_table(slots, pb_max, ring_pages, page_size):
+    """The rotated tables of a windowed layer's rings, built on the device
+    (inside a captured graph): (S, RP) int32 with ``table[s, j] =
+    slots[s] * RP + (pb_max[s] + 1 + j) % RP``, the ring page holding
+    absolute page ``pb_max[s] - RP + 1 + j`` (``pb_max``: each slot's
+    newest page), and ``k_pos0`` (S,) int32, the absolute position of each
+    table's row 0, ``(pb_max - RP + 1) * page`` — negative until the ring
+    first wraps, and such rows mask out.  The JAX package's
+    ``_ring_gather`` without the gather: pages keep their absolute
+    boundaries, which keeps a ring row equal to the oracle's row."""
+    j = torch.arange(ring_pages, device=pb_max.device)
+    pb = pb_max.long()[:, None]
+    table = slots.long()[:, None] * ring_pages + (pb + 1 + j) % ring_pages
+    k_pos0 = (pb_max.long() - ring_pages + 1) * page_size
+    return table.to(torch.int32), k_pos0.to(torch.int32)
+
+
+def _ring_rows(slots, abs_pos, ring_pages, page_size):
+    """Ring-page ids and offsets of the rows at positions ``abs_pos`` (S,
+    R) of slots ``slots`` (S,), flattened to (S * R,): page ``(pos //
+    page) % RP`` of the slot's ring — the JAX package's ``_ring_append``
+    row ``pos % (RP * page)``."""
+    apos = abs_pos.long()
+    pages = slots.long()[:, None] * ring_pages + (apos // page_size) \
+        % ring_pages
+    return pages.reshape(-1), (apos % page_size).reshape(-1)
+
+
+def _layers(cfg):
+    """(layer, kind, the layer's index among its kind's pool layers) for
+    every layer: ``full`` layers index the page pools, ``window`` layers
+    the ring pools, ``ssm`` layers the state pool."""
+    seen = dict.fromkeys(("full", "window", "ssm"), 0)
+    for i, kind in enumerate(cfg.kinds):
+        yield i, kind, seen[kind]
+        seen[kind] += 1
+
+
 def prefill_forward(params, tokens, length, offset, table_row, k_pool,
                     v_pool, cfg, page_size, exact=None, k_scale=None,
-                    v_scale=None):
+                    v_scale=None, kw_pool=None, vw_pool=None, kw_scale=None,
+                    vw_scale=None, ssm_state=None, slot=None, ring_pages=0):
     """Bucketed prefill over one page-aligned chunk of a prompt.
 
     tokens: (1, Tb) chunk padded to the bucket length (a multiple of
@@ -348,7 +449,15 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
     ``(first_token, last_logits)`` at chunk row ``length - 1``; the LM
     head runs on that row alone, which M-invariance makes the same bits
     as taking the row of the whole chunk's logits; the row is picked by
-    a device index, so no value goes to the host."""
+    a device index, so no value goes to the host.
+
+    Hybrid stacks pass ``slot`` (a 0-dim tensor: rings and states are
+    slot-indexed) and ``ring_pages``: windowed layers write every bucket
+    row into the slot's ring at its position (as the JAX package does; the
+    ring's extra page is there for the padding rows) and attend over the
+    ring through its rotated table; SSM layers advance the slot's state
+    across the chunk, its padding rows masked out of the recurrence, so
+    the state crosses chunks."""
     if exact is None:
         exact = exact_mode()
     _, t_b = tokens.shape
@@ -359,7 +468,8 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
     dev = tokens.device
     length = torch.as_tensor(length, dtype=torch.long, device=dev)
     offset = torch.as_tensor(offset, dtype=torch.long, device=dev)
-    abs_pos = offset + torch.arange(t_b, device=dev)
+    offs = torch.arange(t_b, device=dev)
+    abs_pos = offset + offs
     pos = abs_pos.clamp(0, cfg.max_len - 1)
     x = _tok_rows(params, tokens) + _pos_rows(params, pos)
     horizons = (abs_pos + 1).to(torch.int32).reshape(1, t_b)
@@ -368,12 +478,35 @@ def prefill_forward(params, tokens, length, offset, table_row, k_pool,
                                  k_pool.shape[1] - 1)
     tables = table_row.reshape(1, -1)
     pools = (k_pool, v_pool, k_scale, v_scale)
-    for i in range(cfg.num_layers):
+    rings = (kw_pool, vw_pool, kw_scale, vw_scale)
+    if cfg.hybrid:
+        if slot is None:
+            raise MXNetError("prefill_forward: a hybrid stack needs slot")
+        slots = torch.as_tensor(slot, dtype=torch.long, device=dev).reshape(1)
+    for i, kind, j in _layers(cfg):
+        if kind == "ssm":
+            state = ssm_state[j].index_select(0, slots)
+            valid = (offs < length).reshape(1, t_b)  # padding: identity
+            x, _ = _block_ssm(params, i, x, cfg, exact, state,
+                              row_valid=valid, out_state=state)
+            ssm_state[j].index_copy_(0, slots, state)
+            x = _block_mlp(params, i, x, exact)
+            continue
         q, k, v = _qkv(params, i, x, exact)
-        _kv_append(pools, i, pages, offsets, k.reshape(t_b, h, d),
-                   v.reshape(t_b, h, d))
-        att = _paged(_heads(q, 1, t_b, h, d), pools, i, tables, horizons,
-                     exact)
+        q = _heads(q, 1, t_b, h, d)
+        k, v = k.reshape(t_b, h, d), v.reshape(t_b, h, d)
+        if kind == "window":
+            rpages, roffs = _ring_rows(slots, abs_pos.reshape(1, t_b),
+                                       ring_pages, page_size)
+            _kv_append(rings, j, rpages, roffs, k, v)
+            rtable, k_pos0 = ring_table(
+                slots, (offset + t_b - 1).reshape(1) // page_size,
+                ring_pages, page_size)
+            att = _paged(q, rings, j, rtable, horizons, exact,
+                         window=cfg.window, k_pos0=k_pos0)
+        else:
+            _kv_append(pools, j, pages, offsets, k, v)
+            att = _paged(q, pools, j, tables, horizons, exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     last = _lm_head(params, x[0].index_select(0, (length - 1).reshape(1)),
@@ -395,7 +528,9 @@ def _write_rows(tables, abs_pos, page_size, trash):
 
 
 def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
-                page_size, exact=None, k_scale=None, v_scale=None):
+                page_size, exact=None, k_scale=None, v_scale=None,
+                kw_pool=None, vw_pool=None, kw_scale=None, vw_scale=None,
+                ssm_state=None, ring_pages=0):
     """One continuous-batching decode step for every slot at once.
 
     tokens: (S,) int — each slot's previous output token; lengths: (S,)
@@ -403,7 +538,13 @@ def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
     tables: (S, max_pages) int32 (inactive slots: all-trash rows, length
     0).  Appends each slot's new K/V at ``lengths`` **in place** in the
     pools, attends over the slot's pages, and returns
-    ``(next_tokens (S,), logits (S, V))``."""
+    ``(next_tokens (S,), logits (S, V))``.
+
+    Hybrid stacks: windowed layers write the token's K/V into slot s's
+    ring at its position and attend over the ring's rotated table (newest
+    page ``lengths // page``); SSM layers advance every slot's state one
+    row, in place.  Idle slots write their own ring row and state, which
+    alloc and prefill set again before anything reads them."""
     if exact is None:
         exact = exact_mode()
     s = tokens.shape[0]
@@ -418,11 +559,29 @@ def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
     offset = lengths.long() % page_size
     horizons = lengths + 1
     pools = (k_pool, v_pool, k_scale, v_scale)
-    for i in range(cfg.num_layers):
+    rings = (kw_pool, vw_pool, kw_scale, vw_scale)
+    slots = torch.arange(s, device=tokens.device)
+    if kw_pool is not None:
+        rpages, roffs = _ring_rows(slots, lengths[:, None], ring_pages,
+                                   page_size)
+        rtable, k_pos0 = ring_table(slots, lengths.long() // page_size,
+                                    ring_pages, page_size)
+    for i, kind, j in _layers(cfg):
+        if kind == "ssm":
+            x, _ = _block_ssm(params, i, x, cfg, exact, ssm_state[j],
+                              out_state=ssm_state[j])
+            x = _block_mlp(params, i, x, exact)
+            continue
         q, k, v = _qkv(params, i, x, exact)
-        _kv_append(pools, i, page, offset, k.reshape(s, h, d),
-                   v.reshape(s, h, d))
-        att = _paged(q.reshape(s, h, 1, d), pools, i, tables, horizons, exact)
+        q = q.reshape(s, h, 1, d)
+        k, v = k.reshape(s, h, d), v.reshape(s, h, d)
+        if kind == "window":
+            _kv_append(rings, j, rpages, roffs, k, v)
+            att = _paged(q, rings, j, rtable, horizons, exact,
+                         window=cfg.window, k_pos0=k_pos0)
+        else:
+            _kv_append(pools, j, page, offset, k, v)
+            att = _paged(q, pools, j, tables, horizons, exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     logits = _lm_head(params, x[:, 0], exact)
@@ -430,7 +589,9 @@ def decode_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
 
 
 def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
-                page_size, exact=None, k_scale=None, v_scale=None):
+                page_size, exact=None, k_scale=None, v_scale=None,
+                kw_pool=None, vw_pool=None, kw_scale=None, vw_scale=None,
+                ssm_state=None, ring_pages=0, limits=None):
     """Speculative decoding's verify: every slot advances ``W = K + 1``
     teacher-forced positions in one fixed-shape step.
 
@@ -446,7 +607,16 @@ def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
     :func:`decode_step` op (K3 on S·W rows, K2 with per-row horizons, which
     equals K1 and so the decode kernel row for row), so row ``j`` is bit
     for bit the ``j``-th of W serial decode steps fed the same tokens —
-    which makes greedy acceptance an integer comparison."""
+    which makes greedy acceptance an integer comparison.
+
+    Hybrid stacks roll back in O(1).  Windowed layers write all W rows
+    into the rings; a rejected row's ring row is masked by the rolled-back
+    length until the committed stream writes it again.  SSM layers scan
+    with ``collect`` and, since a recurrence has no rows to mask, the
+    acceptance count is computed here on the device from ``greedy`` and
+    ``limits`` ((S,) int32 commit caps, the host's commit loop's
+    comparison), and only each slot's state at its commit point is
+    written back."""
     if exact is None:
         exact = exact_mode()
     s, w = tokens.shape
@@ -460,20 +630,51 @@ def verify_step(params, tokens, lengths, tables, k_pool, v_pool, cfg,
     pages, offsets = _write_rows(tables, abs_pos, page_size,
                                  k_pool.shape[1] - 1)
     pools = (k_pool, v_pool, k_scale, v_scale)
-    for i in range(cfg.num_layers):
+    rings = (kw_pool, vw_pool, kw_scale, vw_scale)
+    slots = torch.arange(s, device=tokens.device)
+    if kw_pool is not None:
+        rpages, roffs = _ring_rows(slots, abs_pos, ring_pages, page_size)
+        rtable, k_pos0 = ring_table(slots, (lengths.long() + w - 1)
+                                    // page_size, ring_pages, page_size)
+    snaps = []  # (state pool layer, (W, S, H, D, D) states after each row)
+    for i, kind, j in _layers(cfg):
+        if kind == "ssm":
+            x, _, states = _block_ssm(params, i, x, cfg, exact, ssm_state[j],
+                                      collect=True)
+            snaps.append((j, states))
+            x = _block_mlp(params, i, x, exact)
+            continue
         q, k, v = _qkv(params, i, x, exact)
-        _kv_append(pools, i, pages, offsets, k.reshape(s * w, h, d),
-                   v.reshape(s * w, h, d))
-        att = _paged(_heads(q, s, w, h, d), pools, i, tables, horizons,
-                     exact)
+        q = _heads(q, s, w, h, d)
+        k, v = k.reshape(s * w, h, d), v.reshape(s * w, h, d)
+        if kind == "window":
+            _kv_append(rings, j, rpages, roffs, k, v)
+            att = _paged(q, rings, j, rtable, horizons, exact,
+                         window=cfg.window, k_pos0=k_pos0)
+        else:
+            _kv_append(pools, j, pages, offsets, k, v)
+            att = _paged(q, pools, j, tables, horizons, exact)
         x = _attn_out(params, i, x, att, exact)
         x = _block_mlp(params, i, x, exact)
     logits = _lm_head(params, x, exact)
-    return logits.argmax(-1).to(torch.int32), logits
+    greedy = logits.argmax(-1).to(torch.int32)
+    if snaps:
+        # the commit count of the host's loop: row 0, then one more per
+        # proposal the previous row's greedy token agrees with, capped
+        agree = (tokens[:, 1:].to(torch.int32) == greedy[:, :-1])
+        c = 1 + torch.cumprod(agree.to(torch.int32), dim=1).sum(1)
+        if limits is not None:
+            c = torch.minimum(c, limits.to(c.dtype))
+        idx = (c - 1).clamp(0, w - 1).long()
+        for si, states in snaps:
+            ssm_state[si].copy_(states[idx, slots])
+    return greedy, logits
 
 
 def draft_propose(params, tokens, n_feed, lengths, tables, k_pool, v_pool,
-                  cfg, page_size, exact=None, k_scale=None, v_scale=None):
+                  cfg, page_size, exact=None, k_scale=None, v_scale=None,
+                  kw_pool=None, vw_pool=None, kw_scale=None, vw_scale=None,
+                  ring_pages=0):
     """The draft model's ``W``-step scan, one call that both *ingests*
     committed tokens and *proposes* continuations.
 
@@ -484,7 +685,12 @@ def draft_propose(params, tokens, n_feed, lengths, tables, k_pool, v_pool,
     (feed the last committed token, then run on); ``n_feed = W`` is pure
     teacher forcing (prompt ingestion in W-token chunks).  Step ``j``
     appends its KV at ``lengths + j`` **in place**.  Returns outs (S, W):
-    ``outs[:, j]`` is the greedy token after position ``lengths + j``."""
+    ``outs[:, j]`` is the greedy token after position ``lengths + j``.
+    A draft may hold windowed layers (their rings roll back by length)
+    but no SSM layer: the session rejects one up front."""
+    if "ssm" in cfg.kinds:
+        raise MXNetError("draft_propose: SSM layers are not supported in "
+                         "draft models")
     w = tokens.shape[1]
     lengths = lengths.to(torch.int32)
     prev = tokens[:, 0]
@@ -493,7 +699,8 @@ def draft_propose(params, tokens, n_feed, lengths, tables, k_pool, v_pool,
         tok = torch.where(n_feed > j, tokens[:, j], prev)
         prev, _ = decode_step(params, tok, lengths + j, tables, k_pool,
                               v_pool, cfg, page_size, exact, k_scale,
-                              v_scale)
+                              v_scale, kw_pool, vw_pool, kw_scale, vw_scale,
+                              ring_pages=ring_pages)
         outs.append(prev)
     return torch.stack(outs, dim=1)
 

@@ -38,9 +38,21 @@ target's first N blocks) or explicit ``draft_params``.
 Prefix caching (``prefix_pages``), chunked prefill at page-aligned
 offsets, and oversubscription with on-demand page growth carry over
 from the JAX session unchanged; they are host bookkeeping around the
-same entry points.  Hybrid window/SSM stacks, autotune and checkpoint
-loading (a checkpoint-directory draft too) are ported in later slices:
-their ``ServeConfig`` values raise.
+same entry points.  Autotune and checkpoint loading (a
+checkpoint-directory draft too) are ported in later slices.
+
+Hybrid stacks (``layers``, ``MXNET_SERVE_LAYERS``, with ``window``,
+``MXNET_SERVE_WINDOW``): a pattern of ``full``, ``window`` and ``ssm``
+cycled over the model's depth makes per-slot memory O(window) or O(1) in
+context length (:class:`PagedKVCache`'s rings and state pool).  The
+rings, the states and the verify's commit caps are inputs of the same
+captured graphs: the executable set stays frozen, and the recompile
+guards' names carry the window and the kinds (``-w<window><f|w|s...>``).
+Speculative decoding composes (the verify selects each slot's committed
+SSM state in the graph; rings roll back by length), a ``layers:N`` draft
+inherits the kinds and the window (one holding an SSM layer is refused
+up front), preempt/resume rebuilds rings and states exactly by
+re-prefilling, and the prefix cache opts out.
 
 Weight-only quantization (``quant``, ``int8`` or ``fp8``): the session
 quantizes its params (and a draft's) at construction into ``{"q",
@@ -61,8 +73,9 @@ Env knobs: ``MXNET_SERVE_SLOTS``, ``MXNET_SERVE_PAGE``,
 ``MXNET_SERVE_EXACT``, ``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_DRAFT``,
 ``MXNET_SERVE_QUANT``, ``MXNET_SERVE_KV_QUANT``,
 ``MXNET_SERVE_PREFIX_PAGES``, ``MXNET_SERVE_OVERSUB``,
-``MXNET_SERVE_WATERMARK``, ``MXNET_SERVE_TTFT_SLO_MS`` — the JAX
-package's names.
+``MXNET_SERVE_WATERMARK``, ``MXNET_SERVE_TTFT_SLO_MS``,
+``MXNET_SERVE_WINDOW``, ``MXNET_SERVE_LAYERS`` — the JAX package's
+names.
 """
 from __future__ import annotations
 
@@ -75,7 +88,8 @@ import torch
 
 from .. import _cuda
 from .. import quantize as Q
-from ..base import MXNetError, get_env, later_slice, resolve_device
+from ..base import MXNetError, get_env, resolve_device
+from ..compile_cache import registry, signature_of
 from ..testing import faults
 from .kv_cache import PagedKVCache
 from .model import config_from_params, decode_step, draft_propose, \
@@ -108,9 +122,10 @@ class ServeConfig:
     a later slice of the port).  ``quant`` (``""``, ``"int8"`` or
     ``"fp8"``) quantizes the weights and ``kv_quant`` (the same, ``e4m3``
     naming fp8) the KV pages, normalized as ``quantize.quant_mode``
-    does.  ``window`` and ``layers`` keep the JAX package's fields; any
-    value but the default (or ``layers`` all ``full``) is a later slice of
-    the port and raises, naming the field.
+    does.  ``layers`` is a pattern of layer kinds (``"full,window,ssm"``)
+    cycled over the model's depth, and ``window`` the span of its
+    ``window`` layers; an empty pattern is the classic all-full stack,
+    and ``window`` is then unused.
     """
 
     slots: int = 4
@@ -127,8 +142,8 @@ class ServeConfig:
     oversub: bool = False  # admit by current need, grow on demand
     watermark: int = 0  # free-pool floor that triggers preemption
     ttft_slo_ms: float = 0.0  # 0 = no TTFT budget (SLO admission off)
-    window: int = 0
-    layers: str = ""
+    window: int = 0  # sliding-window length of "window" layers
+    layers: str = ""  # layer-kind pattern, e.g. "full,window,ssm"
 
     @classmethod
     def from_env(cls, **overrides):
@@ -158,12 +173,6 @@ class ServeConfig:
         object.__setattr__(self, "buckets", _parse_buckets(self.buckets))
         object.__setattr__(self, "quant", Q.quant_mode(self.quant))
         object.__setattr__(self, "kv_quant", Q.quant_mode(self.kv_quant))
-        if self.window:
-            raise later_slice("ServeConfig.window", self.window)
-        kinds = {t.strip() for t in self.layers.replace(";", ",").split(",")
-                 if t.strip()}
-        if kinds - {"full"}:
-            raise later_slice("ServeConfig.layers", self.layers)
         if self.slots < 1 or self.page_size < 1 or self.max_new < 1:
             raise MXNetError("ServeConfig: slots/page_size/max_new must "
                              "be >= 1")
@@ -180,6 +189,44 @@ class ServeConfig:
                 raise MXNetError(
                     "ServeConfig: bucket %d is not a multiple of page_size "
                     "%d (prefill writes whole pages)" % (b, self.page_size))
+        if self.window < 0:
+            raise MXNetError("ServeConfig: window must be >= 0")
+        pat = self.layer_pattern
+        bad = set(pat) - {"full", "window", "ssm"}
+        if bad:
+            raise MXNetError("ServeConfig: unknown layer kinds %r in "
+                             "layers=%r" % (sorted(bad), self.layers))
+        if "window" in pat and self.window < 1:
+            raise MXNetError(
+                "ServeConfig: layers=%r has windowed layers but window is "
+                "unset (MXNET_SERVE_WINDOW)" % (self.layers,))
+
+    @property
+    def layer_pattern(self):
+        """``layers`` parsed into a tuple of kinds (:meth:`kinds_for`
+        cycles it over the model's depth)."""
+        return tuple(t.strip() for t in self.layers.replace(";", ",")
+                     .split(",") if t.strip())
+
+    def kinds_for(self, num_layers):
+        """Per-layer kinds of a ``num_layers``-deep model: the pattern
+        repeated over the stack; an all-full pattern is ``()``, the
+        classic stack."""
+        pat = self.layer_pattern
+        if not pat:
+            return ()
+        kinds = tuple(pat[i % len(pat)] for i in range(int(num_layers)))
+        return () if set(kinds) == {"full"} else kinds
+
+    @property
+    def ring_pages(self):
+        """Pages of each windowed layer's ring a slot: a call writes up
+        to ``span`` rows (the largest bucket, or the speculative window)
+        before its queries read, so the ring holds ``window + span - 1``
+        rows, plus one page because the rotated table is page-granular
+        (the newest page may hold one row)."""
+        span = max(max(self.buckets), self.spec_window if self.spec_k else 1)
+        return -(-(self.window + span - 1) // self.page_size) + 1
 
     @property
     def max_pages_per_slot(self):
@@ -217,10 +264,13 @@ class _Executable(object):
     replay and the launches it makes.  On the CPU a call runs ``fn``
     eagerly over the same buffers."""
 
-    def __init__(self, name, fn, inputs):
+    def __init__(self, name, fn, inputs, guard=None):
         self.name = name
         self.fn = fn
         self.inputs = inputs
+        self.guard = guard  # observes the one input signature it takes
+        if guard is not None:
+            guard.observe(signature_of(inputs))
         self.graph = None
         self.outputs = None
         self.launches = {}  # kernel -> launches a replay makes
@@ -322,6 +372,12 @@ class InferenceSession(object):
             # layers:N draft then shares these records
             self.params = Q.quantize_params(self.params, cfg.quant)
         self.model = config_from_params(self.params, num_heads=num_heads)
+        kinds = cfg.kinds_for(self.model.num_layers)
+        if kinds:
+            # every kind reuses the block's attention weights, so any
+            # checkpoint hosts any stack
+            self.model = dataclasses.replace(
+                self.model, window=cfg.window, layer_kinds=kinds).validate()
         if max(cfg.buckets) + cfg.max_new > self.model.max_len:
             raise MXNetError(
                 "ServeConfig worst case %d (bucket %d + max_new %d) exceeds "
@@ -329,6 +385,22 @@ class InferenceSession(object):
                 % (max(cfg.buckets) + cfg.max_new, max(cfg.buckets),
                    cfg.max_new, self.model.max_len))
         self.cache = self._new_cache(self.model)
+        # the recompile guards' names: the model and capacity, and the
+        # options that change the graphs' inputs
+        self._guard_prefix = (
+            "InferenceSession(%dL-d%d-h%d-V%d-s%d-p%d-m%d-n%d)"
+            % (self.model.num_layers, self.model.d_model,
+               self.model.num_heads, self.model.vocab_size, cfg.slots,
+               cfg.page_size, cfg.max_pages_per_slot, cfg.pool_pages))
+        if cfg.spec_k:
+            self._guard_prefix += "-k%d" % cfg.spec_k
+        if cfg.quant:
+            self._guard_prefix += "-q%s" % cfg.quant
+        if cfg.kv_quant:
+            self._guard_prefix += "-kv%s" % cfg.kv_quant
+        if self.model.hybrid:
+            self._guard_prefix += "-w%d%s" % (
+                self.model.window, "".join(k[0] for k in self.model.kinds))
         self._slot_tokens = {}  # slot -> next token to feed the decoder
         self._slot_history = {}  # slot -> prompt + committed tokens
         self._spec_stats = {"verify_steps": 0, "slot_steps": 0,
@@ -353,7 +425,10 @@ class InferenceSession(object):
             table_pad=cfg.spec_pad_pages,
             prefix_pages=cfg.prefix_pages,
             kv_quant=cfg.kv_quant,
-            device=self.device)
+            device=self.device,
+            layer_kinds=model.layer_kinds,
+            window=model.window,
+            ring_pages=cfg.ring_pages if "window" in model.kinds else 0)
 
     def _resolve_draft(self, draft_params, draft_num_heads):
         """Pick the speculative proposer — explicit params, the host-side
@@ -389,6 +464,9 @@ class InferenceSession(object):
                                  "be an integer" % (spec,)) from None
             draft_params = _layer_truncated(self.params, n)
             draft_num_heads = draft_num_heads or self.model.num_heads
+            inherit = n
+        else:
+            inherit = None
         self._draft_mode = "model"
         # a layers:N draft shares the target's tensors (and quantized
         # records): same device, same dtype, so params_from_numpy hands
@@ -400,6 +478,20 @@ class InferenceSession(object):
         self.draft_model = config_from_params(
             self.draft_params,
             num_heads=draft_num_heads or self.model.num_heads)
+        if inherit is not None and self.model.hybrid:
+            # a layers:N draft is the target's first N blocks: their kinds
+            # and the window come with them
+            dkinds = self.model.kinds[:inherit]
+            if set(dkinds) != {"full"}:
+                self.draft_model = dataclasses.replace(
+                    self.draft_model, window=self.model.window,
+                    layer_kinds=dkinds).validate()
+        if "ssm" in self.draft_model.kinds:
+            raise MXNetError(
+                "draft model has SSM layers — a draft's speculative rows "
+                "must roll back in O(1), and an SSM draft would need its own "
+                "verify-synchronized state pool; put SSM layers above the "
+                "draft depth or use the ngram draft")
         if self.draft_model.vocab_size != self.model.vocab_size:
             raise MXNetError(
                 "draft vocab %d != target vocab %d — a draft must share "
@@ -424,9 +516,12 @@ class InferenceSession(object):
             return torch.full(shape, fill, dtype=dtype, device=dev)
 
         def entry(fn, model, cache, params):
+            pools = cache.pools()
+            if cache.n_window:
+                pools["ring_pages"] = cache.ring_pages
             return functools.partial(
                 fn, params=params, cfg=model, page_size=cfg.page_size,
-                exact=bool(cfg.exact), **cache.pools())
+                exact=bool(cfg.exact), **pools)
 
         def step_inputs(cache, tokens_shape):
             return dict(tokens=buf(tokens_shape, i64),
@@ -434,23 +529,32 @@ class InferenceSession(object):
                         tables=buf((s, cache.table_width), i32,
                                    cache.trash_page))
 
+        def exe(name, fn, inputs):
+            return _Executable(name, fn, inputs, registry.guard(
+                "%s.%s" % (self._guard_prefix, name)))
+
         tgt = (self.model, self.cache, self.params)
-        exes = {"decode": _Executable(
-            "decode", entry(decode_step, *tgt), step_inputs(self.cache, (s,)))}
+        exes = {"decode": exe("decode", entry(decode_step, *tgt),
+                              step_inputs(self.cache, (s,)))}
         for bucket in cfg.buckets:
             name = "prefill_%d" % bucket
-            exes[name] = _Executable(name, entry(prefill_forward, *tgt), dict(
+            inputs = dict(
                 tokens=buf((1, bucket), i64), length=buf((), i64, 1),
                 offset=buf((), i64),
                 table_row=buf((self.cache.table_width,), i32,
-                              self.cache.trash_page)))
+                              self.cache.trash_page))
+            if self.cache.hybrid:  # rings and states are slot-indexed
+                inputs["slot"] = buf((), i64)
+            exes[name] = exe(name, entry(prefill_forward, *tgt), inputs)
         if cfg.spec_k:
-            exes["verify"] = _Executable("verify", entry(verify_step, *tgt),
-                                         step_inputs(self.cache, (s, w)))
+            inputs = step_inputs(self.cache, (s, w))
+            if self.cache.n_ssm:  # the commit caps the graph selects with
+                inputs["limits"] = buf((s,), i32, 1)
+            exes["verify"] = exe("verify", entry(verify_step, *tgt), inputs)
         if self._draft_mode == "model":
             inputs = step_inputs(self.draft_cache, (s, w))
             inputs["n_feed"] = buf((s,), i32)
-            exes["draft"] = _Executable("draft", entry(
+            exes["draft"] = exe("draft", entry(
                 draft_propose, self.draft_model, self.draft_cache,
                 self.draft_params), inputs)
         return exes
@@ -483,6 +587,12 @@ class InferenceSession(object):
                     replays={n: e.replays for n, e in self._exes.items()},
                     launches_per_replay={n: dict(e.launches)
                                          for n, e in self._exes.items()})
+
+    def guard_report(self):
+        """name -> the executable's recompile-guard snapshot (calls,
+        traces, signatures): one signature and one trace each, since every
+        entry point takes fixed-shape buffers."""
+        return {n: e.guard.snapshot() for n, e in self._exes.items()}
 
     # -- request lifecycle ------------------------------------------------
     def bucket_for(self, prompt_len):
@@ -560,6 +670,11 @@ class InferenceSession(object):
             # chaos site: a fault here fails this request before any of
             # its quantized pages or scale rows is written
             faults.inject("kv_quant")
+        if self.cache.n_window:
+            # chaos site: before any ring row is written, so survivors'
+            # rings (and this slot's next request) stay consistent
+            faults.inject("kv_window")
+        extra = {"slot": slot} if self.cache.hybrid else {}
         off = cached
         while off < p:
             bucket = self._chunk_bucket(p - off)
@@ -569,7 +684,7 @@ class InferenceSession(object):
             self.cache.ensure_writable(slot, off, n)
             first, last_logits = self._exes["prefill_%d" % bucket](
                 tokens=toks, length=n, offset=off,
-                table_row=self.cache.table_row(slot))
+                table_row=self.cache.table_row(slot), **extra)
             off += n
             self.cache.lengths[slot] = off
         first = int(first)
@@ -668,15 +783,27 @@ class InferenceSession(object):
         else:
             for slot in active:
                 tokens[slot, 1:] = self._ngram_propose(slot, k)
+        caps = {}
+        for slot in active:
+            caps[slot] = w
+            if limits is not None:
+                caps[slot] = max(1, min(w, int(limits.get(slot, w))))
+        extra = {}
+        if self.cache.n_ssm:
+            # the caps ride into the graph, whose acceptance count must be
+            # the loop's below to commit the right SSM state (an idle
+            # slot's state is garbage until alloc zeroes it)
+            lim = np.ones((cfg.slots,), np.int32)
+            for slot, cap in caps.items():
+                lim[slot] = cap
+            extra["limits"] = lim
         greedy, _ = self._exes["verify"](
             tokens=tokens, lengths=self.cache.device_lengths(),
-            tables=self.cache.device_tables())
+            tables=self.cache.device_tables(), **extra)
         greedy = greedy.cpu().numpy()
         self._spec_stats["verify_steps"] += 1
         for slot in active:
-            limit = w
-            if limits is not None:
-                limit = max(1, min(w, int(limits.get(slot, w))))
+            limit = caps[slot]
             # commit greedy[:c]: row 0 unconditionally, then one more
             # per proposal the target's previous row agreed with
             c = 1

@@ -60,9 +60,17 @@ def test_reference_attention_matches_jax(causal):
 
 
 def test_flash_attention_window_is_a_later_slice():
+    """The windowed forward runs (the JAX package's windowed reference
+    gives it); the windowed backward (K4/K7/K8's window) is the later
+    slice, so a call autograd records raises."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, (1, 1, 8, 4)))
+    got = tattn.flash_attention(q, k, v, window=4, block=4)
+    want = np.asarray(jattn.reference_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=True, window=4))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
     with pytest.raises(MXNetError, match="window"):
-        tattn.flash_attention(q, k, v, window=4)
+        tattn.flash_attention(q.requires_grad_(), k, v, window=4)
 
 
 # ---------------------------------------------------------------------------

@@ -271,8 +271,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(MXNetError, match="does not take"):
         L.mi_linear(x.float(), _randn(dev, 3, 5))
     q = _randn(dev, 1, 1, 8, 8)
-    with pytest.raises(MXNetError, match="window"):
-        A.flash_attention(q, q, q, window=2)
+    with pytest.raises(MXNetError, match="window"):  # K7 has no window yet
+        A.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), window=2)
     pool = _randn(dev, 3, 8, 1, 8)
     tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
@@ -1336,6 +1336,282 @@ def test_quant_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(MXNetError, match="float32"):
         Q.kv_append_quantized(pool, pool, sc, sc, pages, pages,
                               rows.double(), rows)
+
+
+# ---------------------------------------------------------------------------
+# hybrid stacks: K10 (the SSM scan), K1 with a window, K2/K2q over rings
+# ---------------------------------------------------------------------------
+#
+# K10 against its plain version bit for bit: the plain version runs the
+# kernel's operations in its order (ops/ssm_ops.py), one rounding each.
+
+from mxnet_tpu_torch.ops import ssm_ops as SSM  # noqa: E402
+
+
+def _ssm_inputs(dev, s, t, h, d, seed=0, state_scale=0.1):
+    q, k, v = (_randn(dev, s, t, h, d, seed=seed + i) for i in range(3))
+    state0 = state_scale * _randn(dev, s, h, d, d, seed=seed + 3)
+    return q, k, v, state0, SSM.ssm_decay(h, dev)
+
+
+# decode S8 T1, prefill S1 T256, verify S8 W5 (serving's shapes), odd D
+@pytest.mark.parametrize("s,t,h,d,collect", [(8, 1, 16, 128, False),
+                                             (1, 256, 16, 128, False),
+                                             (8, 5, 16, 128, True),
+                                             (3, 9, 2, 40, True),
+                                             (2, 7, 3, 256, False)])
+def test_ssm_scan_kernel_matches_plain_bitwise(dev, s, t, h, d, collect):
+    q, k, v, state0, gamma = _ssm_inputs(dev, s, t, h, d)
+    valid = torch.ones((s, t), dtype=torch.bool, device=dev)
+    valid[0, t // 2:] = False
+    for rv in (None, valid):
+        before = _cuda.launches["ssm_scan"]
+        got = SSM.ssm_scan(q, k, v, state0, gamma, row_valid=rv,
+                           collect=collect)
+        assert _cuda.launches["ssm_scan"] == before + 1
+        want = SSM.ssm_scan_plain(q, k, v, state0, gamma, row_valid=rv,
+                                  collect=collect)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    # in place: the state pool itself is state0 and the output
+    pool = state0.clone()
+    _, st = SSM.ssm_scan(q, k, v, pool, gamma, out_state=pool)
+    assert st.data_ptr() == pool.data_ptr()
+    assert torch.equal(pool, SSM.ssm_scan_plain(q, k, v, state0, gamma)[1])
+
+
+def test_ssm_scan_kernel_chunked_serial_and_verify_agree_bitwise(dev):
+    s, t, h, d = 2, 24, 16, 128
+    q, k, v, state0, gamma = _ssm_inputs(dev, s, t, h, d, seed=5)
+    y_full, s_full = SSM.ssm_scan(q, k, v, state0, gamma)
+    _, s_mid = SSM.ssm_scan(q[:, :16], k[:, :16], v[:, :16], state0, gamma)
+    y_b, s_chunk = SSM.ssm_scan(q[:, 16:], k[:, 16:], v[:, 16:], s_mid,
+                                gamma)
+    assert torch.equal(s_chunk, s_full) and torch.equal(y_b, y_full[:, 16:])
+    state, serial = state0.clone(), []
+    for i in range(t):
+        y_i, _ = SSM.ssm_scan(q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1],
+                              state, gamma, out_state=state)
+        assert torch.equal(y_i[:, 0], y_full[:, i])
+        serial.append(state.clone())
+    assert torch.equal(state, s_full)
+    y_w, s_w, snaps = SSM.ssm_scan(q[:, 11:16], k[:, 11:16], v[:, 11:16],
+                                   serial[10], gamma, collect=True)
+    for j in range(5):
+        assert torch.equal(snaps[j], serial[11 + j])
+    assert torch.equal(s_w, serial[15])
+
+
+def test_flash_window_kernel_matches_plain_and_window_zero_bits(dev):
+    """K1 with a window against its plain version (atol 1e-5), and a
+    window covering the whole sequence gives the unwindowed entry's bits
+    (the window only raises lower bounds)."""
+    for t, d, block, window in ((1024, 128, 16, 128), (37, 40, 8, 5),
+                                (200, 64, 128, 33)):
+        q, k, v = (_randn(dev, 1, 4, t, d, seed=s) for s in range(3))
+        before = dict(_cuda.launches)
+        got = A.flash_attention(q, k, v, block=block, window=window)
+        assert _cuda.launches["flash_attention_window"] == \
+            before["flash_attention_window"] + 1
+        assert _cuda.launches["flash_attention"] == before["flash_attention"]
+        want = A.flash_attention_plain(q, k, v, True, 1.0 / d ** 0.5, block,
+                                       mi=True, window=window)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        for causal in (True, False):
+            assert torch.equal(
+                A.flash_attention(q, k, v, causal=causal, block=block,
+                                  window=t),
+                A.flash_attention(q, k, v, causal=causal, block=block))
+
+
+def _ring_pools(rows, slots_last, rp, page):
+    """Rings of ``rp`` pages a slot holding, for each (T, ...) array of
+    ``rows`` (keys, values, and their scales over codes), the rows at
+    positions 0 .. last (written in order, later over earlier), as serving
+    writes them.  Rows nothing wrote hold NaN (fp32 and scales) or random
+    codes."""
+    s = len(slots_last)
+    pools = []
+    for x in rows:
+        shape = (s * rp, page) + tuple(x.shape[1:])
+        if x.dtype.is_floating_point:
+            pools.append(torch.full(shape, float("nan"), device=x.device))
+        else:
+            pools.append(torch.randint(0, 100, shape, dtype=x.dtype,
+                                       device=x.device))
+    for slot, last in enumerate(slots_last):
+        p = torch.arange(last + 1, device=rows[0].device)
+        keep = p >= last + 1 - rp * page  # the latest write of each row
+        p = p[keep]
+        pg, off = slot * rp + (p // page) % rp, p % page
+        for pool, x in zip(pools, rows):
+            pool[pg, off] = x[p]
+    return pools
+
+
+def _ring_view(pb_max, rp, page, dev):
+    from mxnet_tpu_torch.serve.model import ring_table
+
+    pb = torch.tensor(pb_max, device=dev)
+    return ring_table(torch.arange(len(pb_max), device=dev), pb, rp, page)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_paged_ring_rows_equal_windowed_flash_rows_bitwise(dev, mode):
+    """K2 (K2q over one-byte rings) through rotated ring tables gives K1's
+    windowed rows bit for bit at decode (8 slots, rings that have and
+    have not wrapped), at the verify (5 rows a slot) and at a 256-row
+    prefill; rows nothing wrote are NaN (fp32) and never read."""
+    page, h, d, t, window = 16, 16, 128, 1024, 128
+    rp = -(-(window + 256 - 1) // page) + 1  # serving's rings: 25 pages
+    q, k, v = (_randn(dev, 1, h, t, d, seed=30 + s) for s in range(3))
+    rows = [k[0].transpose(0, 1), v[0].transpose(0, 1)]  # (T, h, d)
+    if mode:
+        (kc, ks), (vc, vs) = (Q.kv_quantize_rows(x, mode) for x in rows)
+        rows = [kc, vc, ks, vs]
+        k, v = _fake_quant(k, mode), _fake_quant(v, mode)
+    full = A.flash_attention(q, k, v, causal=True, block=page, window=window)
+    name = "paged_attention_q_ring" if mode else "paged_attention_ring"
+
+    def pools_of(lasts):
+        pools = _ring_pools(rows, lasts, rp, page)
+        if not mode:
+            return pools, {}
+        return pools[:2], dict(k_scale=pools[2], v_scale=pools[3])
+
+    # decode: horizons n (position n - 1 newest), pb_max = (n - 1) // page
+    hz = [1, page, page + 1, 200, rp * page, rp * page + 7, 900, t]
+    pools, kw = pools_of([n - 1 for n in hz])
+    table, k_pos0 = _ring_view([(n - 1) // page for n in hz], rp, page, dev)
+    qd = torch.stack([q[0, :, n - 1] for n in hz])[:, :, None].contiguous()
+    before = _cuda.launches[name]
+    out = A.paged_attention(qd, *pools, table, torch.tensor(
+        hz, dtype=torch.int32, device=dev), window=window, k_pos0=k_pos0,
+        **kw)
+    assert _cuda.launches[name] == before + 1
+    for i, n in enumerate(hz):
+        assert torch.equal(out[i, :, 0], full[0, :, n - 1]), n
+    # verify: committed L, rows L .. L + 4 written, pb_max (L + 4) // page
+    committed = [0, 3, page - 1, 140, 399, 400, 700, t - 5]
+    pools, kw = pools_of([c + 4 for c in committed])
+    table, k_pos0 = _ring_view([(c + 4) // page for c in committed], rp,
+                               page, dev)
+    hor = np.asarray(committed)[:, None] + np.arange(5) + 1
+    qv = torch.stack([torch.stack([q[0, :, n - 1] for n in row], 1)
+                      for row in hor]).contiguous()
+    out = A.paged_attention(qv, *pools, table, torch.from_numpy(
+        hor.astype(np.int32)).to(dev), window=window, k_pos0=k_pos0, **kw)
+    for i, row in enumerate(hor):
+        for j, n in enumerate(row):
+            assert torch.equal(out[i, :, j], full[0, :, n - 1]), (i, j)
+    # prefill: 256 rows at offset o (page-aligned), all written first
+    for offset in (0, 256, 768):
+        pools, kw = pools_of([offset + 255])
+        table, k_pos0 = _ring_view([(offset + 255) // page], rp, page, dev)
+        qrows = q[:, :, offset:offset + 256].contiguous()
+        horizons = torch.arange(offset + 1, offset + 257, dtype=torch.int32,
+                                device=dev)[None]
+        out = A.paged_attention(qrows, *pools, table, horizons,
+                                window=window, k_pos0=k_pos0, **kw)
+        assert torch.equal(out[0], full[0, :, offset:offset + 256]), offset
+
+
+def test_paged_ring_entry_at_window_zero_gives_the_plain_entrys_bits(dev):
+    """The ring entries with window 0 and k_pos0 0 run the plain entries'
+    operations: the same bits, at decode, verify and prefill, fp32 and
+    int8."""
+    page, h, d, n_pages = 16, 16, 128, 20
+    q, full, k_pool, v_pool, table = _paged_sequence(dev, page, h, d,
+                                                     n_pages, n_pages + 2)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    for nq in (1, 5, 64):
+        rows = q[:, :, 100:100 + nq].contiguous()
+        hor = torch.arange(101, 101 + nq, dtype=torch.int32,
+                           device=dev)[None]
+        a = A.paged_attention(rows, k_pool, v_pool, table[None], hor)
+        b = A.paged_attention(rows, k_pool, v_pool, table[None], hor,
+                              k_pos0=zero)
+        assert torch.equal(a, b), nq
+
+
+def _hybrid_session(dev, **kw):
+    cfg = serve.ModelConfig(vocab_size=61, num_layers=3, d_model=64,
+                            num_heads=2, max_len=128)
+    conf = dict(slots=3, page_size=8, buckets=(8, 16), max_new=24,
+                layers="full,window,ssm", window=8)
+    conf.update(kw)
+    return serve.InferenceSession(serve.init_params(cfg, seed=3, device=dev),
+                                  num_heads=2,
+                                  config=serve.ServeConfig(**conf))
+
+
+@pytest.mark.parametrize("layers,kv_quant", [("full,window,ssm", ""),
+                                             ("window,ssm", "int8"),
+                                             ("full,window,ssm", "fp8")])
+def test_serve_hybrid_decode_bitexact_on_the_card(dev, layers, kv_quant):
+    """A hybrid stack's prefill and decode graphs give the oracle's logits
+    bit for bit past the ring's wrap; a decode replay launches K3, K2 (full
+    layers), K2 over rings (window layers) and K10 (SSM layers)."""
+    sess = _hybrid_session(dev, layers=layers, kv_quant=kv_quant)
+    rs = np.random.RandomState(11)
+    seqs = {}
+    for n in (5, 13, 21):
+        p = rs.randint(1, 61, size=n).tolist()
+        slot = sess.try_alloc(n, 16, resume=True)
+        first, logits = sess.prefill(slot, p)
+        ref = serve.reference_last_logits(sess.params, p, sess.model, 8,
+                                          kv_quant=kv_quant)
+        np.testing.assert_array_equal(logits, ref.cpu().numpy())
+        seqs[slot] = p + [first]
+    for _ in range(12):
+        toks, logits = sess.step()
+        for slot, seq in seqs.items():
+            ref = serve.reference_last_logits(sess.params, seq, sess.model,
+                                              8, kv_quant=kv_quant)
+            np.testing.assert_array_equal(logits[slot], ref.cpu().numpy())
+            seq.append(toks[slot])
+    kinds = sess.model.kinds
+    per = sess.graph_report()["launches_per_replay"]["decode"]
+    suffix = "_q" if kv_quant else ""
+    want = {"mi_linear": 4 * len(kinds) + 1,
+            "paged_attention%s_ring" % suffix: kinds.count("window"),
+            "ssm_scan": kinds.count("ssm")}
+    if "full" in kinds:
+        want["paged_attention%s" % suffix] = kinds.count("full")
+    if kv_quant:
+        want["kv_append_quantized"] = len(kinds) - kinds.count("ssm")
+    assert per == want
+
+
+def test_serve_hybrid_spec_graphs_and_launches_follow_replays(dev):
+    """Speculation over a hybrid stack on the card: the streams equal
+    plain decode's, each slot's committed SSM state is plain decode's,
+    and the launches of K1-free serving kernels are replays times
+    recorded."""
+    plain = _hybrid_session(dev)
+    spec = _hybrid_session(dev, spec_k=3, draft="layers:2")
+    assert spec.draft_model.kinds == ("full", "window")
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(1, 61, size=4 + 5 * i).tolist() for i in range(3)]
+    streams = []
+    for sess in (plain, spec):
+        reqs = [serve.Request(rid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts)]
+        for exe in sess.executables.values():
+            exe.replays = 0
+        before = dict(_cuda.launches)
+        done, _ = serve.Scheduler(sess, policy="continuous").run(reqs)
+        assert all(not r.failed for r in done)
+        streams.append([r.tokens for r in done])
+        rep = sess.graph_report()
+        per = rep["launches_per_replay"]
+        for kernel in ("mi_linear", "paged_attention", "paged_attention_ring",
+                       "ssm_scan"):
+            want = sum(rep["replays"][n] * per[n].get(kernel, 0)
+                       for n in per)
+            assert want > 0 and \
+                _cuda.launches[kernel] - before[kernel] == want, kernel
+    assert streams[0] == streams[1]
 
 
 # ---------------------------------------------------------------------------

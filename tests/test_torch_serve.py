@@ -331,8 +331,21 @@ def test_entry_points_default_to_the_card(np_params, monkeypatch):
                                          ("layers", "full,window"),
                                          ("layers", "full,ssm")])
 def test_later_slice_fields_raise(field, value):
-    with pytest.raises(MXNetError, match="ServeConfig.%s" % field):
-        tserve.ServeConfig(**{field: value})
+    """These fields raised while hybrid stacks were a later slice; now
+    each does what the JAX package's ServeConfig does with it: a window
+    alone is unused, a windowed pattern without a window raises, and a
+    pattern cycles over the depth."""
+    kw = dict(page_size=PAGE, buckets=(8, 16), **{field: value})
+    try:
+        want = jserve.ServeConfig(**kw)
+    except Exception as exc:  # the JAX package's MXNetError
+        with pytest.raises(MXNetError, match="window"):
+            tserve.ServeConfig(**kw)
+        assert "window" in str(exc)
+        return
+    got = tserve.ServeConfig(**kw)
+    assert got.kinds_for(4) == want.kinds_for(4)
+    assert got.ring_pages == want.ring_pages
 
 
 def test_params_from_numpy(np_params):
