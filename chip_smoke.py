@@ -112,6 +112,22 @@ a checkout that holds ``mxnet_tpu_torch/``):
    windowed and K10 launches one a layer of their kind a check; ring and
    state MB and a profile of the first.  Then the first under ``spec_k``
    4 with the ``ngram`` draft: every stream equal to its plain run's.
+4e. gateway — the serve phase's model saved by the port's
+   ``CheckpointManager`` (v2, SHA-256 verify on) into a temporary
+   directory, restored twice through ``InferenceSession.from_checkpoint``
+   (``num_heads`` from the saved transformer symbol) into a two-replica
+   ``ReplicaSet`` behind a ``Gateway`` on ``127.0.0.1:0``; the serve
+   phase's 16 requests sent 50 ms apart by client threads over HTTP/SSE,
+   every stream equal to the serve phase's token for token (tokens/s,
+   TTFT p50/p99 at the client's first SSE event); then the same traffic
+   with one replica killed mid-run (``serve_replica_kill``: zero requests
+   lost, every stream equal, the replica rejoins cold), one client that
+   disconnects after its first event (afterwards each replica's
+   ``state_report()`` equals its pre-traffic snapshot), and a drain that
+   flips ``/readyz`` to 503 while the streams in flight finish whole.
+   The phase's K3 and K2 launches must equal both replicas' replays
+   times the launches recorded; checkpoint save/load seconds and bytes,
+   capture seconds, failovers, sheds and rejoins in the ``gateway`` line.
 5. train — the same LM trains through ``models.transformer.get_symbol``
    -> ``fused.TrainStep(optimizer="sgd", compute_dtype="bfloat16")`` ->
    ``init_state(seed=0)`` at ``bench_transformer.py``'s default (T 1024,
@@ -935,6 +951,285 @@ def hybrid_phases(dev, cfg, smi):
         total[name] = total.get(name, 0) + n
     del params
     return total
+
+
+# the gateway phase's clients: each request's SSE stream read as it
+# arrives; every socket read carries this timeout
+GW_CLIENT_TIMEOUT_S = 120.0
+
+
+def sse_client(port, payload, out, t_send=None):
+    """POST ``payload`` to the gateway on 127.0.0.1 and read its SSE
+    stream, recording into ``out``: ``status``, ``tokens``, the final
+    ``done`` event, and ``ttft_s`` (send to the first token event) and
+    ``total_s``.  ``t_send`` (a ``perf_counter`` time) delays the send
+    until then."""
+    import http.client
+
+    if t_send is not None:
+        time.sleep(max(0.0, t_send - time.perf_counter()))
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=GW_CLIENT_TIMEOUT_S)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(payload))
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        out["tokens"] = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            event = json.loads(line[len(b"data: "):])
+            if "token" in event:
+                if not out["tokens"]:
+                    out["ttft_s"] = time.perf_counter() - t0
+                out["tokens"].append(event["token"])
+            if event.get("done"):
+                out["done"] = event
+        out["total_s"] = time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def gateway_traffic(port, reqs, gap_s):
+    """Send ``reqs`` (``serve.Request``s) to the gateway, one client
+    thread each, ``gap_s`` apart; returns rid -> the client's record and
+    the seconds from the first send to the last stream's end."""
+    import threading
+
+    t0 = time.perf_counter() + 0.01
+    results = {r.rid: {} for r in reqs}
+    threads = [threading.Thread(
+        target=sse_client, args=(port, {"rid": r.rid, "prompt": r.prompt,
+                                         "max_new": r.max_new},
+                                 results[r.rid], t0 + gap_s * i))
+        for i, r in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=GW_CLIENT_TIMEOUT_S + 30)
+        if t.is_alive():
+            raise AssertionError("a gateway client never finished")
+    return results, time.perf_counter() - t0
+
+
+def check_streams(results, want, tag):
+    """Every client got a 200, a whole stream equal to ``want[rid]``, and
+    a final event carrying the same transcript."""
+    for rid, res in results.items():
+        if res.get("status") != 200 or res.get("tokens") != want[rid] or \
+                res.get("done", {}).get("tokens") != want[rid]:
+            raise AssertionError(
+                "%s: request %d got status %r, tokens %r, done %r; the "
+                "serve phase streamed %r" % (tag, rid, res.get("status"),
+                                             res.get("tokens"),
+                                             res.get("done"), want[rid]))
+
+
+def gateway_phase(dev, cfg, sconf, params, want, serve_stats, n_requests=16,
+                  prompt_lens=(24, 250), gap_s=0.05, kill_after=40):
+    """Serve the serve phase's model over HTTP: save ``params`` with the
+    port's ``CheckpointManager`` (v2, verify on) and the transformer
+    symbol, restore it twice through ``InferenceSession.from_checkpoint``
+    into a two-replica ``ReplicaSet`` behind a ``Gateway`` on
+    127.0.0.1:0, and send the serve phase's ``n_requests`` requests
+    ``gap_s`` apart over HTTP/SSE: every stream must equal ``want`` (the
+    serve phase's streams).  Then the same traffic with replica 0 killed
+    at the ``kill_after``-th hit of ``serve_replica_kill`` (nothing lost,
+    streams equal), one client that resets its connection after the first
+    event (afterwards each replica's ``state_report()`` equals its
+    pre-traffic snapshot), and a drain that flips ``/readyz`` to 503 while
+    the streams in flight finish whole.  The phase's kernel launches must
+    equal both replicas' replays times the launches recorded.  Returns
+    the phase's numbers and its launches."""
+    import shutil
+    import socket
+    import struct
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from mxnet_tpu_torch import _cuda, serve
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.testing import faults
+
+    card = dev.type == "cuda"
+    out = {}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        sym = transformer.get_symbol(
+            vocab_size=cfg.vocab_size, num_layers=cfg.num_layers,
+            d_model=cfg.d_model, num_heads=cfg.num_heads,
+            seq_len=cfg.max_len)
+        mgr = CheckpointManager(ckpt_dir, prefix="lm", verify=True,
+                                save_optimizer_states=False)
+        t0 = time.perf_counter()
+        mgr.save(epoch=1, symbol=sym, arg_params=params)
+        out["ckpt_save_s"] = time.perf_counter() - t0
+        out["ckpt_bytes"] = sum(
+            os.path.getsize(os.path.join(ckpt_dir, n))
+            for n in os.listdir(ckpt_dir))
+        sessions, load_s, build_s = [], [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state = mgr.load(epoch=1, device=dev)
+            load_s.append(time.perf_counter() - t0)
+            del state
+            t0 = time.perf_counter()
+            sessions.append(serve.InferenceSession.from_checkpoint(
+                ckpt_dir, prefix="lm", epoch=1, config=sconf, device=dev))
+            build_s.append(time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for sess in sessions:
+        if sess.model.num_heads != cfg.num_heads:
+            raise AssertionError("from_checkpoint read num_heads %d"
+                                 % sess.model.num_heads)
+        for k, v in sess.params.items():
+            if v.device != params[k].device or not torch.equal(v,
+                                                               params[k]):
+                raise AssertionError("restored parameter %s differs from "
+                                     "the saved one" % k)
+    out.update(ckpt_load_s=load_s, from_checkpoint_s=build_s,
+               capture_s=[s.capture_s for s in sessions],
+               graph_pool_mb=[(s.graph_pool_bytes or 0) / 2.0 ** 20
+                              for s in sessions])
+    baseline = [s.state_report() for s in sessions]
+    rs = serve.ReplicaSet(sessions=sessions, step_timeout_s=60.0,
+                          rejoin_backoff_s=0.05)
+    reqs = lambda: seeded_requests(cfg, n_requests, prompt_lens,
+                                   sconf.max_new, gap_s)
+    for sess in sessions:
+        for exe in sess.executables.values():
+            exe.replays = 0
+    gw = serve.Gateway(rs, host="127.0.0.1", port=0).start()
+    try:
+        if card:
+            torch.cuda.synchronize()
+        _cuda.reset_launches()
+        # a. the serve phase's traffic over HTTP/SSE
+        results, wall = gateway_traffic(gw.port, reqs(), gap_s)
+        check_streams(results, want, "gateway")
+        ttft = sorted(r["ttft_s"] * 1e3 for r in results.values())
+        tokens = sum(len(r["tokens"]) for r in results.values())
+        out.update(requests=n_requests, tokens=tokens,
+                   tokens_per_s=tokens / wall, makespan_s=wall,
+                   ttft_p50_ms=float(np.percentile(ttft, 50)),
+                   ttft_p99_ms=float(np.percentile(ttft, 99)),
+                   ttft_max_ms=ttft[-1],
+                   serve_tokens_per_s=serve_stats["tokens_per_s"],
+                   serve_ttft_p50_ms=serve_stats["ttft_p50_ms"],
+                   serve_ttft_p99_ms=serve_stats["ttft_p99_ms"],
+                   streams_equal=n_requests)
+        # b. replica 0 killed mid-run: nothing lost, streams equal
+        deaths0 = rs.counters["deaths"]
+        os.environ["MXNET_FAULT_INJECT"] = \
+            "serve_replica_kill:kill:after=%d" % kill_after
+        faults.reset()
+        try:
+            results, wall = gateway_traffic(gw.port, reqs(), gap_s)
+        finally:
+            os.environ.pop("MXNET_FAULT_INJECT", None)
+            faults.reset()
+        check_streams(results, want, "gateway with a replica killed")
+        if rs.counters["deaths"] != deaths0 + 1:
+            raise AssertionError("the kill did not land: %r"
+                                 % rs.counters)
+        out.update(kill_tokens_per_s=sum(len(r["tokens"]) for r in
+                                         results.values()) / wall,
+                   kill_lost=0, kill_streams_equal=n_requests)
+        # c. a client that resets its connection after the first event
+        one = reqs()[0]
+        sock = socket.create_connection(("127.0.0.1", gw.port),
+                                        timeout=GW_CLIENT_TIMEOUT_S)
+        body = json.dumps({"rid": 9000, "prompt": one.prompt,
+                           "max_new": one.max_new}).encode()
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(body) + body)
+        seen = b""
+        while b"data: " not in seen:
+            chunk = sock.recv(4096)
+            if not chunk:
+                raise AssertionError("the gateway closed before the first "
+                                     "event: %r" % seen)
+            seen += chunk
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                        struct.pack("ii", 1, 0))
+        sock.close()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and (
+                rs.outstanding or gw.open_streams()):
+            time.sleep(0.01)
+        after = [s.state_report() for s in sessions]
+        if after != baseline:
+            raise AssertionError("state_report after the disconnect %r != "
+                                 "before the traffic %r" % (after, baseline))
+        out.update(disconnect_cancelled=gw.counters["cancelled"],
+                   state_report_round_trip=True)
+        # d. drain: /readyz flips to 503 while the streams in flight end
+        drain_reqs = reqs()[:4]
+        results = {r.rid: {} for r in drain_reqs}
+        threads = [threading.Thread(target=sse_client, args=(
+            gw.port, {"rid": r.rid, "prompt": r.prompt,
+                      "max_new": r.max_new}, results[r.rid]))
+            for r in drain_reqs]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and \
+                len(gw.open_streams()) < len(drain_reqs):
+            time.sleep(0.001)
+        gw.drain(wait=False)
+        try:
+            urllib.request.urlopen("http://127.0.0.1:%d/readyz" % gw.port,
+                                   timeout=30)
+            readyz = 200
+        except urllib.error.HTTPError as exc:
+            readyz = exc.code
+        if readyz != 503:
+            raise AssertionError("/readyz answered %d while draining"
+                                 % readyz)
+        for t in threads:
+            t.join(timeout=GW_CLIENT_TIMEOUT_S + 30)
+        clean = gw._drain_fut.result(timeout=gw.drain_s + 30)
+        check_streams(results, want, "gateway drain")
+        if not clean:
+            raise AssertionError("the drain force-cancelled streams")
+        out.update(drain_readyz=readyz, drain_clean=clean,
+                   drain_streams_equal=len(drain_reqs))
+        if card:
+            torch.cuda.synchronize()
+        launched = dict(_cuda.launches)
+    finally:
+        gw.stop()
+    want_launches = {}
+    replays = []
+    for sess in sessions:
+        rep = sess.graph_report()
+        replays.append(rep["replays"])
+        for name, per in rep["launches_per_replay"].items():
+            for kernel, n in per.items():
+                want_launches[kernel] = want_launches.get(kernel, 0) + \
+                    rep["replays"][name] * n
+    got = {k: n for k, n in launched.items() if n}
+    if got != want_launches:
+        raise AssertionError("gateway phase launches %r are not both "
+                             "replicas' replays x recorded %r"
+                             % (got, want_launches))
+    out.update(replays=replays, failovers=rs.counters["failover_requests"],
+               deaths=rs.counters["deaths"], rejoins=rs.counters["rejoins"],
+               shed=rs.counters["shed"],
+               replica_states=[r.state for r in rs.replicas],
+               gateway_counters=dict(gw.counters),
+               incident=gw.incident_path or rs.incident_path)
+    return out, got
 
 
 def train_config(num_layers=8):
@@ -3348,6 +3643,7 @@ def main():
         launches[name] += n
     log("quant_spec", quant="int8", kv_quant="int8", nvidia_smi=smi,
         launches=spec_launches, **spec)
+    serve_params, serve_stats = sess.params, stats
     del sess
     torch.cuda.empty_cache()
 
@@ -3357,6 +3653,22 @@ def main():
     for name, n in hybrid_launches.items():
         launches[name] += n
     phase_s["hybrid"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- 4e. the serving front: checkpoint, replicas, HTTP gateway ---------
+    t0 = time.perf_counter()
+    gw_stats, gw_launches = gateway_phase(dev, cfg, sconf, serve_params,
+                                          streams, serve_stats)
+    if min(gw_launches.get(k, 0) for k in ("paged_attention",
+                                            "mi_linear")) < 1:
+        raise AssertionError("a kernel never ran on the gateway path: %r"
+                             % gw_launches)
+    for name, n in gw_launches.items():
+        launches[name] += n
+    phase_s["gateway"] = time.perf_counter() - t0
+    log("gateway", model="8L-d2048-h16-V32768", replicas=2,
+        nvidia_smi=smi, launches=gw_launches, **gw_stats)
+    del serve_params
     torch.cuda.empty_cache()
 
     # -- 5. train at full width -------------------------------------------

@@ -10,8 +10,9 @@ from __future__ import annotations
 import logging
 import os
 
-__all__ = ["MXNetError", "RecompileStorm", "TrainingPreempted", "get_env",
-           "later_slice", "logger", "resolve_device"]
+__all__ = ["MXNetError", "RecompileStorm", "StepHung", "TrainingDiverged",
+           "TrainingPreempted", "get_env", "later_slice", "logger",
+           "resolve_device"]
 
 logger = logging.getLogger("mxnet_tpu_torch")
 
@@ -47,6 +48,37 @@ class TrainingPreempted(MXNetError):
         self.epoch = epoch
         self.nbatch = nbatch
         self.signum = signum
+
+
+class TrainingDiverged(MXNetError):
+    """Raised by the run-health sentinel when training is beyond
+    automatic recovery: N consecutive rollbacks (or skip-only policy
+    exhausted) without the numerics coming back.  ``epoch``/``nbatch``
+    name the position, ``reason`` the anomaly that exhausted the
+    policy."""
+
+    def __init__(self, msg, epoch=None, nbatch=None, reason=None):
+        super().__init__(msg)
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.reason = reason
+
+
+class StepHung(MXNetError):
+    """Raised (asynchronously, by :class:`~mxnet_tpu_torch.health.
+    StepWatchdog`) when a step made no progress for its timeout: a
+    wedged device call, a deadlocked collective, or a stuck input
+    pipeline.  By the time this surfaces the watchdog has dumped
+    all-thread stacks to the artifact named in ``dump_path``
+    (pretty-print it with ``tools/diagnose.py``)."""
+
+    def __init__(self, msg="", note=None, dump_path=None):
+        # msg defaults to "" because the watchdog delivers this class
+        # through PyThreadState_SetAsyncExc, which instantiates it with
+        # no arguments (health.last_hang_details() holds the details)
+        super().__init__(msg)
+        self.note = note
+        self.dump_path = dump_path
 
 
 def get_env(name, default, typ=None):

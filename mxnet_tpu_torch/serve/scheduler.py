@@ -87,7 +87,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
-from ..base import MXNetError
+from ..base import MXNetError, StepHung
 from ..testing import faults
 
 __all__ = ["Request", "Scheduler", "ServeCancelled", "summarize"]
@@ -164,6 +164,10 @@ class Scheduler(object):
         self._queue = []
         self._parked = []
         self._active = {}
+        # (request, slot) while a request is out of every queue but not
+        # yet in a slot (its prefill) or leaving one (its response): a
+        # StepHung landing there must not lose it (drain() returns it)
+        self._transit = None
         self._t0 = None
 
     # -- fault boundaries -------------------------------------------------
@@ -174,6 +178,8 @@ class Scheduler(object):
             faults.inject("serve_queue")
             faults.inject(site)
             return True
+        except StepHung:
+            raise  # the replica is stalled, not this request
         except faults.WorkerKilled as exc:
             self._fail(req, slot, exc)
             return False
@@ -191,6 +197,8 @@ class Scheduler(object):
         try:
             first, _ = self.session.prefill(slot, seq)
             return first
+        except StepHung:
+            raise  # the replica is stalled, not this request
         except faults.WorkerKilled as exc:
             self._fail(req, slot, exc)
             return None
@@ -254,8 +262,27 @@ class Scheduler(object):
         ``(resumable, fresh)`` — requests with committed tokens, and
         requests not yet prefilled.  Active slots are released
         best-effort (in-process the host-side bookkeeping is still
-        reachable; a real dead replica's memory is gone with it)."""
+        reachable; a real dead replica's memory is gone with it).  A
+        request a :class:`~mxnet_tpu_torch.base.StepHung` caught between
+        a queue and its slot is returned too (its slot released), or
+        completed when every token of it was already committed: the
+        boundaries re-raise StepHung rather than fail the request, since
+        the stall is the replica's."""
         resumable, fresh = [], []
+        if self._transit is not None:
+            req, slot = self._transit
+            self._transit = None
+            if slot is not None and slot not in self._active:
+                try:
+                    self.session.release(slot)
+                except MXNetError:
+                    pass
+            if not req.finished:
+                if len(req.tokens) >= req.max_new or (
+                        req.tokens and req.tokens[-1] == req.eos_id):
+                    req.done_s = self.now()  # every token committed
+                else:
+                    (resumable if req.tokens else fresh).append(req)
         for slot in sorted(self._active):
             req = self._active[slot]
             try:
@@ -353,7 +380,9 @@ class Scheduler(object):
                         "request's worst case" % req.rid)
                 break
             parked.remove(req)
+            self._transit = (req, slot)
             first = self._prefill(req, slot, seq)
+            self._transit = None
             if first is None:
                 continue
             if first != req.tokens[-1]:
@@ -390,7 +419,9 @@ class Scheduler(object):
             if slot is None:
                 break  # pool full: stays queued for a later boundary
             pending.remove(req)
+            self._transit = (req, slot)
             first = self._prefill(req, slot, req.prompt)
+            self._transit = None
             if first is None:
                 continue
             req.ttft_s = now() - req.arrival_s
@@ -476,10 +507,12 @@ class Scheduler(object):
         return self.outstanding
 
     def _finish(self, req, slot, active, now):
+        self._transit = (req, slot)
         active.pop(slot, None)
         if self._boundary(req, slot, "serve_respond"):
             req.done_s = now()
             self.session.release(slot)
+        self._transit = None
         if self._followup is not None:
             nxt = self._followup(req, now())
             if nxt is not None:

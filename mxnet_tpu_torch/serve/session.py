@@ -38,8 +38,14 @@ target's first N blocks) or explicit ``draft_params``.
 Prefix caching (``prefix_pages``), chunked prefill at page-aligned
 offsets, and oversubscription with on-demand page growth carry over
 from the JAX session unchanged; they are host bookkeeping around the
-same entry points.  Autotune and checkpoint loading (a
-checkpoint-directory draft too) are ported in later slices.
+same entry points.  Model load goes through the port's checkpoint
+restore (:meth:`InferenceSession.from_checkpoint`, and a
+checkpoint-directory draft), which reads the JAX package's files too;
+an env-derived config takes a cached autotune record's knobs
+(``MXNET_AUTOTUNE``, :func:`~mxnet_tpu_torch.autotune.apply_serve`).
+The replica supervisor rejoins a replica through :meth:`reset_cold`,
+and the gateway's cancellation tests hold :meth:`state_report` to its
+baseline.
 
 Hybrid stacks (``layers``, ``MXNET_SERVE_LAYERS``, with ``window``,
 ``MXNET_SERVE_WINDOW``): a pattern of ``full``, ``window`` and ``ssm``
@@ -81,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import time
 
 import numpy as np
@@ -118,8 +125,8 @@ class ServeConfig:
     capacity for ``slots`` worst-case requests); ``spec_k`` > 0 turns
     on speculative decoding with K draft proposals per step and
     ``draft`` picks the proposer (``""``/``"ngram"`` host prompt-lookup,
-    ``"layers:N"`` the target's first N blocks; a checkpoint directory is
-    a later slice of the port).  ``quant`` (``""``, ``"int8"`` or
+    ``"layers:N"`` the target's first N blocks, else a checkpoint
+    directory, prefix ``model``).  ``quant`` (``""``, ``"int8"`` or
     ``"fp8"``) quantizes the weights and ``kv_quant`` (the same, ``e4m3``
     naming fp8) the KV pages, normalized as ``quantize.quant_mode``
     does.  ``layers`` is a pattern of layer kinds (``"full,window,ssm"``)
@@ -135,7 +142,7 @@ class ServeConfig:
     num_pages: int = 0  # 0 = slots * max_pages_per_slot
     exact: bool = True
     spec_k: int = 0  # 0 = speculative decoding off
-    draft: str = ""  # "", "ngram" or "layers:N"
+    draft: str = ""  # "", "ngram", "layers:N", or a checkpoint dir
     quant: str = ""  # "", "int8" or "fp8": weight-only quantization
     kv_quant: str = ""  # "", "int8" or "fp8" (e4m3): quantized KV pages
     prefix_pages: int = 0  # 0 = prefix cache off; -1 = unbounded retention
@@ -273,6 +280,7 @@ class _Executable(object):
             guard.observe(signature_of(inputs))
         self.graph = None
         self.outputs = None
+        self.pool_bytes = 0  # growth of the graph pool at its capture
         self.launches = {}  # kernel -> launches a replay makes
         self.replays = 0
 
@@ -286,7 +294,8 @@ class _Executable(object):
                                          tuple(buf.shape)))
             buf.copy_(val)
         if self.graph is None:
-            return self.fn(**self.inputs)
+            self.outputs = self.fn(**self.inputs)
+            return self.outputs
         self.graph.replay()
         self.replays += 1
         for kernel, n in self.launches.items():
@@ -320,6 +329,7 @@ def _capture(exes, device):
         pool = torch.cuda.graph_pool_handle()
         for exe in exes:
             before = dict(_cuda.launches)
+            held = torch.cuda.memory_reserved()
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, pool=pool):
@@ -335,6 +345,7 @@ def _capture(exes, device):
                             for k, n in counted.items()
                             if n > before.get(k, 0)}
             exe.graph, exe.outputs = graph, outputs
+            exe.pool_bytes = torch.cuda.memory_reserved() - held
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         return (time.perf_counter() - t0,
@@ -355,16 +366,23 @@ class InferenceSession(object):
 
     With ``config.spec_k > 0`` the session also hosts a draft proposer:
     pass ``draft_params`` (+ ``draft_num_heads``) explicitly, or let
-    ``config.draft`` resolve one (``"ngram"`` or ``"layers:N"``).  A
-    draft model gets its own :class:`PagedKVCache` (same slot and page
-    geometry, the draft's dims) that the session keeps in lockstep with
-    the target's.
+    ``config.draft`` resolve one (``"ngram"``, ``"layers:N"`` or a
+    checkpoint directory).  A draft model gets its own
+    :class:`PagedKVCache` (same slot and page geometry, the draft's
+    dims) that the session keeps in lockstep with the target's.
     """
 
     def __init__(self, params, num_heads, config=None, device=None,
                  draft_params=None, draft_num_heads=None):
         self.device = resolve_device(device, "InferenceSession")
         self.config = config or ServeConfig.from_env()
+        if config is None:
+            # env-driven config: a cached autotune record for this
+            # (model fingerprint, card) may override knobs (opt-in via
+            # MXNET_AUTOTUNE; autotune.provenance() lists it)
+            from .. import autotune as _autotune
+
+            self.config = _autotune.apply_serve(self.config, params)
         cfg = self.config
         self.params = params_from_numpy(params, self.device)
         if cfg.quant:
@@ -412,6 +430,28 @@ class InferenceSession(object):
             self.capture_s, self.graph_pool_bytes = _capture(
                 list(self._exes.values()), self.device)
 
+    @classmethod
+    def from_checkpoint(cls, directory, prefix="model", epoch=None,
+                        num_heads=None, config=None, device=None):
+        """Restore params through the checkpoint manager and build a
+        session on ``device`` (default: the card).  Any shard layout
+        assembles here, the JAX package's files included; ``num_heads``
+        is read from the saved symbol's ``MultiHeadAttention`` node when
+        not given."""
+        from ..checkpoint import CheckpointManager
+
+        device = resolve_device(device, "InferenceSession.from_checkpoint")
+        state = CheckpointManager(directory, prefix=prefix).load(
+            epoch=epoch, device=device)
+        if num_heads is None and state.symbol is not None:
+            num_heads = _num_heads_from_symbol(state.symbol)
+        if num_heads is None:
+            raise MXNetError(
+                "from_checkpoint: pass num_heads= (the checkpoint symbol "
+                "does not record a MultiHeadAttention op)")
+        return cls(_checkpoint_params(state), num_heads=num_heads,
+                   config=config, device=device)
+
     def _new_cache(self, model):
         cfg = self.config
         return PagedKVCache(
@@ -451,20 +491,25 @@ class InferenceSession(object):
             if spec == "ngram":
                 self._draft_mode = "ngram"
                 return
-            if not spec.startswith("layers:"):
-                raise MXNetError(
-                    "ServeConfig.draft=%r: a checkpoint-directory draft "
-                    "loads through checkpoint.py, which is ported in a "
-                    "later slice of the PyTorch port (use \"ngram\", "
-                    "\"layers:N\" or draft_params)" % (spec,))
-            try:
-                n = int(spec.split(":", 1)[1])
-            except ValueError:
-                raise MXNetError("ServeConfig.draft=%r: N of layers:N must "
-                                 "be an integer" % (spec,)) from None
-            draft_params = _layer_truncated(self.params, n)
-            draft_num_heads = draft_num_heads or self.model.num_heads
-            inherit = n
+            inherit = None
+            if spec.startswith("layers:"):
+                try:
+                    n = int(spec.split(":", 1)[1])
+                except ValueError:
+                    raise MXNetError("ServeConfig.draft=%r: N of layers:N "
+                                     "must be an integer" % (spec,)) \
+                        from None
+                draft_params = _layer_truncated(self.params, n)
+                draft_num_heads = draft_num_heads or self.model.num_heads
+                inherit = n
+            else:
+                # a checkpoint directory (prefix "model")
+                from ..checkpoint import CheckpointManager
+
+                state = CheckpointManager(spec).load(device=self.device)
+                if draft_num_heads is None and state.symbol is not None:
+                    draft_num_heads = _num_heads_from_symbol(state.symbol)
+                draft_params = _checkpoint_params(state)
         else:
             inherit = None
         self._draft_mode = "model"
@@ -891,6 +936,100 @@ class InferenceSession(object):
 
     def active_slots(self):
         return sorted(self._slot_tokens)
+
+    def reset_cold(self):
+        """Return the session to a just-built state (a replica's rejoin
+        after a supervisor eject): every slot released and the prefix
+        index dropped, so the replica re-enters rotation cold and warms
+        its cache from live traffic.  The captured graphs hold no
+        request state and stay valid: the next replay reads the tables
+        and lengths a new request writes."""
+        for slot in list(self._slot_tokens):
+            try:
+                self.release(slot)
+            except MXNetError:
+                pass
+        self.cache.drop_prefix_index()
+        if self.draft_cache is not None:
+            self.draft_cache.drop_prefix_index()
+
+    def state_report(self):
+        """Occupancy snapshot for leak assertions: active and free
+        slots, free pages, retained published-prefix pages (they survive
+        a release by design), the draft cache in lockstep, and
+        ``pool_bytes`` (fixed buffers: it never moves)."""
+        out = {
+            "active_slots": self.active_slots(),
+            "free_slots": self.cache.free_slots,
+            "free_pages": self.cache.free_pages,
+            "retained_pages": self.cache.retained_pages,
+            "pool_bytes": self.cache.pool_bytes(),
+        }
+        if self.draft_cache is not None:
+            out["draft_free_slots"] = self.draft_cache.free_slots
+            out["draft_free_pages"] = self.draft_cache.free_pages
+        return out
+
+    def memory_analysis(self, name="decode"):
+        """The JAX session's ``memory_analysis`` keys that have a
+        counterpart for one entry point: ``argument_size_in_bytes``, the
+        graph's fixed input buffers; ``output_size_in_bytes``, its
+        output buffers; ``temp_size_in_bytes``, the growth of the
+        session's graph pool when this entry was captured.  XLA's
+        ``generated_code_size_in_bytes`` has none (a graph replays
+        kernels loaded once per process).  On the CPU nothing is
+        captured: the outputs are the last call's, and temp is 0."""
+        exe = self._exes[name]
+
+        def nbytes(tree):
+            if torch.is_tensor(tree):
+                return tree.numel() * tree.element_size()
+            if isinstance(tree, dict):
+                return sum(nbytes(v) for v in tree.values())
+            if isinstance(tree, (list, tuple)):
+                return sum(nbytes(v) for v in tree)
+            return 0
+
+        return {"argument_size_in_bytes": nbytes(exe.inputs),
+                "output_size_in_bytes": nbytes(exe.outputs),
+                "temp_size_in_bytes": int(exe.pool_bytes)}
+
+    def fallback_count(self):
+        """Calls that left the frozen executables: 0 by construction.
+        The JAX session falls back to a lazy jit on an aval drift; an
+        entry point here takes only its own buffers' shapes and raises
+        on any other (``_Executable.__call__``), because a replay over
+        wrong-shaped buffers has no eager stand-in on the card."""
+        return 0
+
+
+def _checkpoint_params(state):
+    """The serving params of a loaded checkpoint: its arg and aux
+    arrays, as the tensors the NDArrays hold."""
+    params = {k: getattr(v, "_data", v)
+              for k, v in state.arg_params.items()}
+    params.update({k: getattr(v, "_data", v)
+                   for k, v in (state.aux_params or {}).items()})
+    return params
+
+
+def _num_heads_from_symbol(symbol):
+    """``num_heads`` of a saved symbol's MultiHeadAttention node, if the
+    checkpoint recorded one."""
+    try:
+        graph = json.loads(symbol.tojson())
+    except Exception:  # an unserialisable symbol records nothing
+        return None
+    for node in graph.get("nodes", []):
+        op = (node.get("op") or "").lower()
+        if "multiheadattention" in op.replace("_", ""):
+            attrs = node.get("attrs") or node.get("param") or {}
+            if "num_heads" in attrs:
+                try:
+                    return int(attrs["num_heads"])
+                except (TypeError, ValueError):
+                    pass
+    return None
 
 
 def _layer_truncated(params, n):

@@ -20,6 +20,9 @@ kernels: K3q against K3 on the dequantized weight, K2q against K1 over
 the fake-quantized context, K9's codes and scales against the plain
 quantizer's).  The rtc kernels (``rtc.CudaKernel``,
 compiled at run time) are held to the stated tolerance of each test.
+The serving front's streams (a checkpoint restored onto the card, two
+replicas on one card, a gateway's dispatch thread replaying graphs
+captured on another) must equal a single session's token for token.
 """
 import numpy as np
 import pytest
@@ -1851,6 +1854,117 @@ def test_multistep_module_set_params_is_seen_by_the_next_replay(dev):
         assert torch.equal(got[k], v), k
     assert isinstance(mod._fused, fused.TrainStep)
     assert mod._fused.graph_report()[0]["replays"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the serving front: checkpoints, replicas, the gateway
+# ---------------------------------------------------------------------------
+
+def _front_params(dev):
+    cfg = serve.ModelConfig(vocab_size=61, num_layers=2, d_model=32,
+                            num_heads=2, max_len=64)
+    return serve.init_params(cfg, seed=3, device=dev)
+
+
+FRONT_CONF = dict(slots=3, page_size=8, buckets=(8, 16), max_new=8)
+
+
+def _front_requests(n=8):
+    return [serve.Request(rid=i, prompt=[1 + i, 2, 3], max_new=6)
+            for i in range(n)]
+
+
+def test_from_checkpoint_places_every_parameter_on_the_card(dev, tmp_path):
+    """A checkpoint saved from the card loads back onto it (the default
+    device) and serves the oracle's logits bit for bit."""
+    from mxnet_tpu_torch import checkpoint
+
+    params = _front_params(dev)
+    checkpoint.CheckpointManager(str(tmp_path), prefix="lm").save(
+        epoch=1, arg_params=params)
+    sess = serve.InferenceSession.from_checkpoint(
+        str(tmp_path), prefix="lm", num_heads=2,
+        config=serve.ServeConfig(**FRONT_CONF))
+    assert sess.device.type == "cuda"
+    for k, v in sess.params.items():
+        assert v.is_cuda and torch.equal(v, params[k]), k
+    slot = sess.try_alloc(7, 4)
+    _, logits = sess.prefill(slot, list(range(1, 8)))
+    ref = serve.reference_last_logits(sess.params, list(range(1, 8)),
+                                      sess.model, 8)
+    np.testing.assert_array_equal(logits, ref.cpu().numpy())
+    assert sess.memory_analysis("decode")["temp_size_in_bytes"] >= 0
+    assert sess.memory_analysis("decode")["output_size_in_bytes"] > 0
+
+
+def test_two_replicas_on_the_card_give_a_single_sessions_streams(dev):
+    """Two sessions on one card keep their own pools and graphs: a
+    two-replica set (one replica killed mid-run) streams what one
+    session does, and each replica's launches are its replays times
+    recorded."""
+    import os
+
+    from mxnet_tpu_torch.testing import faults
+
+    params = _front_params(dev)
+    conf = serve.ServeConfig(**FRONT_CONF)
+    single = serve.InferenceSession(params, num_heads=2, config=conf)
+    want, _ = serve.Scheduler(single).run(_front_requests())
+    rs = serve.ReplicaSet(params, 2, config=conf, replicas=2,
+                          rejoin_backoff_s=30.0)
+    a, b = (r.session for r in rs.replicas)
+    assert a.cache.k_pool.data_ptr() != b.cache.k_pool.data_ptr()
+    assert a.executables["decode"].outputs[1].data_ptr() != \
+        b.executables["decode"].outputs[1].data_ptr()
+    before = dict(_cuda.launches)
+    os.environ["MXNET_FAULT_INJECT"] = "serve_replica_kill:kill:after=5"
+    faults.reset()
+    try:
+        out, _ = rs.run(_front_requests())
+    finally:
+        os.environ.pop("MXNET_FAULT_INJECT", None)
+        faults.reset()
+    assert rs.counters["deaths"] == 1
+    assert {r.rid: r.tokens for r in out} == \
+        {r.rid: r.tokens for r in want}
+    want_k3 = 0
+    for sess in (a, b):
+        rep = sess.graph_report()
+        want_k3 += sum(rep["replays"][n] *
+                       rep["launches_per_replay"][n].get("mi_linear", 0)
+                       for n in rep["replays"])
+    assert _cuda.launches["mi_linear"] - before["mi_linear"] == want_k3
+
+
+def test_gateway_round_trip_on_the_card(dev):
+    """One request over HTTP/SSE to a gateway whose dispatch thread
+    replays graphs captured on this thread: the stream equals the
+    in-process run's."""
+    import http.client
+    import json
+
+    params = _front_params(dev)
+    conf = serve.ServeConfig(**FRONT_CONF)
+    sess = serve.InferenceSession(params, num_heads=2, config=conf)
+    want, _ = serve.Scheduler(sess).run(_front_requests(1))
+    sess.reset_cold()
+    baseline = sess.state_report()
+    gw = serve.Gateway(sess, host="127.0.0.1", port=0).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=60)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"rid": 0, "prompt": [1, 2, 3], "max_new": 6}))
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        conn.close()
+    finally:
+        gw.stop()
+    assert resp.status == 200
+    events = [json.loads(ln[len("data: "):]) for ln in body.split("\n\n")
+              if ln.startswith("data: ")]
+    assert [e["token"] for e in events if "token" in e] == want[0].tokens
+    assert events[-1]["done"] and events[-1]["tokens"] == want[0].tokens
+    assert sess.state_report() == baseline
 
 
 # last in the file: a capture that fails leaves no state behind, but no

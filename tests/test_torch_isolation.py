@@ -26,7 +26,10 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.operator, "
             "mxnet_tpu_torch.rtc, mxnet_tpu_torch.testing.rtc_ops, "
             "mxnet_tpu_torch.ops.optimizer_ops, mxnet_tpu_torch.quantize, "
-            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ops.random_ops; "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ops.random_ops, "
+            "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.autotune, "
+            "mxnet_tpu_torch.health, mxnet_tpu_torch.serve.supervisor, "
+            "mxnet_tpu_torch.serve.gateway; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

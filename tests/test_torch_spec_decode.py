@@ -334,8 +334,7 @@ def test_draft_resolution_errors(np_params):
         _session(np_params, spec_k=2, draft="layers:9")
     with pytest.raises(MXNetError, match="integer"):
         _session(np_params, spec_k=2, draft="layers:two")
-    with pytest.raises(MXNetError,
-                       match="ServeConfig.draft.*checkpoint.py.*later slice"):
+    with pytest.raises(MXNetError, match="no checkpoint found"):
         _session(np_params, spec_k=2, draft="/checkpoints/draft")
     small = {k: v for k, v in np_params.items()}
     small["tok_embed_weight"] = np_params["tok_embed_weight"][:40]
