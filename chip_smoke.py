@@ -53,15 +53,23 @@ a checkout that holds ``mxnet_tpu_torch/``):
    in position order, masked by position); and K10, the SSM scan, at a
    decode step (S8 T1), a 256-row prefill (S1) and the verify (S8 W5,
    every row's state kept), bit-equal to its plain version (no PyTorch
-   call computes it).  The K2/K3 lines add the
+   call computes it).  fp8 training's kernels: K12, the scaled cast,
+   at an activation (8192x2048), the LM head's weight (32768x2048) and a
+   cotangent (8192x32768: its amax pass and its e5m2 cast), bit-equal to
+   its plain version (no PyTorch call computes it); K11, the fp8 GEMM,
+   at the forward, dx and dw products of the LM's five projection shapes
+   at M = 8192 (bound over the 1,979 TFLOP/s fp8 dense peak), within
+   ``FP8_GEMM_NOTE`` of its plain version and rerun bit-equal, with
+   ``torch._scaled_mm`` over the same codes as the yardstick.  The K2/K3
+   lines add the
    effective bandwidth (the bound's bytes over the kernel's time) beside
    the card's 3.35 TB/s, the kernel's and the library's times in the
    window without the spin (``*_ms_with_launch``), and their host launch
    paths alone (``*_host_ms``: calls enqueued back to back).  Before
    them, one ``sass`` line (tensor-core instructions in each kernel
-   library, from ``cuobjdump --dump-sass``: K7 and K8 must show HGMMA)
-   and three ``ptxas`` lines (registers and spills of K7/K8, of K3 and
-   K2, and of K1 and K4).
+   library, from ``cuobjdump --dump-sass``: K7, K8 and K11 must show
+   HGMMA) and four ``ptxas`` lines (registers and spills of K7/K8 and
+   K11, of K12, of K3 and K2, and of K1 and K4).
 3. invariance — rows of the exact projection at M = 256 are
    bit-identical to the same rows computed alone (M = 1), forty at a time
    (M = 40, the verify's rows) and 64 at a time (the smallest prefill
@@ -147,6 +155,27 @@ a checkout that holds ``mxnet_tpu_torch/``):
    cross-entropy must fall over the 8 steps.  Then an ``optim_update``
    line: each optimizer's ``fused_update`` over every parameter of the
    LM (CUDA-event mean behind the spin) beside its byte bound.
+5c. robust — the same LM through ``fused.TrainStep(optimizer="adam",
+   compute_dtype="bfloat16", health=StepHealth(DynamicLossScaler(
+   init_scale=2**15, growth_interval=1000)))`` built under
+   ``MXNET_FP8=on``: every FullyConnected and MultiHeadAttention
+   projection runs K12 and K11.  8 steps on one batch: the cross-entropy
+   must fall, the amax history fill one column a step, and K11 and K12
+   launch 3 and 4 times a site a step (steps 2-8; the count of sites
+   comes from one forward probe).  Step ms, tokens/s and TFLOP/s beside
+   the bf16 step's without and with step health, in the same call.  Then
+   one poisoned batch (a token id at V looks up a NaN row) must be
+   skipped with params and Adam states bit-equal and the scale halved
+   (and the skip's select timed alone); and two steps with
+   ``remat=True`` must give the update of two without, bit for bit, with
+   the second step's peak memory over its forward, backward and update,
+   under Adam and under SGD without momentum.  Then ``bench_fit.py``'s MLP through ``Module.fit(
+   checkpoint=, health="skip", loss_scale="dynamic", step_timeout_s=,
+   steps_per_call=4)`` under ``MXNET_FP8=auto`` (K11/K12 inside the
+   captured calls): once through, and once preempted by its own SIGTERM
+   after 5 calls and resumed from the final checkpoint (which carries the
+   loss scale and the amax history), params bit-equal to the
+   uninterrupted fit.
 6. train-parity — one step of the kernel path against one step under
    ``MXNET_ATTN_IMPL=reference`` from one state, by the per-tensor
    relative L2 error of the parameter update: fp32 at full width with 2
@@ -265,6 +294,7 @@ SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock, data sheet
 CHAIN_CYCLES = 4            # latency of one dependent fp32 FMA
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 dense tensor cores
+FP8_FLOP_PER_S = 1979e12    # H100 SXM fp8 dense tensor cores
 # the device spin before each timed call: 0.5 ms at the H100's 1.98 GHz
 # boost clock, longer than the host takes to launch one wrapper
 SPIN_CYCLES = 1_000_000
@@ -342,13 +372,15 @@ def log(phase, **fields):
     print("%s %s" % (phase, json.dumps(fields, sort_keys=True)), flush=True)
 
 
-SM90_STEMS = ("flash_attention_sm90", "flash_attention_backward_sm90")
+SM90_STEMS = ("flash_attention_sm90", "flash_attention_backward_sm90",
+              "fp8_gemm")
 
 
 def kernel_sass(build_dir):
     """Tensor-core instructions in each kernel library's SASS
-    (``cuobjdump --dump-sass``): HGMMA (wgmma) and HMMA (mma.sync) counts
-    per source.  K7 and K8 must show HGMMA."""
+    (``cuobjdump --dump-sass``): HGMMA (16-bit wgmma), QGMMA (fp8 wgmma)
+    and HMMA (mma.sync) counts per source.  K7 and K8 must show HGMMA,
+    K11 QGMMA."""
     from mxnet_tpu_torch import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
@@ -358,10 +390,12 @@ def kernel_sass(build_dir):
             [tool, "--dump-sass", os.path.join(build_dir, "lib%s.so" % stem)],
             capture_output=True, text=True, check=True).stdout
         counts[stem] = {op: len(re.findall(r"\b%s\." % op, text))
-                        for op in ("HGMMA", "HMMA")}
-    missing = [stem for stem in SM90_STEMS if not counts[stem]["HGMMA"]]
+                        for op in ("HGMMA", "QGMMA", "HMMA")}
+    missing = [stem for stem in SM90_STEMS
+               if not counts[stem]["HGMMA"] + counts[stem]["QGMMA"]]
     if missing:
-        raise AssertionError("no HGMMA in the SASS of %r" % missing)
+        raise AssertionError("no wgmma (HGMMA/QGMMA) in the SASS of %r"
+                             % missing)
     return counts
 
 
@@ -1254,10 +1288,11 @@ def train_tokens(cfg, batch, seed=0, bf16_exact=False):
 
 
 def train_step(dev, cfg, batch, compute_dtype, lr=1e-3, bf16_exact=False,
-               optimizer="sgd", optimizer_params=None):
-    """A TrainStep at ``cfg``, its state from ``init_state(seed=0)`` and
-    one batch of :func:`train_tokens` on ``dev``.  The optimizer is SGD
-    (``lr``, momentum 0.9) unless ``optimizer``/``optimizer_params`` say
+               optimizer="sgd", optimizer_params=None, **step_kwargs):
+    """A TrainStep at ``cfg`` (more ``TrainStep`` arguments in
+    ``step_kwargs``), its state from ``init_state(seed=0)`` and one batch
+    of :func:`train_tokens` on ``dev``.  The optimizer is SGD (``lr``,
+    momentum 0.9) unless ``optimizer``/``optimizer_params`` say
     otherwise; ``rescale_grad`` is 1 / ``batch`` either way."""
     from mxnet_tpu_torch import fused
     from mxnet_tpu_torch.models import transformer
@@ -1267,7 +1302,7 @@ def train_step(dev, cfg, batch, compute_dtype, lr=1e-3, bf16_exact=False,
     step = fused.TrainStep(
         transformer.get_symbol(**cfg), optimizer=optimizer,
         optimizer_params=dict(optimizer_params, rescale_grad=1.0 / batch),
-        compute_dtype=compute_dtype, device=dev)
+        compute_dtype=compute_dtype, device=dev, **step_kwargs)
     shapes = {"data": (batch, cfg["seq_len"]),
               "softmax_label": (batch, cfg["seq_len"])}
     state = step.init_state(shapes, seed=0)
@@ -2563,6 +2598,490 @@ def zoo_phase(dev, name, kwargs, image, classes, batch=128, K=4, calls=2,
     return stats, launches
 
 
+# -- fp8 training: K11 and K12 at the LM's shapes ---------------------------
+
+# K11 against its plain version (codes decoded to fp32, an fp32 matmul,
+# then the scales): the products are exact, but fp8 wgmma adds each
+# 32-product slice with about a 13-bit mantissa, and K11 adds each
+# 128-deep partial sum into fp32; so each output's error is bounded by
+# 2^-12 times the sum of its |products|, plus one bf16 rounding
+FP8_GEMM_MAG = 2.0 ** -12
+FP8_GEMM_NOTE = ("|K11 - plain| <= 2^-12 sum_k |a b| s_a s_b + 2^-8 |plain| "
+                 "per output: fp8 wgmma's ~13-bit slice sums, promoted to "
+                 "fp32 every 128 of K, then one bf16 rounding")
+FP8_CAST_NOTE = "bit-equal: codes, transposed codes and amax"
+# the LM's five projection shapes (C in, F out) at M = batch 8 x T 1024
+FP8_SHAPES = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
+              (2048, 32768))
+
+
+def fp8_gemm_cases(dev, gen, M=8192):
+    """K11's three products at each projection shape, as the training
+    step builds them: (case, a codes, b codes, a kind, b kind, s_a, s_b)
+    from seeded bf16 operands cast by K12 at their amax scales."""
+    import torch
+
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    def codes(rows, cols, kind, scale_by=1.0):
+        x = (torch.randn((rows, cols), generator=gen, device=dev)
+             * scale_by).bfloat16()
+        _, _, amax = F8.fp8_cast(x, None, kind, codes=False)
+        s = amax / torch.full_like(amax, F8.QMAX[kind])
+        c, ct, _ = F8.fp8_cast(x, s, kind, codes=True, transposed=True,
+                               amax=False)
+        return c, ct, s
+
+    for C, F in FP8_SHAPES:
+        xc, xct, sx = codes(M, C, F8.E4M3)
+        wc, wct, sw = codes(F, C, F8.E4M3, 0.02)
+        gc, gct, sg = codes(M, F, F8.E5M2, 1e-3)
+        yield ("fwd-M%d-C%d-F%d" % (M, C, F), xc, wc, F8.E4M3, F8.E4M3,
+               sx, sw)
+        yield ("dx-M%d-C%d-F%d" % (M, C, F), gc, wct, F8.E5M2, F8.E4M3,
+               sg, sw)
+        yield ("dw-M%d-C%d-F%d" % (M, C, F), gct, xct, F8.E5M2, F8.E4M3,
+               sg, sx)
+        del xc, xct, wc, wct, gc, gct
+
+
+def scaled_mm_call(a, b, a_kind, b_kind, sa, sb):
+    """``torch._scaled_mm`` over the same codes (K-major a, b viewed
+    column-major), the yardstick of K11's row; None where this torch has
+    no such call for the pair of formats."""
+    import torch
+
+    dt = (torch.float8_e4m3fn, torch.float8_e5m2)
+    fa, fb = a.view(dt[a_kind]), b.view(dt[b_kind]).t()
+
+    def call():
+        return torch._scaled_mm(fa, fb, scale_a=sa, scale_b=sb,
+                                out_dtype=torch.bfloat16)
+    try:
+        call()
+    except Exception as e:  # the yardstick only: the port never calls it
+        log("scaled_mm_unavailable", kinds=[a_kind, b_kind], error=str(e))
+        return None
+    return call
+
+
+ROBUST_SCALER = dict(init_scale=2.0 ** 15, growth_interval=1000)
+
+
+class phase_peaks:
+    """Peak device memory (GiB) of one training step, split where the
+    step calls ``torch.autograd.grad``: the forward (up to the call),
+    the backward (the call), the update (after it) and the step (the
+    largest); a measuring wrapper of that function while the block runs.
+    Empty off the card."""
+
+    def __init__(self, cuda):
+        self.cuda = cuda
+        self.peaks = {}
+
+    def __enter__(self):
+        import torch
+
+        if not self.cuda:
+            return self.peaks
+        self._grad = torch.autograd.grad
+        peaks, inner = self.peaks, self._grad
+
+        def grad(*args, **kwargs):
+            torch.cuda.synchronize()
+            peaks["forward"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            peaks["backward"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad = grad
+        return peaks
+
+    def __exit__(self, *exc):
+        import torch
+
+        if self.cuda:
+            torch.autograd.grad = self._grad
+            torch.cuda.synchronize()
+            self.peaks["update"] = torch.cuda.max_memory_allocated() \
+                / 2.0 ** 30
+            self.peaks["step"] = max(self.peaks.values())
+        return False
+
+
+def robust_step(dev, cfg, batch, fp8, health, remat=None, optimizer="adam",
+                optimizer_params=None):
+    """The optim phase's LM step (Adam with ``ADAM`` unless
+    ``optimizer``/``optimizer_params`` say otherwise, bf16, batch
+    ``batch``, init_state(seed=0)) built under ``MXNET_FP8`` on or off,
+    with ``StepHealth(DynamicLossScaler(**ROBUST_SCALER))`` when
+    ``health`` and ``remat``; returns (step, [params, aux, states],
+    batch)."""
+    from mxnet_tpu_torch.health import DynamicLossScaler, StepHealth
+
+    prev = os.environ.get("MXNET_FP8")
+    os.environ["MXNET_FP8"] = "on" if fp8 else "off"
+    try:
+        step, state, data = train_step(
+            dev, cfg, batch, "bfloat16", optimizer=optimizer,
+            optimizer_params=optimizer_params or ADAM, remat=remat,
+            health=StepHealth(scaler=DynamicLossScaler(**ROBUST_SCALER))
+            if health else None)
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_FP8")
+        else:
+            os.environ["MXNET_FP8"] = prev
+    return step, list(state), data
+
+
+class phase_peaks:
+    """Peak device memory (GiB) of one training step, split where the
+    step calls ``torch.autograd.grad``: the forward (up to the call),
+    the backward (the call), the update (after it) and the step (the
+    largest); a measuring wrapper of that function while the block runs.
+    Empty off the card."""
+
+    def __init__(self, cuda):
+        self.cuda = cuda
+        self.peaks = {}
+
+    def __enter__(self):
+        import torch
+
+        if not self.cuda:
+            return self.peaks
+        self._grad = torch.autograd.grad
+        peaks, inner = self.peaks, self._grad
+
+        def grad(*args, **kwargs):
+            torch.cuda.synchronize()
+            peaks["forward"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            peaks["backward"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad = grad
+        return peaks
+
+    def __exit__(self, *exc):
+        import torch
+
+        if self.cuda:
+            torch.autograd.grad = self._grad
+            torch.cuda.synchronize()
+            self.peaks["update"] = torch.cuda.max_memory_allocated() \
+                / 2.0 ** 30
+            self.peaks["step"] = max(self.peaks.values())
+        return False
+
+
+def robust_step(dev, cfg, batch, fp8, health, remat=None, optimizer="adam",
+                optimizer_params=None):
+    """The optim phase's LM step (Adam with ``ADAM`` unless
+    ``optimizer``/``optimizer_params`` say otherwise, bf16, batch
+    ``batch``, init_state(seed=0)) built under ``MXNET_FP8`` on or off,
+    with ``StepHealth(DynamicLossScaler(**ROBUST_SCALER))`` when
+    ``health`` and ``remat``; returns (step, [params, aux, states],
+    batch)."""
+    from mxnet_tpu_torch import fused
+    from mxnet_tpu_torch.health import DynamicLossScaler, StepHealth
+    from mxnet_tpu_torch.models import transformer
+
+    prev = os.environ.get("MXNET_FP8")
+    os.environ["MXNET_FP8"] = "on" if fp8 else "off"
+    try:
+        step = fused.TrainStep(
+            transformer.get_symbol(**cfg), optimizer=optimizer,
+            optimizer_params=dict(optimizer_params or ADAM,
+                                  rescale_grad=1.0 / batch),
+            compute_dtype="bfloat16", remat=remat, device=dev,
+            health=StepHealth(scaler=DynamicLossScaler(**ROBUST_SCALER))
+            if health else None)
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_FP8")
+        else:
+            os.environ["MXNET_FP8"] = prev
+    shapes = {"data": (batch, cfg["seq_len"]),
+              "softmax_label": (batch, cfg["seq_len"])}
+    state = list(step.init_state(shapes, seed=0))
+    toks = train_tokens(cfg, batch).to(dev)
+    return step, state, {"data": toks, "softmax_label": toks}
+
+
+def robust_train_phase(dev, cfg, batch=8, total=8, timed=5):
+    """The LM under fp8 (K11/K12 at every projection), the dynamic loss
+    scaler and step health.  Returns the phase's numbers and the kernel
+    launches of the fp8 run's steps after the first."""
+    import torch
+
+    from mxnet_tpu_torch import _cuda
+    from mxnet_tpu_torch import quantize as Q
+    from mxnet_tpu_torch.models import transformer
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    tokens = batch * cfg["seq_len"]
+    flops = (6.0 * transformer.count_params(**cfg) * tokens
+             + 12.0 * cfg["num_layers"] * batch * cfg["seq_len"] ** 2
+             * cfg["d_model"])
+    stats = dict(model="%dL-d%d-h%d-V%d-T%d" % (
+                     cfg["num_layers"], cfg["d_model"], cfg["num_heads"],
+                     cfg["vocab_size"], cfg["seq_len"]),
+                 optimizer="adam", optimizer_params=ADAM, batch=batch,
+                 scaler=ROBUST_SCALER, steps_timed=timed)
+
+    def rates(step_s):
+        return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                    achieved_tflops=flops / step_s / 1e12)
+
+    # the bf16 step, without and with step health, timed beside the fp8 one
+    for tag, health in (("bf16", False), ("bf16_health", True)):
+        step, state, data = robust_step(dev, cfg, batch, False, health)
+        for t in range(1, timed + 2):
+            if t == 2:
+                sync()
+                t0 = time.perf_counter()
+            state[:3] = step(*state, data, None, t=t)[:3]
+        sync()
+        stats[tag] = rates((time.perf_counter() - t0) / timed)
+        del step, state, data
+        free()
+
+    # fp8 with step health: the loss falls, K11/K12 run their counts
+    step, state, data = robust_step(dev, cfg, batch, True, True)
+    ces = []
+
+    def one(t, batch_=None):
+        state[0], state[1], state[2], outs = step(*state, batch_ or data,
+                                                  None, t=t)
+        ces.append(ce_tensor(outs[0], data["softmax_label"], torch.bfloat16))
+
+    one(1)  # counts the sites (one forward probe) and warms up
+    sites = step._fp8_sites
+    hist1 = step.export_hstate()["fp8_hist"]
+    if not ((hist1[..., :1] > 0).all() and (hist1[..., 1:] == 0).all()):
+        raise AssertionError("fp8 amax history after one step: %r"
+                             % hist1[0])
+    _cuda.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    for t in range(2, 2 + timed):
+        one(t)
+    sync()
+    stats["fp8_health"] = rates((time.perf_counter() - t0) / timed)
+    for t in range(2 + timed, total + 1):
+        one(t)
+    sync()
+    launches = dict(_cuda.launches)
+    per_step = {k: v / (total - 1) for k, v in launches.items() if v}
+    want = {"fp8_gemm": 3 * sites, "fp8_cast": 4 * sites}
+    if cuda and any(per_step.get(k) != n for k, n in want.items()):
+        raise AssertionError("fp8 launches a step %r, want %r (%d sites)"
+                             % (per_step, want, sites))
+    ces = [float(c) for c in ces]
+    if not all(np.isfinite(ces)) or not ces[-1] < ces[0]:
+        raise AssertionError("fp8 cross-entropy over %d steps on one "
+                             "batch %r: not finite or not falling"
+                             % (total, ces))
+    hist = step.export_hstate()["fp8_hist"]
+    if not ((hist[..., :total] > 0).all() and (hist[..., total:] == 0).all()):
+        raise AssertionError("the amax history did not fill one column a "
+                             "step over %d steps" % total)
+    stats.update(fp8_sites=sites, launches_per_step=per_step,
+                 cross_entropy_by_step=list(ces),
+                 fp8_scales_after=dict(
+                     x_min=float(Q.fp8_realize_scales(
+                         torch.from_numpy(hist))[:, 0].min()),
+                     w_max=float(Q.fp8_realize_scales(
+                         torch.from_numpy(hist))[:, 1].max())))
+
+    # one poisoned batch (a token id at V looks up a NaN row): skipped
+    # with params and Adam states bit-equal, the scale backed off
+    before = clone_state(state)
+    scale = step.loss_scale
+    poisoned = dict(data)
+    poisoned["data"] = data["data"].clone()
+    poisoned["data"][0, 0] = float(cfg["vocab_size"])
+    one(total + 1, poisoned)
+    sync()
+    equal, _ = state_diff(state + [()], before + [()])
+    h = step.last_health
+    if not (bool(h["nonfinite"]) and equal
+            and step.loss_scale == scale * 0.5):
+        raise AssertionError("poisoned step: nonfinite %s, bit-equal %s, "
+                             "scale %r -> %r" % (bool(h["nonfinite"]), equal,
+                                                 scale, step.loss_scale))
+    del before
+    free()
+    # what the skip's select costs: old and new params and both Adam
+    # states, read and written once more
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    tensors = [t for tree in (state[0], state[2]) for v in tree.values()
+               for t in (v if isinstance(v, tuple) else (v,))
+               if t is not None]
+
+    def select():
+        for t in tensors:
+            torch.where(flag, t, t)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        select()
+    sync()
+    stats.update(poisoned_step=dict(skipped=True, params_states_bit_equal=
+                                    equal, loss_scale=[scale,
+                                                       step.loss_scale]),
+                 skip_select_ms=(time.perf_counter() - t0) / 3 * 1e3,
+                 skip_select_gb=3 * sum(t.numel() * t.element_size()
+                                        for t in tensors) / 1e9)
+    del step, state, data, tensors
+    free()
+
+    # remat: fp8 steps recomputing the forward give the updates of steps
+    # that keep it, bit for bit; the second step's peak memory over its
+    # forward, its backward and the whole step, under Adam and under SGD
+    # without momentum (whose update holds no states)
+    stats["remat"] = {}
+    for opt, params in (("adam", ADAM), ("sgd", {"learning_rate": 1e-3})):
+        got = {}
+        for remat in (None, True):
+            step, state, data = robust_step(dev, cfg, batch, True, True,
+                                            remat=remat, optimizer=opt,
+                                            optimizer_params=params)
+            state[:3] = step(*state, data, None, t=1)[:3]
+            sync()
+            with phase_peaks(cuda) as peaks:
+                new = step(*state, data, None, t=2)[0]
+            got[remat] = dict(new=new, peaks=peaks,
+                              segments=len(step._segments or ()))
+            del step, state, data
+            free()
+        equal = all(torch.equal(got[True]["new"][k], v)
+                    for k, v in got[None]["new"].items())
+        if not equal:
+            raise AssertionError("%s: remat=True's update differs from no "
+                                 "remat's" % opt)
+        stats["remat"][opt] = dict(
+            bit_equal=equal, checkpointed_segments=got[True]["segments"],
+            peak_gib_no_remat=got[None]["peaks"],
+            peak_gib_remat=got[True]["peaks"])
+        del got
+        free()
+    return stats, launches
+
+
+def robust_fit_phase(dev, batch=64, n_batches=32, epochs=2, K=4,
+                     kill_at_call=5):
+    """``bench_fit.py``'s MLP through ``Module.fit(checkpoint=,
+    health="skip", loss_scale="dynamic", step_timeout_s=,
+    steps_per_call=K)`` under ``MXNET_FP8=auto`` (armed on the card: its
+    three FullyConnected layers run K11/K12 inside the captured calls):
+    once through, and once preempted by its own SIGTERM after call
+    ``kill_at_call`` and resumed from the final checkpoint, whose params
+    must equal the uninterrupted fit's bit for bit.  Returns the phase's
+    numbers and the launches of the preempted and resumed fits."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _cuda
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch.base import TrainingPreempted
+
+    ctx = mx.context.context_of(dev)
+    feat, classes = 512, 10
+    rs = np.random.RandomState(0)
+    X = rs.randn(n_batches * batch, feat).astype("float32")
+    y = rs.randint(0, classes, size=n_batches * batch).astype("float32")
+    opts = dict(num_epoch=epochs, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.01},
+                initializer=mx.init.Xavier(), health="skip",
+                loss_scale="dynamic", step_timeout_s=300.0,
+                steps_per_call=K, prefetch_to_device=True)
+
+    def fit(**kw):
+        mx.random.seed(0)
+        np.random.seed(0)
+        it = mx.io.NDArrayIter(X, y, batch_size=batch, shuffle=True, seed=0)
+        mod = mx.mod.Module(fit_mlp_sym(mx), context=ctx)
+        mod.fit(it, **dict(opts, **kw))
+        return mod
+
+    def params(mod):
+        return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+    prev = os.environ.get("MXNET_FP8")
+    os.environ["MXNET_FP8"] = "auto"
+    tmp = tempfile.mkdtemp(prefix="robust_fit_")
+    try:
+        t0 = time.perf_counter()
+        ref = fit()
+        fit_s = time.perf_counter() - t0
+        sites = ref._fused._fp8_sites
+        ref = params(ref)
+        mgr = ckpt.CheckpointManager(tmp, prefix="mlp")
+        calls = [0]
+
+        def kill(param):
+            calls[0] += 1
+            if calls[0] == kill_at_call:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        _cuda.reset_launches()
+        try:
+            fit(checkpoint=mgr, batch_end_callback=kill)
+        except TrainingPreempted as e:
+            where = (e.epoch, e.nbatch)
+        else:
+            raise AssertionError("the fit was not preempted")
+        state = mgr.load(device=dev)
+        res = params(fit(resume_from=mgr))
+        launches = dict(_cuda.launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prev is None:
+            os.environ.pop("MXNET_FP8", None)
+        else:
+            os.environ["MXNET_FP8"] = prev
+    equal = all(np.array_equal(res[k], v) for k, v in ref.items())
+    if not equal or where != (0, kill_at_call * K):
+        raise AssertionError("preempted at %r; resumed params bit-equal "
+                             "to the uninterrupted fit: %s" % (where, equal))
+    if dev.type == "cuda" and min(launches.get(k, 0)
+                                  for k in ("fp8_gemm", "fp8_cast")) < 1:
+        raise AssertionError("the fit did not run K11/K12: %r" % launches)
+    return dict(model="mlp-512-1024-1024-10", batch=batch, K=K,
+                fp8_sites=sites, preempted_at=list(where),
+                checkpoint=dict(epoch=state.epoch, nbatch=state.nbatch,
+                                num_update=state.num_update,
+                                hstate_keys=sorted(state.hstate or {})),
+                resumed_bit_equal=equal, uninterrupted_fit_s=fit_s,
+                launches={k: v for k, v in launches.items() if v}), launches
+
+
 def main():
     import torch
 
@@ -2594,9 +3113,12 @@ def main():
                                                                 here))
 
     log("sass", tensor_core_instructions=kernel_sass(build_dir))
-    log("ptxas", note="registers a thread at launch (in K7/K8 setmaxnreg "
-        "then gives the consumer warpgroups 240) and spill bytes",
-        kernels=ptxas_report(build_dir, SM90_STEMS))
+    log("ptxas", note="registers a thread at launch (in K7/K8 and K11 "
+        "setmaxnreg then gives the consumer warpgroups 240) and spill "
+        "bytes", kernels=ptxas_report(build_dir, SM90_STEMS))
+    log("ptxas", note="registers a thread and spill bytes of fp8 "
+        "training's scaled cast K12 (fp8_cast)",
+        kernels=ptxas_report(build_dir, ("fp8_cast",)))
     log("ptxas", note="registers a thread and spill bytes of serving's "
         "decode kernels, K3 and K3q (linear), K2 and K2q (paged_attention) "
         "and K9 (kv_quant)",
@@ -3474,6 +3996,58 @@ def main():
                flops=2 * x.numel(), device_key="rtc_softmax_backward")
         del x, xs, ce, p, p_want, got, want
 
+    # K12: the scaled cast at the LM's operands (an activation, the head's
+    # weight, a cotangent's amax pass and its e5m2 cast), bit-equal to the
+    # plain version; K11: the three products of each projection shape,
+    # within FP8_GEMM_NOTE of the plain version, rerun bit-equal, with
+    # torch._scaled_mm on the same codes as the yardstick
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    for case, rows_, cols, kind, what in (
+            ("x-8192x2048-bf16-e4m3", 8192, 2048, F8.E4M3, "codes"),
+            ("w-32768x2048-bf16-e4m3", 32768, 2048, F8.E4M3, "codes"),
+            ("g-8192x32768-bf16-e5m2-amax", 8192, 32768, F8.E5M2, "amax"),
+            ("g-8192x32768-bf16-e5m2", 8192, 32768, F8.E5M2, "cast")):
+        x = (randn(rows_, cols) * 0.05).bfloat16()
+        s8 = torch.full((), 1e-3, device=dev)
+        kw = {"codes": dict(codes=True, transposed=True, amax=True),
+              "amax": dict(codes=False, transposed=False, amax=True),
+              "cast": dict(codes=True, transposed=True, amax=False)}[what]
+        got = F8.fp8_cast(x, s8, kind, **kw)
+        want = F8.fp8_cast_plain(x, s8, kind, **kw)
+        same = all((g is None and w is None) or torch.equal(g, w)
+                   for g, w in zip(got, want))
+        n = rows_ * cols
+        out_bytes = (2 * n if kw["codes"] else 0)
+        record("fp8_cast", case, 0.0 if same else float("inf"), same,
+               FP8_CAST_NOTE, lambda: F8.fp8_cast(x, s8, kind, **kw),
+               lambda: F8.fp8_cast_plain(x, s8, kind, **kw), None,
+               nbytes=2 * n + out_bytes, flops=2 * n)
+        del x, got, want
+    for case, a, b, ka, kb, sa, sb in fp8_gemm_cases(dev, gen):
+        M, N, Kd = a.shape[0], b.shape[0], a.shape[1]
+        got = F8.fp8_gemm(a, b, ka, kb, sa, sb, torch.bfloat16)
+        want = F8.fp8_gemm_plain(a, b, ka, kb, sa, sb, torch.float32)
+        top = want.abs().max().item()
+        diff = (got.float() - want).abs()
+        err = diff.max().item()
+        mag = (F8.decode(a, ka).abs() @ F8.decode(b, kb).abs().t()) * sa * sb
+        within = bool((diff <= FP8_GEMM_MAG * mag
+                       + 2.0 ** -8 * want.abs()).all())
+        del diff, mag
+        again = F8.fp8_gemm(a, b, ka, kb, sa, sb, torch.bfloat16)
+        record("fp8_gemm", case, err, within and torch.equal(again, got),
+               FP8_GEMM_NOTE,
+               lambda: F8.fp8_gemm(a, b, ka, kb, sa, sb, torch.bfloat16),
+               lambda: F8.fp8_gemm_plain(a, b, ka, kb, sa, sb,
+                                         torch.bfloat16),
+               scaled_mm_call(a, b, ka, kb, sa, sb),
+               nbytes=M * Kd + N * Kd + 2 * M * N, flops=2 * M * N * Kd,
+               peak=FP8_FLOP_PER_S,
+               extra=dict(max_abs_out=top, rel_err=err / top))
+        del got, want, again
+    torch.cuda.empty_cache()
+
     # -- 3. row-count invariance ------------------------------------------
     # rows at M = 1 (decode's streaming kernel), at M = 40 (the
     # speculative verify's 8 slots x 5 rows) and at M = 64 (the smallest
@@ -3693,6 +4267,21 @@ def main():
     torch.cuda.empty_cache()
     phase_s["optim"] = time.perf_counter() - t0
 
+    # -- 5c. robust training: fp8, the loss scaler, step health, remat,
+    # and fit's checkpoint, preemption and resume --------------------------
+    t0 = time.perf_counter()
+    stats, robust_launches = robust_train_phase(dev, train_config(), batch=8)
+    log("robust_train", nvidia_smi=smi, launches=robust_launches, **stats)
+    for name, n in robust_launches.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    stats, fit_launches = robust_fit_phase(dev)
+    log("robust_fit", nvidia_smi=smi, **stats)
+    for name, n in fit_launches.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    phase_s["robust"] = time.perf_counter() - t0
+
     # -- 6. train parity: kernel path vs MXNET_ATTN_IMPL=reference ---------
     _cuda.reset_launches()
     fp32 = parity_phase(dev, train_config(num_layers=2), 2, None)
@@ -3838,7 +4427,9 @@ def main():
                                            "w128",
                  "paged_attention_ring": "decode-S8-Q1-ring",
                  "paged_attention_q_ring": "int8-decode-S8-Q1-ring",
-                 "ssm_scan": "decode-S8-T1-H16-D128"}
+                 "ssm_scan": "decode-S8-T1-H16-D128",
+                 "fp8_gemm": "fwd-M8192-C2048-F6144",
+                 "fp8_cast": "x-8192x2048-bf16-e4m3"}
     replaces = {
         "flash_attention": "mxnet_tpu/ops/attention.py:497",
         "flash_attention_backward": "mxnet_tpu/ops/attention.py:497",
@@ -3861,6 +4452,11 @@ def main():
         "paged_attention_q_ring": "mxnet_tpu/ops/attention.py:368 + "
                                   "mxnet_tpu/serve/model.py:378",
         "ssm_scan": "mxnet_tpu/ops/ssm_ops.py:62",
+        # fp8 training's lax code: the custom VJP's contractions (K11) and
+        # its fake casts with the amaxes fp8_apply_dot records (K12)
+        "fp8_gemm": "mxnet_tpu/quantize.py:512",
+        "fp8_cast": "mxnet_tpu/quantize.py:512 + "
+                    "mxnet_tpu/quantize.py:565",
     }
     sources = {name: ("cuda", "mxnet_tpu_torch/csrc/%s.cu" % stem)
                for name, (stem, _, _) in _cuda.KERNELS.items()}

@@ -13,8 +13,10 @@ library as ``lib<source>.log``.
 Flags are per source (:func:`nvcc_flags`).  The exact sources — K1, K2
 and K2q (``online_softmax.cuh``'s users, windowed and over rings too), K3
 and K3q (the projection), K9 (``kv_quant.cu``, the KV rows'
-quantize-and-append), K10 (``ssm_scan.cu``, the SSM recurrence), the
-BatchNorm sums and run-time ``rtc`` kernels — build with ``-fmad=false``,
+quantize-and-append), K10 (``ssm_scan.cu``, the SSM recurrence), K11
+and K12 (``fp8_gemm.cu``, ``fp8_cast.cu``: fp8 training's GEMM and
+scaled cast), the BatchNorm sums and run-time ``rtc`` kernels — build
+with ``-fmad=false``,
 so that
 no add and multiply are contracted behind serving's bit-exactness
 contract.  The backward kernels K4 and K8 and the Hopper forward K7 build
@@ -124,6 +126,13 @@ KERNELS = {
     "bn_grad_sums": (
         "batch_norm", "mxt_bn_grad_sums",
         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
+    # fp8 training: K11 the fp8 GEMM, K12 the scaled cast (+ amax)
+    "fp8_gemm": (
+        "fp8_gemm", "mxt_fp8_gemm",
+        (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
+    "fp8_cast": (
+        "fp8_cast", "mxt_fp8_cast",
+        (_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P)),
 }
 
 # launches per kernel since the last reset_launches()

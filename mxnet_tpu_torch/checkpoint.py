@@ -211,7 +211,7 @@ class CheckpointState:
 
     def __init__(self, epoch, nbatch, num_update, symbol, arg_params,
                  aux_params, states_path=None, prefix=None, manifest=None,
-                 opt_states=None):
+                 opt_states=None, hstate=None):
         self.epoch = int(epoch)          # completed epochs
         self.nbatch = int(nbatch)        # extra batches into epoch `epoch`
         self.num_update = int(num_update)
@@ -222,6 +222,9 @@ class CheckpointState:
         self.prefix = prefix
         self.manifest = manifest         # v2 manifest dict, or None (v1)
         self.opt_states = opt_states     # ZeRO states: a later slice
+        # the fused step's carried health state (loss scale, its streak,
+        # the fp8 amax history) as lists, or None
+        self.hstate = hstate
 
     def __repr__(self):
         return ("CheckpointState(epoch=%d, nbatch=%d, num_update=%d, "
@@ -362,6 +365,7 @@ class CheckpointManager:
                 if module is not None else None
             num_update = int(getattr(opt, "num_update", 0) or 0)
         return {"epoch": epoch, "nbatch": int(nbatch),
+                "hstate": _module_hstate(module),
                 "num_update": int(num_update),
                 "symbol_json": symbol.tojson() if symbol is not None
                 else None,
@@ -433,6 +437,8 @@ class CheckpointManager:
             "shards": self._merge_sidecars(epoch, snap["nproc"]),
             "states": states_entry,
             "zero_states": None, "zero_params": None, "plan": None}
+        if snap.get("hstate") is not None:
+            manifest["hstate"] = snap["hstate"]
         atomic_replace(self._manifest_path(epoch),
                        lambda tmp: _write_json(tmp, manifest))
         self._gc()
@@ -495,6 +501,9 @@ class CheckpointManager:
         meta = {"epoch": epoch, "nbatch": int(nbatch),
                 "num_update": int(getattr(opt, "num_update", 0) or 0),
                 "have_states": have_states}
+        hstate = _module_hstate(module)
+        if hstate is not None:
+            meta["hstate"] = hstate
         # meta goes LAST: its presence certifies the set
         atomic_replace(self._meta_path(epoch),
                        lambda tmp: _write_json(tmp, meta))
@@ -625,7 +634,8 @@ class CheckpointManager:
             num_update=manifest.get("num_update", 0), symbol=symbol,
             arg_params=arg_params, aux_params=aux_params,
             states_path=states if os.path.exists(states) else None,
-            prefix=self.prefix, manifest=manifest)
+            prefix=self.prefix, manifest=manifest,
+            hstate=manifest.get("hstate"))
 
     def _load_symbol(self):
         path = "%s-symbol.json" % self.prefix
@@ -649,7 +659,7 @@ class CheckpointManager:
             num_update=meta.get("num_update", 0), symbol=symbol,
             arg_params=arg_params, aux_params=aux_params,
             states_path=states if os.path.exists(states) else None,
-            prefix=self.prefix)
+            prefix=self.prefix, hstate=meta.get("hstate"))
 
     def _read_manifest(self, epoch):
         path = self._manifest_path(epoch)
@@ -888,12 +898,11 @@ def _as_ndarrays(params):
     return out
 
 
-def _states_blob(module):
-    """A module's optimizer states as bytes, read where the port's
-    ``Module`` holds them: the fused step's states by parameter index,
-    else the split updater's.  Tensors leave the device as numpy
-    arrays (an extension dtype as the ``(bytes, dtype name)`` pair
-    :func:`_to_host` gives)."""
+def states_to_blob(states):
+    """Optimizer states ({index: a tensor, NDArray, tuple or None}) as
+    bytes: tensors leave the device as ``(numpy array, dtype name)``
+    pairs (:func:`_to_host`; an extension dtype as raw bytes), so the
+    blob loads on any machine, card or not."""
     import torch
 
     def host(value):
@@ -906,13 +915,49 @@ def _states_blob(module):
             return type(value)(host(v) for v in value)
         return value
 
+    return pickle.dumps(host(states))
+
+
+def states_from_blob(blob):
+    """The inverse of :func:`states_to_blob`: the same tree with each
+    ``(array, dtype name)`` pair a CPU tensor (pickle: pass only bytes
+    this program wrote)."""
+    def back(value):
+        if isinstance(value, tuple) and len(value) == 2 and \
+                isinstance(value[0], np.ndarray) and \
+                isinstance(value[1], str):
+            return _piece_tensor(value[0], value[1])
+        if isinstance(value, dict):
+            return {k: back(v) for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return type(value)(back(v) for v in value)
+        return value
+
+    return back(pickle.loads(blob))
+
+
+def _module_hstate(module):
+    """The fused step's carried health state as JSON lists (the loss
+    scale, its clean streak, the fp8 amax history), or None: what a
+    resume needs, beside the optimizer states, to continue a loss-scaled
+    or fp8 run bit for bit."""
+    fused = getattr(module, "_fused", None) if module is not None else None
+    export = getattr(fused, "export_hstate", None)
+    snap = export() if export is not None else None
+    if not snap:
+        return None
+    return {k: np.asarray(v).tolist() for k, v in snap.items()}
+
+
+def _states_blob(module):
+    """A module's optimizer states as bytes, read where the port's
+    ``Module`` holds them: the fused step's states by parameter index,
+    else the split updater's."""
     fused = getattr(module, "_fused_states", None)
     if fused is not None:
-        states = {i: host(fused[n])
-                  for i, n in enumerate(module._param_names)}
-    else:
-        states = host(getattr(module._updater, "states", {}))
-    return pickle.dumps(states)
+        return states_to_blob({i: fused[n]
+                               for i, n in enumerate(module._param_names)})
+    return states_to_blob(getattr(module._updater, "states", {}))
 
 
 def _write_json(path, obj):

@@ -1,0 +1,266 @@
+// K11: the fp8 GEMM of fp8 training on the tensor cores,
+//   out[m, n] = (sum_k a[m, k] * b[n, k]) * s_a * s_b,
+// a and b one-byte codes (e4m3 or e5m2), both K-major, accumulated in
+// fp32 and stored in the compute dtype (fp32 or bf16).
+//
+// Replaces: the three contractions of mxnet_tpu/quantize.py::_fp8_dot_fn
+// (:512) — the forward `_contract(xq, wq)` (e4m3 x e4m3), and in `bwd`
+// dx (e5m2 cotangent x e4m3 weight) and dw (e5m2 cotangent x e4m3
+// activation) — which the JAX package writes as dots over fake-cast
+// operands in the compute dtype.  A product of two fp8 values is exact
+// in fp32, so this is the same function up to the summation order and
+// the reference's rounding of code * scale to the compute dtype before
+// its dot; the scales are applied once, after the sum.  The operands are
+// the codes K12 (fp8_cast.cu) writes, rows padded with zero codes to a
+// multiple of 16 bytes; the backward's operands are K12's transposed
+// codes, since fp8 wgmma on sm_90 takes both operands K-major.
+//
+// Design: the Hopper GEMM shape (sm90.cuh's building blocks, as K7/K8).
+// A CTA computes a 128 x 128 tile of out with three warpgroups: one
+// producer thread keeps a four-stage ring of (128 rows x 128 bytes of K)
+// tiles of a and b filled by TMA (128-byte swizzle, zero fill past M, N
+// and K), completing on one mbarrier a stage; two consumer warpgroups
+// each run wgmma m64n128k32 over 64 rows, four k-slices a stage.  The
+// fp8 tensor cores keep fewer bits in their running sum than fp32, so
+// each stage's 128-deep sum starts from zero in the wgmma accumulator
+// and is then added into an fp32 total in registers (the promotion
+// DeepSeek-V3 describes for Hopper's fp8 GEMMs); the consumer releases
+// the stage after its products completed.  No split-K: every output is
+// one thread's sum in a fixed order, so a rerun gives the same bits.
+// The first form of this kernel (mma.sync m16n8k32 from a two-stage
+// cp.async ring, 8 warps of 64 x 32, PERF.md §6) summed more exactly but
+// ran the LM's products at 5.7-6.4x torch._scaled_mm's time.
+//
+// Bound on an H100: operations at the training shapes (2 M N K over
+// 1,979 TFLOP/s dense fp8); bytes for small M or N.
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+#include "error.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using namespace mxt90;
+
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kBK = 128;                  // bytes of K a stage: one box row
+constexpr int kStages = 4;
+constexpr int kTileBytes = kBM * kBK;     // a's and b's tiles alike
+constexpr int kThreads = 384;             // 2 consumer + 1 producer WG
+constexpr int kSmem = 1024 + kStages * 2 * kTileBytes + 16 * kStages + 64;
+
+// wgmma m64n128k32, fp8 x fp8 -> fp32, both operands K-major from shared
+// memory; scale_d = 0 overwrites the accumulator, 1 adds to it.
+template <int kA, int kB>
+struct Wgmma;
+
+#define MXT_FP8_WGMMA(A, B, TA, TB)                                          \
+  template <>                                                                \
+  struct Wgmma<A, B> {                                                       \
+    __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,   \
+                                               uint64_t b, int scale_d) {    \
+      asm volatile(                                                          \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                       \
+          "wgmma.mma_async.sync.aligned.m64n128k32.f32." TA "." TB " {"      \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+          "%24, %25, %26, %27, %28, %29, %30, %31, "                         \
+          "%32, %33, %34, %35, %36, %37, %38, %39, "                         \
+          "%40, %41, %42, %43, %44, %45, %46, %47, "                         \
+          "%48, %49, %50, %51, %52, %53, %54, %55, "                         \
+          "%56, %57, %58, %59, %60, %61, %62, %63"                           \
+          "}, %64, %65, p, 1, 1;\n}\n"                                       \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+            "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),              \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),              \
+            "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),              \
+            "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),              \
+            "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),              \
+            "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),              \
+            "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),              \
+            "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),              \
+            "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),              \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),              \
+            "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),              \
+            "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),              \
+            "+f"(d[62]), "+f"(d[63])                                         \
+          : "l"(a), "l"(b), "r"(scale_d));                                   \
+    }                                                                        \
+  };
+MXT_FP8_WGMMA(0, 0, "e4m3", "e4m3")
+MXT_FP8_WGMMA(0, 1, "e4m3", "e5m2")
+MXT_FP8_WGMMA(1, 0, "e5m2", "e4m3")
+MXT_FP8_WGMMA(1, 1, "e5m2", "e5m2")
+#undef MXT_FP8_WGMMA
+
+// A 2-D map over (rows, cols) one-byte codes with a row pitch of ``pitch``
+// bytes (a multiple of 16): boxes of box_rows x 128 bytes, 128-byte
+// swizzle; reads past rows or cols give zero codes.
+inline int make_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                       int pitch, int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
+                       static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                   const_cast<void*>(base), dims, strides, box, elem,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One box (128 bytes of K from ``col``, rows from ``row``) into shared
+// memory at ``dst``, completing on ``bar``.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+template <int kA, int kB, bool kBf16Out>
+__global__ void __launch_bounds__(kThreads, 1)
+    fp8_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb, int M, int N,
+                    int K, const float* __restrict__ sa,
+                    const float* __restrict__ sb, void* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sA = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sB = sA + kStages * kTileBytes;
+  const uint32_t full = sB + kStages * kTileBytes;  // 8 bytes a stage
+  const uint32_t empty = full + 8 * kStages;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int ktiles = (K + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform role, so the compiler sees the roles split by warpgroup
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer warpgroup: one thread issues every copy
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      for (int it = 0; it < ktiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * kTileBytes);
+        tma_load_2d(sA + s * kTileBytes, &ta, full + 8 * s, it * kBK, m0);
+        tma_load_2d(sB + s * kTileBytes, &tb, full + 8 * s, it * kBK, n0);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: rows m0 + 64 wg + [0, 64)
+    reg_alloc<kConsumerRegs>();
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
+    for (int it = 0; it < ktiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      const uint32_t a_tile = sA + s * kTileBytes;
+      const uint32_t b_tile = sB + s * kTileBytes;
+      fence_regs(part);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        Wgmma<kA, kB>::run(part, desc_k(a_tile, kBM, 64 * wg, kk),
+                           desc_k(b_tile, kBN, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait0();
+      fence_regs(part);
+      mbar_arrive(empty + 8 * s);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    }
+
+    // accumulator element 4j + 2h + e is (row 16 w + l / 4 + 8 h,
+    // column 8 j + 2 (l % 4) + e) of the warpgroup's 64 x 128 block
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const float s_a = *sa, s_b = *sb;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = m0 + 64 * wg + 16 * (t / 32) + lane / 4 + 8 * h;
+          const int col = n0 + 8 * j + 2 * (lane % 4) + e;
+          if (row >= M || col >= N) continue;
+          const float v =
+              __fmul_rn(__fmul_rn(acc[4 * j + 2 * h + e], s_a), s_b);
+          const size_t o = static_cast<size_t>(row) * N + col;
+          if (kBf16Out)
+            static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+          else
+            static_cast<float*>(out)[o] = v;
+        }
+  }
+}
+
+template <int kA, int kB>
+int launch_kinds(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N,
+                 int K, const float* sa, const float* sb, void* out,
+                 int bf16_out, cudaStream_t st) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  auto kern = bf16_out ? fp8_gemm_kernel<kA, kB, true>
+                       : fp8_gemm_kernel<kA, kB, false>;
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
+  if (rc) return rc;
+  kern<<<grid, kThreads, kSmem, st>>>(ta, tb, M, N, K, sa, sb, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a: (M, lda) codes of kind a_kind, b: (N, ldb) codes of kind b_kind
+// (0 = e4m3, 1 = e5m2), both 16-byte aligned with lda, ldb multiples of
+// 16 and >= K; sa, sb: one device float each; out: (M, N) fp32
+// (bf16_out == 0) or bf16, contiguous.
+extern "C" int mxt_fp8_gemm(const void* a, const void* b, int M, int N,
+                            int K, int lda, int ldb, int a_kind, int b_kind,
+                            const float* sa, const float* sb, void* out,
+                            int bf16_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 0 || N < 0 || K < 0 || lda < K || ldb < K || lda % 16 != 0 ||
+      ldb % 16 != 0 || (a_kind != 0 && a_kind != 1) ||
+      (b_kind != 0 && b_kind != 1) ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  if (K == 0)  // an empty contraction: zeros
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(M) * N * (bf16_out ? 2 : 4), st));
+  CUtensorMap ta, tb;
+  int rc = make_map_2d(&ta, a, M, K, lda, kBM);
+  if (!rc) rc = make_map_2d(&tb, b, N, K, ldb, kBN);
+  if (rc) return rc;
+  if (a_kind == 0 && b_kind == 0)
+    return launch_kinds<0, 0>(ta, tb, M, N, K, sa, sb, out, bf16_out, st);
+  if (a_kind == 0)
+    return launch_kinds<0, 1>(ta, tb, M, N, K, sa, sb, out, bf16_out, st);
+  if (b_kind == 0)
+    return launch_kinds<1, 0>(ta, tb, M, N, K, sa, sb, out, bf16_out, st);
+  return launch_kinds<1, 1>(ta, tb, M, N, K, sa, sb, out, bf16_out, st);
+}

@@ -22,6 +22,35 @@ from . import random as _random
 __all__ = ["Executor"]
 
 
+def _run_op(node, env, new_aux, rng, is_train, device, fp8_label, aux_set,
+            node_hook=None):
+    """Run one op node over ``env`` ({(node id, output): tensor}),
+    writing its outputs there and its aux-state updates into
+    ``new_aux``."""
+    ins = [env[(id(src), i)] for (src, i) in node.inputs]
+    attrs = dict(node.attrs)
+    if node.op.uses_train_mode:
+        attrs["__is_train__"] = is_train
+    if not ins and device is not None:
+        attrs["__device__"] = device
+    if fp8_label:
+        attrs["__node_name__"] = node.name
+    if node.op.needs_rng:
+        ins = [rng] + ins
+    res = node.op.compute(_registry.FrozenAttrs(attrs), *ins)
+    if not isinstance(res, tuple):
+        res = (res,)
+    for i in range(node.num_outputs):
+        env[(id(node), i)] = res[i]
+        if node_hook is not None:
+            node_hook(node.name, i, res[i])
+    # functional aux-state update (reference FMutateInputs)
+    for mi, upd in zip(node.op.mutable_inputs, res[node.num_outputs:]):
+        src, _ = node.inputs[mi]
+        if src.is_variable and src.name in aux_set:
+            new_aux[src.name] = upd
+
+
 def _trace_fn(sym, is_train, node_hook=None):
     """Build the function (args, aux, rng) -> (outputs, new_aux) that runs
     the graph eagerly over tensors.
@@ -37,6 +66,11 @@ def _trace_fn(sym, is_train, node_hook=None):
     out_refs = [(id(n), i) for (n, i) in sym._outputs]
 
     def fn(args, aux, rng):
+        from . import quantize as _quantize
+
+        # fp8 sites are labelled by node (MXNET_FP8_LAYERS names them)
+        # only under an active fp8 trace: clean runs keep their attrs
+        fp8_label = _quantize.fp8_tracing()
         env = {}
         new_aux = dict(aux)
         # where a node without inputs (a creation op) makes its output
@@ -46,30 +80,83 @@ def _trace_fn(sym, is_train, node_hook=None):
                 env[(id(node), 0)] = (aux if node.name in aux_set
                                       else args)[node.name]
                 continue
-            ins = [env[(id(src), i)] for (src, i) in node.inputs]
-            attrs = dict(node.attrs)
-            if node.op.uses_train_mode:
-                attrs["__is_train__"] = is_train
-            if not ins and device is not None:
-                attrs["__device__"] = device
-            if node.op.needs_rng:
-                ins = [rng] + ins
-            res = node.op.compute(_registry.FrozenAttrs(attrs), *ins)
-            if not isinstance(res, tuple):
-                res = (res,)
-            for i in range(node.num_outputs):
-                env[(id(node), i)] = res[i]
-                if node_hook is not None:
-                    node_hook(node.name, i, res[i])
-            # functional aux-state update (reference FMutateInputs)
-            for mi, upd in zip(node.op.mutable_inputs,
-                               res[node.num_outputs:]):
-                src, _ = node.inputs[mi]
-                if src.is_variable and src.name in aux_set:
-                    new_aux[src.name] = upd
+            _run_op(node, env, new_aux, rng, is_train, device, fp8_label,
+                    aux_set, node_hook)
         return tuple(env[ref] for ref in out_refs), new_aux
 
     return fn, arg_names, aux_names
+
+
+class Segment:
+    """A run of consecutive op nodes of the topological order: the env
+    keys it reads from before it (``inputs``), the keys of its outputs a
+    later segment or the graph reads (``outputs``), the aux states it
+    updates (``aux``) and whether an op in it draws random numbers."""
+
+    __slots__ = ("nodes", "inputs", "outputs", "aux", "draws")
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+        self.inputs, self.outputs, self.aux = [], [], []
+        self.draws = any(n.op.needs_rng for n in nodes)
+
+
+def segment_plan(sym, n_segments):
+    """Split the graph's op nodes, in the order ``_trace_fn`` runs them,
+    into at most ``n_segments`` contiguous segments of near-equal length
+    (the training step checkpoints each for ``remat``, so only the
+    tensors that cross a boundary stay alive through the backward)."""
+    topo = sym._topo()
+    aux_set = set(sym.list_auxiliary_states())
+    ops = [n for n in topo if not n.is_variable]
+    n = max(1, min(int(n_segments), len(ops)))
+    cuts = [round(k * len(ops) / n) for k in range(n + 1)]
+    segs = [Segment(ops[a:b]) for a, b in zip(cuts, cuts[1:]) if b > a]
+    owner = {}
+    for s, seg in enumerate(segs):
+        for node in seg.nodes:
+            for i in range(node.num_outputs):
+                owner[(id(node), i)] = s
+    reads = [set() for _ in segs]
+    for s, seg in enumerate(segs):
+        seen = set()
+        for node in seg.nodes:
+            for src, i in node.inputs:
+                key = (id(src), i)
+                if owner.get(key) != s and key not in seen:
+                    seen.add(key)
+                    seg.inputs.append(key)
+                    if key in owner:
+                        reads[owner[key]].add(key)
+            for mi in node.op.mutable_inputs:
+                src, _ = node.inputs[mi]
+                if src.is_variable and src.name in aux_set and \
+                        src.name not in (a for a, _ in seg.aux):
+                    seg.aux.append((src.name, (id(src), 0)))
+    for ref in ((id(n), i) for (n, i) in sym._outputs):
+        if ref in owner:
+            reads[owner[ref]].add(ref)
+    for s, seg in enumerate(segs):
+        seg.outputs = [(id(node), i) for node in seg.nodes
+                       for i in range(node.num_outputs)
+                       if (id(node), i) in reads[s]]
+    return segs
+
+
+def run_segment(seg, values, rng, is_train, device, aux_set):
+    """Run segment ``seg`` over its input ``values`` (in ``seg.inputs``
+    order): its outputs in ``seg.outputs`` order, then its aux states in
+    ``seg.aux`` order (an update, or the state as it came in)."""
+    from . import quantize as _quantize
+
+    env = dict(zip(seg.inputs, values))
+    new_aux = {}
+    fp8_label = _quantize.fp8_tracing()
+    for node in seg.nodes:
+        _run_op(node, env, new_aux, rng, is_train, device, fp8_label,
+                aux_set)
+    return tuple(env[k] for k in seg.outputs) + tuple(
+        new_aux.get(a, env[key]) for a, key in seg.aux)
 
 
 class Executor:

@@ -9,7 +9,8 @@ Any registered optimizer, by name or instance, with its
 ``lr_scheduler``: each step runs its split form (``Optimizer.update``),
 outside autograd, which rebinds each parameter to a new
 ``requires_grad`` leaf; with SGD's ``multi_precision=True`` a bf16 or
-fp16 parameter keeps an fp32 master copy in its optimizer state.
+fp16 parameter keeps an fp32 master copy in its optimizer state.  ``save_states`` and
+``load_states`` round-trip the states as host arrays.
 """
 from __future__ import annotations
 
@@ -59,7 +60,33 @@ class Trainer:
             self._updater(i, p._grad, p.data())
 
     def save_states(self, fname):
-        raise later_slice("Trainer.save_states", fname)
+        """Write the updater's states (``mxnet_tpu/gluon/trainer.py:106``)
+        as the port's pickle of host arrays
+        (``checkpoint.states_to_blob``), loadable with or without a
+        card."""
+        from ..checkpoint import states_to_blob
+
+        with open(fname, "wb") as f:
+            f.write(states_to_blob(self._updater.states))
 
     def load_states(self, fname):
-        raise later_slice("Trainer.load_states", fname)
+        """Read a :meth:`save_states` file: each state lands as NDArrays
+        on its parameter's context."""
+        from ..checkpoint import states_from_blob
+        from ..ndarray import NDArray
+
+        with open(fname, "rb") as f:
+            states = states_from_blob(f.read())
+
+        def place(v, ctx):
+            if v is None:
+                return None
+            if isinstance(v, (tuple, list)):
+                return type(v)(place(e, ctx) for e in v)
+            if hasattr(v, "to"):
+                return NDArray(v.to(ctx.torch_device), ctx)
+            return v
+
+        self._updater.states = {
+            i: place(v, self._params[i].data().context)
+            for i, v in states.items()}

@@ -1,43 +1,379 @@
-"""Run health: the step watchdog.
+"""Run health: in-step numerics guards, the loss scaler, the policy
+engine and the step watchdog.
 
-Counterpart of ``mxnet_tpu/health.py``'s liveness half.  A loop that
-stops making progress — a wedged device call, a deadlocked collective, a
-stuck input pipeline — must fail diagnosably instead of hanging:
-:class:`StepWatchdog` (the serving supervisor's per-replica liveness,
-and the training loop's once ``fit(step_timeout_s=)`` is wired) dumps
-all-thread stacks plus the caller's stats to a JSON artifact under
-``MXNET_HEALTH_DIR``, then delivers :class:`~mxnet_tpu_torch.base.
-StepHung` into the watched thread with ``PyThreadState_SetAsyncExc``.
-The artifact has the JAX package's schema, so ``tools/diagnose.py``
-renders it unchanged.
+Counterpart of ``mxnet_tpu/health.py`` (:66-392 and the watchdog).  A
+run that goes on while it diverges — NaN/Inf gradients, a loss blow-up,
+a wedged device call — burns the card without producing a model:
 
-A CUDA call the watched thread is blocked in (a synchronise, a copy to
-the host) returns only when the card finishes; the asynchronous
-exception lands at the next bytecode after it.  For calls that never
-return, ``MXNET_STEP_TIMEOUT_EXIT=1`` hard-exits (code 70) one more
-timeout after the dump.
+* **In-step numerics** (``fused.TrainStep(health=StepHealth(...))``):
+  the step computes a global gradient norm and a non-finite flag on the
+  device, and a non-finite step is skipped there — a device-side select
+  keeps the old parameters, optimizer states and aux states bit for bit
+  — so the clean path never waits on the host, and the same code runs
+  inside a captured CUDA graph.
+* **Loss scaling** (:class:`DynamicLossScaler`): the loss is multiplied
+  by a scale before the backward and the gradients unscaled after; the
+  scale and its clean-step streak are device scalars carried by the
+  step, so growth on clean streaks and back-off on an overflow happen on
+  the device too.
+* **Policy engine** (:class:`HealthMonitor`): host-side EMA statistics
+  over *lagged* device values (step ``n - lag`` is read while step ``n``
+  runs), the ``warn`` → ``skip`` → ``rollback`` ladder, and
+  :class:`~mxnet_tpu_torch.base.TrainingDiverged` when recovery is
+  exhausted.  ``Module.fit(health=)`` drives it.
+* **Liveness**: :class:`StepWatchdog` (the serving supervisor's
+  per-replica liveness and ``fit(step_timeout_s=)``) dumps all-thread
+  stacks plus the caller's stats to a JSON artifact under
+  ``MXNET_HEALTH_DIR``, then delivers
+  :class:`~mxnet_tpu_torch.base.StepHung` into the watched thread with
+  ``PyThreadState_SetAsyncExc``.  The artifact has the JAX package's
+  schema, so ``tools/diagnose.py`` renders it unchanged.  A CUDA call
+  the watched thread is blocked in returns only when the card finishes;
+  the asynchronous exception lands at the next bytecode after it.  For
+  calls that never return, ``MXNET_STEP_TIMEOUT_EXIT=1`` hard-exits
+  (code 70) one more timeout after the dump.
 
-The rest of the JAX module — the in-step numerics guards, the loss
-scaler, the policy engine behind ``fit(health=, loss_scale=)`` and the
-rank heartbeats — is ported with the training robustness step
-(ROADMAP queue 1 step 4).
+The rank heartbeats (``RankHeartbeat``, ``stale_peers``,
+``peer_report``) belong to several processes and come with the
+multi-device step (ROADMAP queue 1 step 8).
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import tempfile
 import threading
 import time
 
-from .base import MXNetError, StepHung, get_env, logger
+import numpy as np
 
-__all__ = ["StepWatchdog", "StepHung", "last_hang_details"]
+from .base import MXNetError, StepHung, TrainingDiverged, get_env, logger
+
+__all__ = ["HealthMonitor", "DynamicLossScaler", "StepHealth",
+           "StepWatchdog", "resolve_monitor", "TrainingDiverged",
+           "StepHung", "last_hang_details"]
+
+_POLICIES = ("warn", "skip", "rollback")
 
 # thread-name prefix the pytest leak guard (tests/conftest.py) checks;
 # the JAX package's, so one guard covers both packages
 WATCHDOG_THREAD_PREFIX = "mxnet-step-watchdog"
+
+
+# ---------------------------------------------------------------------------
+# loss scaling
+
+
+class DynamicLossScaler:
+    """Dynamic loss-scale schedule for low-precision runs.
+
+    The *state* (current scale, clean-step streak) lives as device
+    scalars carried by the step; this object holds the schedule's
+    constants: on overflow the scale is multiplied by ``backoff`` and the
+    step skipped; after ``growth_interval`` consecutive clean steps it is
+    multiplied by ``growth``, bounded to [``min_scale``, ``max_scale``].
+    bf16 shares fp32's exponent range, so ``init_scale=1`` makes it a
+    pure overflow detector there."""
+
+    def __init__(self, init_scale=2.0 ** 15, growth=2.0, backoff=0.5,
+                 growth_interval=2000, min_scale=1.0, max_scale=2.0 ** 24):
+        if init_scale <= 0 or growth < 1.0 or not 0 < backoff <= 1.0:
+            raise MXNetError(
+                "DynamicLossScaler needs init_scale > 0, growth >= 1, "
+                "0 < backoff <= 1 (got %r, %r, %r)"
+                % (init_scale, growth, backoff))
+        self.init_scale = float(init_scale)
+        self.growth = float(growth)
+        self.backoff = float(backoff)
+        self.growth_interval = int(growth_interval)
+        self.min_scale = float(min_scale)
+        self.max_scale = float(max_scale)
+
+    @staticmethod
+    def from_spec(spec):
+        """Resolve a ``fit(loss_scale=...)`` / ``MXNET_LOSS_SCALE`` value:
+        ``'dynamic'`` → the default dynamic scaler, a number → a static
+        scale (growth and back-off off), None/'' → no scaling."""
+        if spec in (None, "", False):
+            return None
+        if isinstance(spec, DynamicLossScaler):
+            return spec
+        if isinstance(spec, str) and spec.lower() == "dynamic":
+            return DynamicLossScaler()
+        scale = float(spec)
+        return DynamicLossScaler(init_scale=scale, growth=1.0, backoff=1.0,
+                                 growth_interval=1 << 30, min_scale=scale,
+                                 max_scale=scale)
+
+
+class StepHealth:
+    """Static health configuration of a ``TrainStep``.
+
+    ``skip_nonfinite`` — skip a step whose loss or any gradient is
+    non-finite, on the device; ``scaler`` — an optional
+    :class:`DynamicLossScaler` (whose overflow always skips).  The global
+    gradient norm and the non-finite flag are always computed."""
+
+    def __init__(self, skip_nonfinite=True, scaler=None):
+        self.skip_nonfinite = bool(skip_nonfinite)
+        self.scaler = scaler
+
+
+# ---------------------------------------------------------------------------
+# policy engine
+
+
+def _host(value):
+    """A stats value (tensor, numpy or Python) as a numpy array."""
+    value = getattr(value, "_data", value)
+    if hasattr(value, "detach"):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+class HealthMonitor:
+    """EMA loss/grad-norm statistics + per-anomaly policy ladder.
+
+    ``tick(stats)`` is called once per dispatched step with that step's
+    device stats; the monitor queues them and reads only entries ``lag``
+    steps old, which the card has long finished, so the read does not
+    stall the clean path.  ``observe`` classifies one step:
+
+    * ``"ok"``   — nothing to do;
+    * ``"warn"`` — anomaly logged;
+    * ``"skip"`` — a non-finite step; the device already applied the
+      skip; escalates after ``max_skips`` consecutive ones;
+    * ``"rollback"`` — reload last-good + LR back-off (the trainer does
+      it); after ``max_rollbacks`` consecutive rollbacks with no clean
+      progress in between, :class:`TrainingDiverged`.
+
+    Thresholds default from the ``MXNET_HEALTH_*`` env knobs."""
+
+    def __init__(self, policy=None, loss_spike=None, grad_spike=None,
+                 ema_decay=None, warmup=None, lag=None, max_skips=None,
+                 max_rollbacks=None, lr_backoff=None, logger_=None):
+        self.policy = policy if policy is not None else \
+            get_env("MXNET_HEALTH_POLICY", "skip", str)
+        if self.policy not in _POLICIES:
+            raise MXNetError("health policy must be one of %s (got %r)"
+                             % ("/".join(_POLICIES), self.policy))
+        self.loss_spike = loss_spike if loss_spike is not None else \
+            get_env("MXNET_HEALTH_LOSS_SPIKE", 10.0, float)
+        self.grad_spike = grad_spike if grad_spike is not None else \
+            get_env("MXNET_HEALTH_GRAD_SPIKE", 25.0, float)
+        self.ema_decay = ema_decay if ema_decay is not None else \
+            get_env("MXNET_HEALTH_EMA", 0.98, float)
+        self.warmup = warmup if warmup is not None else \
+            get_env("MXNET_HEALTH_WARMUP", 20, int)
+        self.lag = lag if lag is not None else \
+            get_env("MXNET_HEALTH_LAG", 2, int)
+        self.max_skips = max_skips if max_skips is not None else \
+            get_env("MXNET_HEALTH_MAX_SKIPS", 10, int)
+        self.max_rollbacks = max_rollbacks if max_rollbacks is not None \
+            else get_env("MXNET_HEALTH_MAX_ROLLBACKS", 3, int)
+        self.lr_backoff = lr_backoff if lr_backoff is not None else \
+            get_env("MXNET_HEALTH_LR_BACKOFF", 0.5, float)
+        self.logger = logger_ or logger
+        self._pending = []      # [(step, stats)] not yet read
+        self.reset()
+
+    # -- lifecycle ------------------------------------------------------
+    def reset(self):
+        """Forget everything (a fresh fit)."""
+        self._pending = []
+        self.soft_reset()
+        self.consecutive_rollbacks = 0
+        self.total_rollbacks = 0
+        self.total_skips = 0
+        self.total_warnings = 0
+
+    def soft_reset(self):
+        """Drop the EMA state and streaks but keep lifetime and rollback
+        accounting — after a rollback restored old parameters."""
+        self._pending = []
+        self.loss_ema = None
+        self.grad_ema = None
+        self.observed = 0
+        self.consecutive_skips = 0
+        self._clean_since_rollback = 0
+        self.last_stats = None
+
+    # -- per-step entry points -----------------------------------------
+    def tick(self, stats_ref, step=None):
+        """Queue this step's stats; read and classify entries ``lag``
+        steps old.  Returns the strongest action among them."""
+        if stats_ref is not None:
+            self._pending.append((step, stats_ref))
+        action = "ok"
+        while len(self._pending) > self.lag:
+            s, ref = self._pending.pop(0)
+            action = _stronger(action, self._realize(s, ref))
+        return action
+
+    def flush(self):
+        """Read every queued entry (epoch end).  Returns the strongest
+        action found."""
+        action = "ok"
+        while self._pending:
+            s, ref = self._pending.pop(0)
+            action = _stronger(action, self._realize(s, ref))
+        return action
+
+    def _realize(self, step, ref):
+        vals = {k: _host(v) for k, v in ref.items()}
+        # a steps_per_call=K entry carries (K,) arrays, one observation
+        # an inner step; a stat the producer did not measure (the split
+        # path has no loss) is None, not NaN, which would read as a
+        # non-finite step
+        has_loss = "loss" in vals
+        has_gnorm = "grad_norm" in vals
+        loss = np.atleast_1d(np.asarray(vals.get("loss", np.nan),
+                                        "float64"))
+        gnorm = np.atleast_1d(np.asarray(vals.get("grad_norm", np.nan),
+                                         "float64"))
+        bad = np.atleast_1d(np.asarray(vals.get("nonfinite", 0)))
+        action = "ok"
+        n = max(loss.shape[0] if has_loss else 1,
+                gnorm.shape[0] if has_gnorm else 1, bad.shape[0])
+        for k in range(n):
+            action = _stronger(action, self.observe(
+                step=step,
+                loss=float(loss[min(k, loss.shape[0] - 1)])
+                if has_loss else None,
+                grad_norm=float(gnorm[min(k, gnorm.shape[0] - 1)])
+                if has_gnorm else None,
+                nonfinite=bool(bad[min(k, bad.shape[0] - 1)])))
+        return action
+
+    def observe(self, step=None, loss=None, grad_norm=None,
+                nonfinite=False):
+        """Classify one step (host logic only)."""
+        self.last_stats = {"step": step, "loss": loss,
+                           "grad_norm": grad_norm,
+                           "nonfinite": bool(nonfinite)}
+        if nonfinite or (loss is not None and not math.isfinite(loss)) \
+                or (grad_norm is not None
+                    and not math.isfinite(grad_norm)):
+            self.consecutive_skips += 1
+            self.total_skips += 1
+            self._clean_since_rollback = 0
+            self.logger.warning(
+                "health: non-finite step%s (consecutive %d/%d) — update "
+                "skipped on device",
+                "" if step is None else " %s" % (step,),
+                self.consecutive_skips, self.max_skips)
+            if self.policy == "warn":
+                self.total_warnings += 1
+                return "warn"
+            if self.consecutive_skips >= self.max_skips:
+                self.consecutive_skips = 0
+                return self._escalate(
+                    step, "%d consecutive non-finite steps"
+                    % self.max_skips)
+            return "skip"
+        # a finite step: streaks first, then the spike check against the
+        # EMA of the earlier steps
+        self.consecutive_skips = 0
+        self._clean_since_rollback += 1
+        if self._clean_since_rollback >= max(1, self.warmup):
+            self.consecutive_rollbacks = 0
+        anomaly = None
+        if self.observed >= self.warmup:
+            if loss is not None and self.loss_ema is not None and \
+                    abs(loss) > self.loss_spike * (abs(self.loss_ema)
+                                                   + 1e-8):
+                anomaly = "loss %.4g spiked > %gx EMA %.4g" % (
+                    loss, self.loss_spike, self.loss_ema)
+            elif grad_norm is not None and self.grad_ema is not None and \
+                    grad_norm > self.grad_spike * (self.grad_ema + 1e-8):
+                anomaly = "grad norm %.4g spiked > %gx EMA %.4g" % (
+                    grad_norm, self.grad_spike, self.grad_ema)
+        d = self.ema_decay
+        if loss is not None:
+            self.loss_ema = loss if self.loss_ema is None else \
+                d * self.loss_ema + (1 - d) * loss
+        if grad_norm is not None:
+            self.grad_ema = grad_norm if self.grad_ema is None else \
+                d * self.grad_ema + (1 - d) * grad_norm
+        self.observed += 1
+        if anomaly is None:
+            return "ok"
+        self.total_warnings += 1
+        self.logger.warning(
+            "health: %s%s", anomaly,
+            "" if step is None else " at step %s" % (step,))
+        if self.policy == "rollback":
+            return self._escalate(step, anomaly)
+        return "warn"
+
+    def _escalate(self, step, reason):
+        """Turn an exhausted skip streak or a spike into a rollback
+        request, or into :class:`TrainingDiverged` when the policy
+        forbids rollback or rollbacks are exhausted."""
+        if self.policy != "rollback":
+            raise TrainingDiverged(
+                "training diverged: %s and policy %r cannot roll back "
+                "(set MXNET_HEALTH_POLICY=rollback and pass "
+                "fit(checkpoint=...) for automatic recovery)"
+                % (reason, self.policy), reason=reason)
+        if self.consecutive_rollbacks >= self.max_rollbacks:
+            raise TrainingDiverged(
+                "training diverged: %s after %d consecutive rollbacks "
+                "(MXNET_HEALTH_MAX_ROLLBACKS) — the run does not recover "
+                "from the last-good checkpoint; inspect the data stream "
+                "and hyperparameters" % (reason,
+                                         self.consecutive_rollbacks),
+                reason=reason)
+        self._last_anomaly = reason
+        return "rollback"
+
+    def note_rollback(self, step=None):
+        """Account for a rollback the trainer just performed."""
+        self.consecutive_rollbacks += 1
+        self.total_rollbacks += 1
+        self._clean_since_rollback = 0
+
+    # -- diagnostics ----------------------------------------------------
+    def snapshot(self):
+        """JSON-able state for the watchdog dump."""
+        return {
+            "policy": self.policy,
+            "observed": self.observed,
+            "loss_ema": self.loss_ema,
+            "grad_ema": self.grad_ema,
+            "last_stats": self.last_stats,
+            "consecutive_skips": self.consecutive_skips,
+            "consecutive_rollbacks": self.consecutive_rollbacks,
+            "total_skips": self.total_skips,
+            "total_rollbacks": self.total_rollbacks,
+            "total_warnings": self.total_warnings,
+        }
+
+
+def _stronger(a, b):
+    order = ("ok", "warn", "skip", "rollback")
+    return a if order.index(a) >= order.index(b) else b
+
+
+def resolve_monitor(spec):
+    """Normalize ``fit(health=...)`` / ``MXNET_HEALTH_MONITOR``: None →
+    the env switch, True → a default monitor, a policy string →
+    ``HealthMonitor(policy=...)``, an instance → itself, falsy → off."""
+    if spec is None:
+        spec = get_env("MXNET_HEALTH_MONITOR", False, bool)
+    if not spec:
+        return None
+    if isinstance(spec, HealthMonitor):
+        return spec
+    if isinstance(spec, str):
+        return HealthMonitor(policy=spec)
+    return HealthMonitor()
+
+
+# ---------------------------------------------------------------------------
+# liveness: step watchdog
 
 
 class StepWatchdog:

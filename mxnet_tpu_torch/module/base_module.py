@@ -12,8 +12,19 @@ launched.  A SIGTERM/SIGINT stops the loop at the next batch boundary
 with :class:`~mxnet_tpu_torch.base.TrainingPreempted`.  With
 ``steps_per_call=K`` the prefetcher packs K batches into a super-batch
 and each call runs K updates (one CUDA-graph replay on the card).
-Checkpoint managers, resume, run health, loss scaling, the step
-watchdog, ZeRO, plans, elasticity, parameter sharding and monitors come
+
+Fault tolerance and run health (``mxnet_tpu/module/base_module.py``
+:191-630): ``checkpoint=`` writes epoch checkpoints through a
+``CheckpointManager`` every ``checkpoint_period`` epochs, and a
+preemption writes a final mid-epoch one before it raises;
+``resume_from=`` restores params, aux, optimizer states and the update
+count and fast-forwards the data to the recorded position, so the run
+continues the uninterrupted trajectory; ``health=`` feeds the step's
+lagged device stats to a ``HealthMonitor`` and rolls back to the last
+good checkpoint, with a learning-rate back-off, when it asks;
+``loss_scale=`` arms the dynamic loss scaler; ``step_timeout_s=`` a
+``StepWatchdog`` kicked at every dispatch and paused over the epoch
+tail.  ZeRO, plans, elasticity, parameter sharding and monitors come
 with later slices and raise.
 """
 from __future__ import annotations
@@ -24,7 +35,8 @@ import sys
 import threading
 import time
 
-from ..base import MXNetError, TrainingPreempted, get_env, later_slice
+from ..base import (MXNetError, StepHung, TrainingDiverged,
+                    TrainingPreempted, get_env, later_slice)
 from .. import io as io_mod
 from .. import metric as metric_mod
 
@@ -227,8 +239,22 @@ class BaseModule:
           K`` batches are dropped.  ``num_update`` and ``nbatch`` advance
           by K a call, the metric is updated once an inner step, the
           batch callback runs once a call.
+        * ``checkpoint`` — a ``CheckpointManager`` or a directory for one:
+          epoch checkpoints every ``checkpoint_period`` epochs (and after
+          the last), and on SIGTERM/SIGINT a final checkpoint at the next
+          batch boundary before :class:`TrainingPreempted`.
+        * ``resume_from`` — a ``CheckpointState``, ``CheckpointManager``,
+          prefix or ``(prefix, epoch)`` (``checkpoint.resolve_resume``).
+        * ``health`` — True, a policy ('warn'/'skip'/'rollback') or a
+          ``HealthMonitor`` (``MXNET_HEALTH_MONITOR=1``); rollback needs
+          ``checkpoint``.  ``loss_scale`` — 'dynamic', a number or a
+          ``DynamicLossScaler`` (``MXNET_LOSS_SCALE``).
+        * ``step_timeout_s`` — a step watchdog (``MXNET_STEP_TIMEOUT_S``):
+          a step making no progress for this long dumps all-thread stacks
+          and the monitor's snapshot, then raises :class:`StepHung`.
         """
         from ..initializer import Uniform
+        from .. import checkpoint as ckpt_mod
 
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
@@ -239,14 +265,7 @@ class BaseModule:
                 "steps_per_call > 1 is incompatible with a Monitor: the "
                 "monitor needs the per-node executor path, which has no "
                 "multi-step form")
-        timeout = float(step_timeout_s if step_timeout_s is not None
-                        else get_env("MXNET_STEP_TIMEOUT_S", 0.0, float))
         for field, value, fine in (
-                ("checkpoint", checkpoint, checkpoint is None),
-                ("resume_from", resume_from, resume_from is None),
-                ("health", health, health is None),
-                ("loss_scale", loss_scale, loss_scale is None),
-                ("step_timeout_s", timeout, timeout <= 0),
                 ("zero", zero, zero is None),
                 ("plan", plan, plan is None),
                 ("elastic", elastic, elastic in (None, False)),
@@ -257,6 +276,27 @@ class BaseModule:
                 raise later_slice(field, value)
         if initializer is None:
             initializer = Uniform(0.01)
+        mgr = None
+        if checkpoint is not None:
+            mgr = checkpoint \
+                if isinstance(checkpoint, ckpt_mod.CheckpointManager) \
+                else ckpt_mod.CheckpointManager(str(checkpoint))
+        resume_state = None
+        if resume_from is not None:
+            ctx = getattr(self, "_context", [None])[0]
+            resume_state = ckpt_mod.resolve_resume(
+                resume_from, device=ctx.torch_device if ctx is not None
+                else None)
+            # the checkpoint's params supersede the cold start
+            arg_params = resume_state.arg_params
+            aux_params = resume_state.aux_params
+            force_init = True
+            begin_epoch = resume_state.epoch
+            self.logger.info(
+                "resuming fit from %r: epoch %d, batch offset %d, "
+                "num_update %d", resume_state.prefix or resume_from,
+                resume_state.epoch, resume_state.nbatch,
+                resume_state.num_update)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -268,8 +308,20 @@ class BaseModule:
             opt_kwargs["compute_dtype"] = compute_dtype
         if K > 1:
             opt_kwargs["steps_per_call"] = K
+        if health is not None:
+            opt_kwargs["health"] = health
+        if loss_scale is not None:
+            opt_kwargs["loss_scale"] = loss_scale
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params, **opt_kwargs)
+        # MXNET_HEALTH_MONITOR=1 arms it inside init_optimizer
+        hmon = getattr(self, "_health_monitor", None)
+        if resume_state is not None:
+            self._restore_from(resume_state)
+            # fast-forward the raw iterator before the staging wrap: the
+            # staging worker starts pulling batches when it is built
+            self._fast_forward_data(train_data, resume_state.epoch,
+                                    resume_state.nbatch)
 
         pipeline = prefetch_to_device
         if pipeline is None:
@@ -290,13 +342,42 @@ class BaseModule:
         if sync > 1:
             eval_metric = metric_mod.LazyEvalMetric(eval_metric,
                                                     sync_period=sync)
+        timeout = float(step_timeout_s if step_timeout_s is not None
+                        else get_env("MXNET_STEP_TIMEOUT_S", 0.0, float))
+        watchdog = None
+        if timeout > 0:
+            from ..health import StepWatchdog
+
+            watchdog = StepWatchdog(
+                timeout, stats_cb=hmon.snapshot if hmon is not None
+                else None).start()
         try:
             self._fit_epochs(fit_data, eval_data, eval_metric,
                              validation_metric, batch_end_callback,
                              epoch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch, num_epoch,
-                             K)
+                             K, mgr=mgr, checkpoint_period=checkpoint_period,
+                             resume_nbatch=resume_state.nbatch
+                             if resume_state is not None else 0,
+                             hmon=hmon, watchdog=watchdog)
+            if mgr is not None:
+                # a failed background write must fail the fit
+                mgr.flush()
+        except StepHung as e:
+            # the watchdog delivers a bare StepHung (the C API passes no
+            # arguments): put back the message and artifact it recorded
+            if e.args and e.args[0]:
+                raise
+            from ..health import last_hang_details
+
+            d = last_hang_details()
+            raise StepHung(
+                d.get("msg") or "training step made no progress (step "
+                "watchdog fired)", note=d.get("note"),
+                dump_path=d.get("dump_path")) from None
         finally:
+            if watchdog is not None:
+                watchdog.stop()
             if fit_data is not train_data:
                 # the staging worker must not outlive fit: it would go on
                 # consuming the caller's iterator
@@ -318,25 +399,37 @@ class BaseModule:
                     validation_metric, batch_end_callback,
                     epoch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    steps_per_call=1):
+                    steps_per_call=1, mgr=None, checkpoint_period=1,
+                    resume_nbatch=0, hmon=None, watchdog=None):
         from ..testing import faults
 
+        period = max(1, int(checkpoint_period))
         with _PreemptionGuard() as guard:
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
                 eval_metric.reset()
-                nbatch = 0
+                # a resumed mid-epoch run counts from its recorded offset,
+                # so a second preemption checkpoints the true position
+                nbatch = resume_nbatch if epoch == begin_epoch else 0
                 data_iter = iter(fit_data)
                 end_of_batch = False
                 try:
                     next_data_batch = next(data_iter)
                 except StopIteration:
+                    # a checkpoint taken right after an epoch's last batch
+                    # fast-forwards past the whole epoch
                     end_of_batch = True
                 while not end_of_batch:
                     data_batch = next_data_batch
+                    if watchdog is not None:
+                        watchdog.kick("epoch %d batch %d" % (epoch, nbatch))
                     faults.inject("step")
                     self.forward_backward(data_batch)
                     self.update()
+                    if hmon is not None:
+                        # feed this step's device stats; the monitor reads
+                        # lagged ones and may ask for a rollback
+                        self._health_tick(hmon, mgr, epoch, nbatch)
                     # pull batch n+1 after step n is launched: the staging
                     # ring refills while the card works
                     try:
@@ -360,8 +453,19 @@ class BaseModule:
                                              locals=locals()))
                     nbatch += steps_per_call
                     if guard.fired is not None:
-                        self._preempt(guard.fired, fit_data, epoch, nbatch)
+                        # a batch boundary: params and states consistent
+                        self._preempt(guard.fired, fit_data, mgr, epoch,
+                                      nbatch)
 
+                if watchdog is not None:
+                    # the epoch tail (eval, checkpoint write, callbacks) is
+                    # not step progress; the next kick rearms the timer
+                    watchdog.pause()
+                if hmon is not None:
+                    # drain the lag queue before the epoch checkpoint: a
+                    # pending rollback must not take a freshly saved
+                    # diverged state for the last good one
+                    self._health_tick(hmon, mgr, epoch, nbatch, flush=True)
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
@@ -369,11 +473,16 @@ class BaseModule:
                                  time.time() - tic)
                 arg_params_, aux_params_ = self.get_params()
                 self.set_params(arg_params_, aux_params_)
+                if mgr is not None and ((epoch + 1) % period == 0
+                                        or epoch + 1 == num_epoch):
+                    mgr.save(self, epoch=epoch + 1, nbatch=0)
                 if epoch_end_callback is not None:
                     for cb in _as_list(epoch_end_callback):
                         cb(epoch, self.symbol, arg_params_, aux_params_)
                 if guard.fired is not None:
-                    self._preempt(guard.fired, fit_data, epoch + 1, 0)
+                    # the signal landed in the epoch tail: stop at the
+                    # epoch boundary (tag = completed epochs)
+                    self._preempt(guard.fired, fit_data, mgr, epoch + 1, 0)
                 if eval_data is not None:
                     res = self.score(
                         eval_data, validation_metric,
@@ -385,22 +494,136 @@ class BaseModule:
                                          epoch, name, val)
                 fit_data.reset()
 
-    def _preempt(self, signum, fit_data, epoch, nbatch):
-        """Shut the staging worker down and raise
-        :class:`TrainingPreempted` with the position reached."""
-        self.logger.warning("signal %d received: stopping training at "
-                            "epoch %d, batch %d", signum, epoch, nbatch)
+    # -- fault tolerance hooks ---------------------------------------------
+    def _preempt(self, signum, fit_data, mgr, epoch, nbatch):
+        """Shut the staging worker down, write the final checkpoint (with
+        a manager) and raise :class:`TrainingPreempted` with the position
+        reached."""
+        self.logger.warning(
+            "signal %d received: stopping training at epoch %d, batch %d%s",
+            signum, epoch, nbatch,
+            "" if mgr is None else "; writing final checkpoint")
         close = getattr(fit_data, "close", None)
         if close is not None:
             try:
+                # drain the staging worker before the checkpoint write
                 close()
             except Exception:
                 self.logger.exception(
-                    "prefetch teardown failed during preemption")
+                    "prefetch teardown failed during preemption; "
+                    "continuing to the checkpoint write")
+        if mgr is not None:
+            mgr.save(self, epoch=epoch, nbatch=nbatch)
+            mgr.flush()
         raise TrainingPreempted(
-            "training preempted by signal %d at epoch %d, batch %d (no "
-            "checkpoint manager in this slice)" % (signum, epoch, nbatch),
+            "training preempted by signal %d at epoch %d, batch %d%s"
+            % (signum, epoch, nbatch,
+               "; checkpoint written under %r" % mgr.prefix
+               if mgr is not None else " (no checkpoint manager "
+               "configured — pass fit(checkpoint=...) to save on "
+               "preemption)"),
             epoch=epoch, nbatch=nbatch, signum=signum)
+
+    def _restore_from(self, state):
+        """The optimizer side of a resume, after ``init_optimizer``: the
+        states file, then the update count on the optimizer, so the
+        schedule and bias correction continue from the checkpointed step
+        (the next step number is ``num_update + 1``), and the fused step's
+        carried health state where the checkpoint holds one."""
+        if state.states_path is not None and \
+                hasattr(self, "load_optimizer_states"):
+            self.load_optimizer_states(state.states_path)
+        o = getattr(self, "_optimizer", None)
+        if o is not None:
+            n = int(state.num_update)
+            o.begin_num_update = n
+            o.num_update = n
+            o._index_update_count = {}
+        # the loss scale and the fp8 amax history the checkpoint carries
+        fused = getattr(self, "_fused", None)
+        hstate = getattr(state, "hstate", None)
+        if hstate and fused is not None and fused._use_hstate:
+            fused.load_hstate(hstate)
+
+    def _health_tick(self, hmon, mgr, epoch, nbatch, flush=False):
+        """Feed the monitor at a dispatch boundary and act on its verdict:
+        'skip' needs nothing (the device kept the old params); 'rollback'
+        reloads the last good checkpoint."""
+        stats = getattr(self, "_last_health_stats", None)
+        self._last_health_stats = None
+        try:
+            if flush:
+                if stats is not None:
+                    hmon.tick(stats, step=(epoch, nbatch))
+                action = hmon.flush()
+            else:
+                action = hmon.tick(stats, step=(epoch, nbatch))
+        except TrainingDiverged as e:
+            e.epoch, e.nbatch = epoch, nbatch
+            raise
+        if action == "rollback":
+            self._health_rollback(hmon, mgr, epoch, nbatch)
+
+    def _health_rollback(self, hmon, mgr, epoch, nbatch):
+        """Reload the last good checkpoint, back the learning rate off,
+        and continue from the current stream position: the poisoned window
+        is consumed, not replayed.  Without a checkpoint there is nothing
+        to roll back to: :class:`TrainingDiverged`."""
+        reason = getattr(hmon, "_last_anomaly", "sustained divergence")
+        if mgr is None or mgr.latest() is None:
+            raise TrainingDiverged(
+                "health policy requested a rollback at epoch %d batch %d "
+                "(%s) but no checkpoint is available — pass "
+                "fit(checkpoint=...) so there is a last-good state to "
+                "reload" % (epoch, nbatch, reason),
+                epoch=epoch, nbatch=nbatch, reason=reason)
+        ctx = getattr(self, "_context", [None])[0]
+        state = mgr.load(device=ctx.torch_device if ctx is not None
+                         else None)
+        hmon.note_rollback(step=(epoch, nbatch))
+        factor = hmon.lr_backoff
+        self.logger.warning(
+            "health: rollback %d/%d at epoch %d batch %d (%s) — restoring "
+            "checkpoint epoch %d (num_update %d), learning rate x%g",
+            hmon.consecutive_rollbacks, hmon.max_rollbacks, epoch, nbatch,
+            reason, state.epoch, state.num_update, factor)
+        self.set_params(state.arg_params, state.aux_params)
+        self._restore_from(state)
+        o = getattr(self, "_optimizer", None)
+        if o is not None:
+            o.lr *= factor
+            sch = getattr(o, "lr_scheduler", None)
+            if sch is not None:
+                # FactorScheduler reads base_lr; Poly/Cosine recompute from
+                # base_lr_orig: back both off
+                if getattr(sch, "base_lr", None) is not None:
+                    sch.base_lr *= factor
+                if getattr(sch, "base_lr_orig", None) is not None:
+                    sch.base_lr_orig *= factor
+        # the restored trajectory has other statistics
+        hmon.soft_reset()
+
+    def _fast_forward_data(self, train_data, epochs, nbatch):
+        """Fast-forward the raw data stream to a mid-run position: an
+        iterator that can ``seek`` jumps there; any other replays the run
+        — one ``reset()`` a completed epoch (which repeats the shuffle
+        draws an uninterrupted run makes at its epoch boundaries), then
+        ``nbatch`` batches drawn and dropped."""
+        can_seek = getattr(train_data, "seekable", None)
+        if can_seek is not None and can_seek():
+            train_data.seek(int(epochs), int(nbatch))
+            return
+        for _ in range(int(epochs)):
+            train_data.reset()
+        for skipped in range(int(nbatch)):
+            try:
+                train_data.next()
+            except StopIteration:
+                self.logger.warning(
+                    "resume fast-forward exhausted the epoch after %d of "
+                    "%d batches; continuing from the epoch boundary",
+                    skipped, nbatch)
+                break
 
     # -- introspection -------------------------------------------------------
     @property

@@ -10,10 +10,17 @@ as in the JAX package.  ``forward``/``backward``/``update`` called by
 hand take the split path: the executor's autograd backward and the
 optimizer's updater.
 
+Run health (``init_optimizer(health=, loss_scale=)``): the fused step
+carries a ``StepHealth`` (the loss scaler, the on-device skip) and
+leaves its stats on ``_last_health_stats`` for ``fit``'s monitor; the
+split path's :meth:`_split_health_pass` zeroes a poisoned batch's
+gradients instead.  Optimizer states save and load as the port's pickle
+of host arrays (``checkpoint.states_to_blob``).
+
 This slice is single-device: ``kvstore`` ``"local"``/``"device"`` (or
 None) means no store, as ``_create_kvstore`` decides for one device; a
-``dist*`` store, several contexts, pipeline stages, shared modules and
-the options of the later slices raise.
+``dist*`` store, several contexts, pipeline stages, shared modules, the
+ZeRO and plan options and the monitor raise.
 """
 from __future__ import annotations
 
@@ -105,6 +112,10 @@ class Module(BaseModule):
         self._fused_ran = False
         self._steps_per_call = 1
         self._grad_req = None
+        self._health_monitor = None
+        self._loss_scaler = None
+        self._last_health_stats = None
+        self._preload_opt_states = None
 
     # -- introspection -----------------------------------------------------
     @property
@@ -219,8 +230,14 @@ class Module(BaseModule):
         (or ``MXNET_STEPS_PER_CALL``): each ``forward_backward`` takes a
         ``(K, batch, ...)`` super-batch and runs K updates, one CUDA-graph
         replay on the card; the split path has no such form, so K > 1
-        raises where the fused step is unavailable."""
+        raises where the fused step is unavailable.  ``health``: True, a
+        policy string or a :class:`~mxnet_tpu_torch.health.HealthMonitor`
+        (``MXNET_HEALTH_MONITOR=1``); ``loss_scale``: 'dynamic', a number
+        or a :class:`~mxnet_tpu_torch.health.DynamicLossScaler`
+        (``MXNET_LOSS_SCALE``).  ``MXNET_BACKWARD_DO_MIRROR=1`` makes the
+        fused step recompute its forward in the backward (``remat``)."""
         from ..fused import TrainStep
+        from ..health import DynamicLossScaler, StepHealth, resolve_monitor
 
         if not (self.binded and self.params_initialized):
             raise MXNetError("init_optimizer: bind and init_params first")
@@ -235,8 +252,6 @@ class Module(BaseModule):
         for field, value, fine in (
                 ("param_sharding", param_sharding,
                  param_sharding in (None, "replicated")),
-                ("health", health, health is None),
-                ("loss_scale", loss_scale, loss_scale is None),
                 ("zero", zero, zero is None),
                 ("plan", plan, plan is None)):
             if not fine:
@@ -247,6 +262,11 @@ class Module(BaseModule):
         if compute_dtype is None:
             compute_dtype = get_env("MXNET_COMPUTE_DTYPE", "", str) or None
         self._compute_dtype = compute_dtype
+        self._health_monitor = resolve_monitor(health)
+        if loss_scale is None:
+            loss_scale = get_env("MXNET_LOSS_SCALE", "", str) or None
+        self._loss_scaler = DynamicLossScaler.from_spec(loss_scale)
+        self._last_health_stats = None
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault(
@@ -265,17 +285,26 @@ class Module(BaseModule):
         self._steps_per_call = steps_per_call
         reason = self._fused_blocker()
         if reason is None:
+            step_health = None
+            if self._loss_scaler is not None or \
+                    self._health_monitor is not None:
+                step_health = StepHealth(scaler=self._loss_scaler)
+            remat = "full" if get_env("MXNET_BACKWARD_DO_MIRROR", False,
+                                      bool) else None
             self._fused = TrainStep(
                 self._symbol, optimizer=optimizer,
                 data_names=self._data_names, label_names=self._label_names,
                 fixed_param_names=self._fixed_param_names,
                 compute_dtype=compute_dtype, steps_per_call=steps_per_call,
+                health=step_health, remat=remat,
                 device=self._context[0].torch_device)
         else:
-            # an explicit mixed-precision or multi-step request never
-            # trains through the split path silently: it has neither
+            # an explicit mixed-precision, loss-scaled or multi-step
+            # request never trains through the split path silently: it
+            # has none of them
             for field, value, fine in (
                     ("compute_dtype", compute_dtype, compute_dtype is None),
+                    ("loss_scale", loss_scale, self._loss_scaler is None),
                     ("steps_per_call", steps_per_call,
                      steps_per_call == 1)):
                 if not fine:
@@ -283,6 +312,9 @@ class Module(BaseModule):
                                      "step is unavailable: %s"
                                      % (field, value, reason))
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def _fused_blocker(self):
         """Why the fused step cannot run, or None."""
@@ -319,6 +351,17 @@ class Module(BaseModule):
                 t = arr._data if isinstance(arr, NDArray) else \
                     array(arr, self._context[0])._data
                 batch[name] = t if t.device == dev else t.to(dev)
+        from ..testing import faults
+
+        poison = faults.inject("numerics")
+        if poison is not None:
+            # poison one element of the first data tensor: the NaN/Inf
+            # flows through the forward and the backward into the loss
+            # and every gradient (MXNET_FAULT_INJECT=numerics:nan:after=N)
+            name = self._data_names[0]
+            v = batch[name].clone()
+            v[(0,) * v.dim()] = poison
+            batch[name] = v
         # the scheduler read at the pre-increment count, the step number
         # t at the post-increment one: the split path's order
         # (mxnet_tpu/module/module.py:831-838).  A multi-step call holds
@@ -332,6 +375,7 @@ class Module(BaseModule):
         new_params, new_aux, self._fused_states, outs = self._fused(
             params, aux, self._fused_states, batch,
             _rnd.next_key(self._context[0]), lr, o.num_update - K + 1)
+        self._last_health_stats = getattr(self._fused, "last_health", None)
         for n, v in new_params.items():
             self._exec.arg_dict[n]._set_data(v)
         for n, v in new_aux.items():
@@ -376,29 +420,47 @@ class Module(BaseModule):
         if self._fused_ran:
             self._fused_ran = False
             return
-        if self._optimizer.clip_global_norm:
-            self._clip_global_norm()
+        if self._optimizer.clip_global_norm or \
+                self._health_monitor is not None:
+            self._split_health_pass()
         for i, name in enumerate(self._param_names):
             g = self._exec.grad_dict.get(name)
             if g is not None:
                 self._updater(i, g, self._exec.arg_dict[name])
 
-    def _clip_global_norm(self):
-        """Scale ``grad_dict`` by min(1, clip / ||g||), the norm taken
-        over every parameter's gradient in fp32 as the optimizer will see
-        it (after ``rescale_grad``), the factor cast to each gradient's
-        dtype (``mxnet_tpu/module/module.py:944-961``).  No host sync."""
+    def _split_health_pass(self):
+        """The split path's sentinel (``mxnet_tpu/module/module.py:941``):
+        one pass over ``grad_dict`` computing the global norm in fp32 as
+        the optimizer will see it (after ``rescale_grad``), scaling by
+        ``clip_global_norm``'s factor (cast to each gradient's dtype),
+        and, with a health monitor, zeroing the gradients of a
+        non-finite batch — no host sync.  Unlike the fused path the skip
+        is approximate: momentum still decays and weight decay still
+        applies over the zeroed gradients."""
+        import torch
+
         o = self._optimizer
         names = [n for n in self._param_names
                  if self._exec.grad_dict.get(n) is not None]
         if not names:
             return
         grads = {n: self._exec.grad_dict[n]._data for n in names}
-        factor = opt.global_norm_scale(
-            opt.global_grad_norm(grads, o.rescale_grad), o.clip_global_norm)
+        gnorm = opt.global_grad_norm(grads, o.rescale_grad)
+        finite = torch.isfinite(gnorm)
+        factor = torch.ones((), dtype=torch.float32, device=gnorm.device)
+        if o.clip_global_norm:
+            factor = opt.global_norm_scale(gnorm, o.clip_global_norm)
+        zero_bad = self._health_monitor is not None
+        if zero_bad:
+            self._last_health_stats = {"grad_norm": gnorm,
+                                       "nonfinite": ~finite}
         for n in names:
-            self._exec.grad_dict[n]._set_data(
-                grads[n] * factor.to(grads[n].dtype))
+            g = grads[n] * factor.to(grads[n].dtype)
+            if zero_bad:
+                # 0 * NaN is NaN: a multiplicative skip would leak the
+                # poison into the optimizer state, so select instead
+                g = torch.where(finite, g, torch.zeros_like(g))
+            self._exec.grad_dict[n]._set_data(g)
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs
@@ -426,24 +488,26 @@ class Module(BaseModule):
     # -- checkpoint ----------------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """``prefix-symbol.json`` + ``prefix-%04d.params`` (reference
-        ``module.py:152``), in the JAX package's format."""
+        ``module.py:152``), in the JAX package's format, and with
+        ``save_optimizer_states`` ``prefix-%04d.states``."""
         from ..model import save_checkpoint
 
-        if save_optimizer_states:
-            raise later_slice("save_optimizer_states", True)
         arg_params, aux_params = self.get_params()
         save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A Module over a saved checkpoint; its parameters are applied at
-        ``init_params`` (so at ``fit``'s first step too)."""
+        ``init_params`` (so at ``fit``'s first step too) and, with
+        ``load_optimizer_states``, its states at ``init_optimizer``."""
         from ..model import load_checkpoint
 
-        if load_optimizer_states:
-            raise later_slice("load_optimizer_states", True)
         sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         orig_init = mod.init_params
 
         def init_with_loaded(initializer=None, arg_params=None,
@@ -453,6 +517,51 @@ class Module(BaseModule):
                       aux_params=aux_params or auxs, **kw)
         mod.init_params = init_with_loaded
         return mod
+
+    def save_optimizer_states(self, fname):
+        """Write the optimizer states — the fused step's, else the split
+        updater's, by parameter index — as the port's pickle of host
+        arrays (``checkpoint.states_to_blob``; the file a
+        ``CheckpointManager`` writes as ``.states``)."""
+        from ..checkpoint import _states_blob, atomic_replace
+
+        if not self.optimizer_initialized:
+            raise MXNetError("save_optimizer_states: init_optimizer first")
+        blob = _states_blob(self)
+
+        def write(tmp):
+            with open(tmp, "wb") as f:
+                f.write(blob)
+        atomic_replace(fname, write)
+
+    def load_optimizer_states(self, fname):
+        """Read a :meth:`save_optimizer_states` file onto the module's
+        device: into the fused step's states, or the split updater's."""
+        from ..checkpoint import states_from_blob
+
+        if not self.optimizer_initialized:
+            raise MXNetError("load_optimizer_states: init_optimizer first")
+        with open(fname, "rb") as f:
+            states = states_from_blob(f.read())
+        ctx = self._context[0]
+        dev = ctx.torch_device
+
+        def to_dev(v, wrap):
+            if v is None:
+                return None
+            if isinstance(v, (tuple, list)):
+                return type(v)(to_dev(e, wrap) for e in v)
+            if hasattr(v, "to"):
+                v = v.to(dev)
+                return NDArray(v, ctx) if wrap else v
+            return v
+
+        if self._fused is not None:
+            self._fused_states = {n: to_dev(states.get(i), False)
+                                  for i, n in enumerate(self._param_names)}
+        else:
+            self._updater.states = {i: to_dev(v, True)
+                                    for i, v in states.items()}
 
 
 def _as_desc(d):

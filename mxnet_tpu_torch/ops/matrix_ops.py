@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
+from ..quantize import fp8_apply_dot
 from .registry import register
 
 
@@ -530,7 +531,10 @@ def _dot(attrs, a, b):
         am = am.reshape(-1, am.shape[-1])
     if bm.dim() > 2:
         bm = bm.reshape(bm.shape[0], -1)
-    return torch.matmul(am, bm).to(a.dtype)
+    out = fp8_apply_dot(am, bm, label=attrs.get("__node_name__"), w_dim=0)
+    if out is None:
+        out = torch.matmul(am, bm)
+    return out.to(a.dtype)
 
 
 @register("batch_dot")

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, later_slice
+from ..quantize import fp8_apply_dot
 from . import pallas_bn
 from .registry import register
 
@@ -67,7 +68,10 @@ def _fully_connected(attrs, data, weight, *bias):
     """Reference ``src/operator/fully_connected.cc``: Y = X W^T + b."""
     if bool(attrs.get("flatten", True)) and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
-    out = F.linear(data, weight)
+    out = fp8_apply_dot(data, weight, label=attrs.get("__node_name__"),
+                        w_dim=1)
+    if out is None:
+        out = F.linear(data, weight)
     if bias:
         out = out + bias[0]
     return out
@@ -635,7 +639,11 @@ def _multi_head_attention(attrs, data, in_weight, in_bias, out_weight,
     causal = bool(attrs.get("causal", True))
     n, t, c = data.shape
     d = c // num_heads
-    qkv = F.linear(data, in_weight) + in_bias
+    label = attrs.get("__node_name__")
+    qkv = fp8_apply_dot(data, in_weight, label=label, w_dim=1)
+    if qkv is None:
+        qkv = F.linear(data, in_weight)
+    qkv = qkv + in_bias
     q, k, v = (x.reshape(n, t, num_heads, d).transpose(1, 2)
                for x in qkv.chunk(3, dim=-1))
     block = int(attrs["attn_block"]) if "attn_block" in attrs else None
@@ -644,7 +652,10 @@ def _multi_head_attention(attrs, data, in_weight, in_bias, out_weight,
                                 block=block,
                                 window=int(attrs.get("window", 0)))
     ctx = ctx.transpose(1, 2).reshape(n, t, c)
-    return F.linear(ctx, out_weight) + out_bias
+    proj = fp8_apply_dot(ctx, out_weight, label=label, w_dim=1)
+    if proj is None:
+        proj = F.linear(ctx, out_weight)
+    return proj + out_bias
 
 
 def _bshape(data, axis):

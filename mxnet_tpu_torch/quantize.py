@@ -28,27 +28,41 @@ its mode (:func:`code_mode`).  A quantized parameter is a ``{"q": codes,
 Eligibility: floating weights with ``ndim >= 2`` and at least
 ``MIN_QUANT_BYTES`` of storage.  Biases, LayerNorm vectors and scalars
 stay float32.
+
+The second half is fp8 training compute (the JAX package's
+``quantize.py:380-595``, ``MXNET_FP8``): every FullyConnected,
+MultiHeadAttention projection and 2-D ``dot`` traced inside
+:func:`fp8_trace` multiplies e4m3 operands at delayed per-tensor scales
+and backpropagates an e5m2 cotangent at its current scale, through the
+two Hopper kernels of ``ops/fp8_ops.py`` (K12 casts, K11 multiplies);
+see :func:`fp8_apply_dot`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
 from . import _cuda
-from .base import MXNetError
+from .base import MXNetError, get_env
 
 __all__ = ["MODES", "INT8_MAX", "FP8_MAX", "MIN_QUANT_BYTES", "quant_mode",
            "quant_dtype", "storage_dtype", "code_mode", "codes_to_float",
            "eligible", "quantize_array", "dequantize_array", "is_quantized",
            "quantize_params", "dequantize_params", "at_rest_bytes",
            "kv_quantize_rows", "kv_dequantize", "kv_append_quantized",
-           "kv_append_quantized_plain"]
+           "kv_append_quantized_plain", "FP8_E5M2_MAX", "FP8_AMAX_HISTORY",
+           "fp8_mode", "fp8_enabled", "fp8_layer_allowed", "fp8_trace",
+           "fp8_tracing", "fp8_apply_dot", "fp8_hist_init",
+           "fp8_realize_scales", "fp8_update_hist"]
 
 MODES = ("int8", "fp8")
 INT8_MAX = 127.0
 FP8_MAX = 448.0  # float8_e4m3fn largest finite
+FP8_E5M2_MAX = 57344.0  # float8_e5m2 largest finite (gradient format)
+FP8_AMAX_HISTORY = 16  # delayed-scaling window (steps) per fp8 tensor
 MIN_QUANT_BYTES = 1024
 
 
@@ -310,3 +324,221 @@ def kv_append_quantized(k_codes, v_codes, k_scale, v_scale, pages, offsets,
                                offsets, k_rows, v_rows)
     return kv_append_quantized_plain(k_codes, v_codes, k_scale, v_scale,
                                      pages, offsets, k_rows, v_rows)
+
+
+# -- fp8 training compute (delayed scaling) --------------------------------
+#
+# Forward matmul operands are cast to e4m3 at DELAYED scales: each fp8
+# site keeps a per-tensor amax history that rides the TrainStep's carried
+# health state (like the dynamic loss scaler) and realizes its scale as
+# max(history) / FP8_MAX.  The backward's cotangent is cast to e5m2 at its
+# own current amax, inside the same autograd backward.  Sites are claimed
+# in execution order from the active trace (:func:`fp8_trace`); the
+# executor runs the graph in a fixed topological order, so the i-th claim
+# is the same tensor every step and the history is one (n_sites, 2,
+# HISTORY) tensor.
+
+_FP8_TRACE = None
+
+
+class _Fp8Trace(object):
+    """Per-forward fp8 site registry: realized scales in, amaxes out."""
+
+    __slots__ = ("scales", "amax", "names")
+
+    def __init__(self, scales=None):
+        self.scales = scales  # (n_sites, 2) float32, or None (discovery)
+        self.amax = []        # per-site (2,) float32 amax, claim order
+        self.names = []       # site labels, claim order
+
+
+@contextlib.contextmanager
+def fp8_trace(scales=None):
+    """Arm the fp8 route for the ops run inside the block.
+
+    ``scales``: (n_sites, 2) float32 tensor of realized (x, w) scales, or
+    None for discovery and the first step (every site at scale 1.0).
+    Yields the trace; read ``.amax`` (list of (2,) tensors, claim order)
+    and ``.names`` after the forward."""
+    global _FP8_TRACE
+    prev, _FP8_TRACE = _FP8_TRACE, _Fp8Trace(scales)
+    try:
+        yield _FP8_TRACE
+    finally:
+        _FP8_TRACE = prev
+
+
+def fp8_tracing():
+    """Whether an :func:`fp8_trace` is active — the executor then puts
+    node names into op attrs (``__node_name__``); clean runs keep their
+    attrs unchanged."""
+    return _FP8_TRACE is not None
+
+
+def current_fp8_trace():
+    """The active :func:`fp8_trace`, or None."""
+    return _FP8_TRACE
+
+
+def fp8_mode():
+    """Resolve ``MXNET_FP8`` to ``auto`` | ``on`` | ``off``."""
+    raw = str(get_env("MXNET_FP8", "off") or "off").strip().lower()
+    if raw in ("off", "0", "false", "no", ""):
+        return "off"
+    if raw in ("on", "1", "true", "yes"):
+        return "on"
+    if raw == "auto":
+        return "auto"
+    raise MXNetError("MXNET_FP8 must be auto|on|off (got %r)" % (raw,))
+
+
+def fp8_enabled(device=None):
+    """Whether the fp8 route is armed for a step on ``device``: ``on``
+    forces, ``off`` disables, ``auto`` arms on a CUDA device (the H100's
+    fp8 tensor cores) and keeps the clean path on the CPU, as the JAX
+    package arms it only on backends with fp8 units.  ``device`` None
+    means the card, the port's default."""
+    mode = fp8_mode()
+    if mode != "auto":
+        return mode == "on"
+    return device is None or torch.device(device).type == "cuda"
+
+
+def fp8_layer_allowed(name):
+    """Per-layer opt-out: ``MXNET_FP8_LAYERS`` empty allows every
+    eligible site; a comma-separated list allows only sites whose label
+    matches an entry exactly or by prefix."""
+    spec = str(get_env("MXNET_FP8_LAYERS", "") or "").strip()
+    if not spec:
+        return True
+    if not name:
+        return False
+    allowed = [t.strip() for t in spec.split(",") if t.strip()]
+    return any(name == a or name.startswith(a) for a in allowed)
+
+
+def fp8_hist_init(n_sites, device=None):
+    """Zero (n_sites, 2, FP8_AMAX_HISTORY) float32 amax history; an empty
+    history realizes scale 1.0 (the first step's)."""
+    return torch.zeros((int(n_sites), 2, FP8_AMAX_HISTORY),
+                       dtype=torch.float32, device=device)
+
+
+def fp8_realize_scales(hist):
+    """``max(history) / FP8_MAX`` per (site, operand), 1.0 where the
+    history is still empty (IEEE division by a tensor)."""
+    hmax = torch.amax(torch.as_tensor(hist, dtype=torch.float32), dim=-1)
+    return torch.where(hmax > 0, hmax / torch.full_like(hmax, FP8_MAX),
+                       torch.ones_like(hmax))
+
+
+def fp8_update_hist(hist, new_amax):
+    """Roll the history one step: the fresh (n_sites, 2) amaxes enter at
+    slot 0, the oldest falls off."""
+    hist = torch.as_tensor(hist, dtype=torch.float32)
+    new = torch.as_tensor(new_amax, dtype=torch.float32,
+                          device=hist.device)[..., None]
+    return torch.cat([new, hist[..., :-1]], dim=-1)
+
+
+def _fake_cast(x, scale, qmax, dtype):
+    """Quantize-dequantize ``x`` through ``dtype`` at ``scale``, in fp32:
+    the values the JAX package computes with (the CPU tests' twin)."""
+    y = torch.clamp(x.float() / scale, -qmax, qmax)
+    return y.to(dtype).float() * scale
+
+
+class _Fp8Dot(torch.autograd.Function):
+    """The fp8 contraction of ``x`` (..., C) with the 2-D ``w`` along
+    ``w``'s axis ``w_dim`` (the JAX package's custom VJP ``_fp8_dot_fn``).
+
+    Forward: K12 casts x and w to e4m3 at the delayed scales (and gives
+    their amaxes); K11 multiplies the codes.  Backward: K12 takes the
+    cotangent's amax, then its e5m2 codes at ``amax / FP8_E5M2_MAX``; K11
+    computes dx against the saved e4m3 weight codes and dw against the
+    saved e4m3 activation codes (the standard fp8 recipe).  The saved
+    operands are the transposed codes K12 wrote in the forward, so no
+    torch transpose runs.  A gradient nobody needs is not computed.  The
+    scales get no gradient: they are statistics."""
+
+    @staticmethod
+    def forward(ctx, x, w, sx, sw, w_dim):
+        from .ops import fp8_ops as F8
+
+        need_dx, need_dw = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        C = x.shape[-1]
+        x2 = x.reshape(-1, C)
+        xc, xct, ax = F8.fp8_cast(x2, sx, F8.E4M3, codes=True,
+                                  transposed=need_dw)
+        # w (F, C) for w_dim 1: the forward takes its row-major codes and
+        # dx its transposed ones; w (C, F) for w_dim 0 the other way round
+        fwd_rows = w_dim == 1
+        wc, wct, aw = F8.fp8_cast(
+            w, sw, F8.E4M3, codes=fwd_rows or need_dx,
+            transposed=(not fwd_rows) or need_dx)
+        w_fwd, w_bwd = (wc, wct) if fwd_rows else (wct, wc)
+        out_dtype = torch.promote_types(x.dtype, w.dtype)
+        out = F8.fp8_gemm(xc, w_fwd, F8.E4M3, F8.E4M3, sx, sw, out_dtype)
+        F = w.shape[1 - w_dim]
+        ctx.save_for_backward(xct if need_dw else None,
+                              w_bwd if need_dx else None, sx, sw)
+        ctx.meta = (tuple(x.shape), int(w_dim), F, x.dtype, w.dtype)
+        amax = torch.stack([ax, aw])
+        ctx.mark_non_differentiable(amax)
+        return out.reshape(x.shape[:-1] + (F,)), amax
+
+    @staticmethod
+    def backward(ctx, g, _g_amax):
+        from .ops import fp8_ops as F8
+
+        xct, w_bwd, sx, sw = ctx.saved_tensors
+        x_shape, w_dim, F, x_dtype, w_dtype = ctx.meta
+        need_dx, need_dw = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        if not (need_dx or need_dw):
+            return None, None, None, None, None
+        g2 = g.reshape(-1, F)
+        _, _, ag = F8.fp8_cast(g2, None, F8.E5M2, codes=False)
+        sg = torch.where(ag > 0, ag / torch.full_like(ag, FP8_E5M2_MAX),
+                         torch.ones_like(ag))
+        gc, gct, _ = F8.fp8_cast(g2, sg, F8.E5M2, codes=need_dx,
+                                 transposed=need_dw, amax=False)
+        dx = dw = None
+        if need_dx:
+            dx = F8.fp8_gemm(gc, w_bwd, F8.E5M2, F8.E4M3, sg, sw,
+                             x_dtype).reshape(x_shape)
+        if need_dw:
+            if w_dim == 1:  # dw (F, C) = g^T x
+                dw = F8.fp8_gemm(gct, xct, F8.E5M2, F8.E4M3, sg, sx,
+                                 w_dtype)
+            else:           # dw (C, F) = x^T g
+                dw = F8.fp8_gemm(xct, gct, F8.E4M3, F8.E5M2, sx, sg,
+                                 w_dtype)
+        return dx, dw, None, None, None
+
+
+def fp8_apply_dot(x, w, label=None, w_dim=1):
+    """The fp8 matmul route for one op site, or ``None`` to keep the
+    full-precision path (no trace active, the layer opted out, or the
+    shapes do not fit the 2-D weight contraction).
+
+    Claims the next site in execution order, records the operands'
+    current amaxes into the trace, and contracts ``x`` (..., C) against
+    the 2-D ``w`` along ``w_dim`` through :class:`_Fp8Dot`."""
+    t = _FP8_TRACE
+    if t is None:
+        return None
+    if not fp8_layer_allowed(label):
+        return None
+    if w.dim() != 2 or x.dim() < 1:
+        return None
+    if x.shape[-1] != w.shape[w_dim]:
+        return None
+    i = len(t.names)
+    t.names.append(label or ("site%d" % i))
+    if t.scales is None:
+        sx = sw = torch.ones((), dtype=torch.float32, device=x.device)
+    else:
+        sx, sw = t.scales[i, 0], t.scales[i, 1]
+    out, amax = _Fp8Dot.apply(x, w, sx, sw, int(w_dim))
+    t.amax.append(amax)
+    return out

@@ -1967,6 +1967,221 @@ def test_gateway_round_trip_on_the_card(dev):
     assert sess.state_report() == baseline
 
 
+# -- fp8 training: K12 (scaled cast) and K11 (fp8 GEMM) ---------------------
+
+# K11 against its plain version (the codes decoded to fp32, a full fp32
+# matmul, then the scales).  The products are exact, but Hopper's fp8
+# wgmma adds each 32-product slice with about a 13-bit mantissa (the
+# limitation DeepSeek-V3 describes), and K11 adds each 128-deep partial
+# sum into fp32: an output's error is bounded by FP8_GEMM_MAG times the
+# sum of its |products| (2.4e-4; 1.2e-4 measured at small shapes, 4.3e-5
+# at the LM's, where torch._scaled_mm reached 6.4e-4: NVIDIA H100 80GB
+# HBM3, 700 W), plus one bf16 rounding of a bf16 output.
+FP8_GEMM_MAG = 2.0 ** -12
+
+
+def _fp8_operand(dev, rows, cols, seed, dtype=torch.bfloat16):
+    x = _randn(dev, rows, cols, seed=seed) * (10.0 ** (seed % 3 - 1))
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", [(37, 21), (1, 5), (130, 200),
+                                       (8192, 2048)])
+def test_fp8_cast_kernel_equals_plain_bitwise(dev, kind, dtype, rows, cols):
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    x = _fp8_operand(dev, rows, cols, rows + cols, getattr(torch, dtype))
+    flat = x.view(-1)
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                             float("nan"), 1e30, -1e30], device=dev)
+    flat[:min(7, flat.numel())] = specials[:min(7, flat.numel())].to(x.dtype)
+    scale = torch.tensor(0.0371, device=dev)
+    before = _cuda.launches["fp8_cast"]
+    got = F8.fp8_cast(x, scale, kind, codes=True, transposed=True)
+    amax_only = F8.fp8_cast(x, None, kind, codes=False)
+    assert _cuda.launches["fp8_cast"] == before + 2
+    want = F8.fp8_cast_plain(x, scale, kind, codes=True, transposed=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a in (got[2], amax_only[2]):
+        assert a.isnan().item() == want[2].isnan().item()
+    # without the NaN, the exact max
+    flat[4] = 0.0
+    got = F8.fp8_cast(x, scale, kind, codes=False)[2]
+    assert torch.equal(got, F8.fp8_cast_plain(x, scale, kind,
+                                              codes=False)[2])
+
+
+def _gemm_case(dev, M, N, K, a_kind, b_kind, seed=0):
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    a = F8.fp8_cast(_fp8_operand(dev, M, K, seed), torch.tensor(
+        0.01, device=dev), a_kind, amax=False)[0]
+    b = F8.fp8_cast(_fp8_operand(dev, N, K, seed + 1), torch.tensor(
+        0.02, device=dev), b_kind, amax=False)[0]
+    return a, b, torch.tensor(0.01, device=dev), torch.tensor(0.02,
+                                                               device=dev)
+
+
+@pytest.mark.parametrize("a_kind,b_kind", [(0, 0), (1, 0), (0, 1)])
+@pytest.mark.parametrize("M,N,K", [(37, 21, 40), (5, 3, 16),
+                                   (130, 260, 300), (8192, 2048, 2048)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_fp8_gemm_kernel_matches_plain_and_reruns_bitwise(
+        dev, a_kind, b_kind, M, N, K, out_dtype):
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    a, b, sa, sb = _gemm_case(dev, M, N, K, a_kind, b_kind, seed=M)
+    odt = getattr(torch, out_dtype)
+    before = _cuda.launches["fp8_gemm"]
+    got = F8.fp8_gemm(a, b, a_kind, b_kind, sa, sb, odt)
+    assert _cuda.launches["fp8_gemm"] == before + 1
+    assert got.dtype == odt and tuple(got.shape) == (M, N)
+    want = F8.fp8_gemm_plain(a, b, a_kind, b_kind, sa, sb, torch.float32)
+    mag = (F8.decode(a, a_kind).abs() @ F8.decode(b, b_kind).abs().t()) \
+        * sa * sb
+    bound = FP8_GEMM_MAG * mag
+    if odt == torch.bfloat16:  # one bf16 rounding of the output
+        bound = bound + 2.0 ** -8 * want.abs()
+    excess = ((got.float() - want).abs() - bound).max().item()
+    assert excess <= 0, excess
+    assert torch.equal(F8.fp8_gemm(a, b, a_kind, b_kind, sa, sb, odt), got)
+
+
+def test_fp8_dot_on_the_card_matches_the_cpu(dev):
+    """The autograd function (K12 casts, K11 products) against the same
+    function on the CPU (the plain versions), forward and both
+    gradients, fp32: relative L2 within 5e-4, the fp8 wgmma's rounding
+    of each 32-product slice (see FP8_GEMM_MAG; 1.1e-4 measured)."""
+    from mxnet_tpu_torch import quantize as Q
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(4, 33, 96).astype(np.float32)
+    w = rs.randn(80, 96).astype(np.float32)
+    cot = rs.randn(4, 33, 80).astype(np.float32)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        tx = torch.from_numpy(x).to(d).requires_grad_()
+        tw = torch.from_numpy(w).to(d).requires_grad_()
+        scales = torch.tensor([[0.01, 0.005]], device=d)
+        with Q.fp8_trace(scales) as tr:
+            out = Q.fp8_apply_dot(tx, tw, "fc", 1)
+        (out * torch.from_numpy(cot).to(d)).sum().backward()
+        res.append([t.detach().cpu() for t in (out, tx.grad, tw.grad,
+                                               tr.amax[0])])
+    for g, c in zip(res[0][:3], res[1][:3]):
+        assert ((g - c).norm() / c.norm()).item() < 5e-4
+    assert torch.equal(res[0][3], res[1][3])
+
+
+def test_fp8_wrappers_raise_instead_of_falling_back(dev):
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    x = torch.ones(4, 8, device=dev)
+    with pytest.raises(MXNetError, match="scale"):
+        F8.fp8_cast(x, torch.ones(2, device=dev), F8.E4M3)
+    a = torch.zeros(4, 16, dtype=torch.uint8, device=dev)
+    with pytest.raises(MXNetError, match="multiple of 16"):
+        F8.fp8_gemm(a[:, :12].contiguous(), a[:, :12].contiguous(), 0, 0,
+                    torch.ones((), device=dev), torch.ones((), device=dev))
+
+
+def test_fp8_scaler_multistep_capture_with_poisoned_step_equals_eager(
+        dev, monkeypatch):
+    """fp8 with the loss scaler through a captured 4-step call whose third
+    inner batch holds a NaN: the graph's params, states, outputs, health
+    stats and carried state (scale, streak, amax history) equal the same
+    4 steps run eagerly from the same state, bit for bit; the poisoned
+    step was skipped and the scale backed off; K11 and K12 ran their
+    per-step counts."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+    from mxnet_tpu_torch.health import DynamicLossScaler, StepHealth
+
+    monkeypatch.setenv("MXNET_FP8", "on")
+
+    def make():
+        return fused.TrainStep(
+            _multistep_mlp(mx), optimizer="sgd",
+            optimizer_params=dict(learning_rate=0.1, momentum=0.9,
+                                  rescale_grad=1 / 32.),
+            steps_per_call=4, device=dev,
+            health=StepHealth(scaler=DynamicLossScaler(
+                init_scale=256.0, growth_interval=2)))
+
+    def bits(t):  # NaN-aware: the poisoned step's outputs hold NaNs
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    graph_step, eager_step = make(), make()
+    state = graph_step.init_state({"data": (32, 24), "softmax_label": (32,)})
+    batch = _super_batch(dev, 4, (32, 24))
+    batch["data"][2, 0, 0] = float("nan")
+    # one clean call first: the history holds amaxes before the capture
+    clean = _super_batch(dev, 4, (32, 24), seed=3)
+    state = graph_step.run_eager(*state, clean, None, 0.1, 1)[:3]
+    eager_step.load_hstate(graph_step.export_hstate())
+    want = eager_step.run_eager(*_clone_state(state), batch, None, 0.1, 5)
+    want_h, want_stats = eager_step.export_hstate(), eager_step.last_health
+    _cuda.reset_launches()
+    got = graph_step(*state, batch, None, lr=0.1, t=5)
+    _assert_bitwise(got[:3] + ([bits(o) for o in got[3]],),
+                    want[:3] + ([bits(o) for o in want[3]],))
+    got_h = graph_step.export_hstate()
+    for k in want_h:
+        assert np.array_equal(got_h[k], want_h[k]), k
+    for k in want_stats:
+        assert torch.equal(bits(graph_step.last_health[k]),
+                           bits(want_stats[k])), k
+    assert graph_step.last_health["nonfinite"].tolist() == [False, False,
+                                                            True, False]
+    # 1024 after the clean call; grown to 2048 by step 2, halved by the
+    # poisoned step 3 (the stats hold each step's scale going in)
+    assert graph_step.last_health["loss_scale"].tolist() == [1024.0, 1024.0,
+                                                             2048.0, 1024.0]
+    assert graph_step.loss_scale == 1024.0
+    assert graph_step._fp8_sites == 2
+    # the lazy capture's warm-up step and the replay's 4: per step K11's
+    # forward, dx (not for fc1, whose input is the data) and dw, and K12's
+    # x and w casts, the cotangent's amax pass and cast, a site each
+    assert _cuda.launches["fp8_gemm"] == 5 * (3 * 2 - 1)
+    assert _cuda.launches["fp8_cast"] == 5 * 4 * 2
+
+
+@pytest.mark.parametrize("dropout", [True, False])
+def test_remat_with_dropout_in_a_captured_call_equals_no_remat(dev, dropout):
+    """remat=True inside a captured 2-step call: with dropout the whole
+    forward is one checkpoint whose recompute draws the masks the first
+    forward drew (copies of the inner generators registered with the
+    graph); without, the forward runs as checkpointed segments.  Either
+    way every replay's update equals the call captured without remat,
+    bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fused
+
+    def sym():
+        net = mx.sym.Variable("data")
+        net = mx.sym.FullyConnected(net, num_hidden=64, name="fc1")
+        net = mx.sym.Activation(net, act_type="relu")
+        if dropout:
+            net = mx.sym.Dropout(net, p=0.5)
+        net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+
+    outs = []
+    for remat in (None, True):
+        step = fused.TrainStep(sym(), optimizer="sgd",
+                               optimizer_params=dict(learning_rate=0.1),
+                               steps_per_call=2, remat=remat, device=dev)
+        state = step.init_state({"data": (32, 24), "softmax_label": (32,)})
+        for i in range(3):
+            res = step(*state, _super_batch(dev, 2, (32, 24), seed=i),
+                       None, lr=0.1, t=1 + 2 * i)
+            state = res[:3]
+        outs.append(res)
+    _assert_bitwise(outs[1], outs[0])
+
+
 # last in the file: a capture that fails leaves no state behind, but no
 # other test should depend on that
 def test_multistep_capture_failure_raises(dev, monkeypatch):

@@ -353,7 +353,7 @@ def test_context_and_options_outside_the_slice():
     mod = tmx.mod.Module(tresnet.resnet(**NET), context=tmx.cpu())
     it = tmx.io.NDArrayIter(*_data(n=4), batch_size=BATCH)
     for kwargs in (dict(kvstore="dist_sync"), dict(monitor=object()),
-                   dict(zero="on"), dict(checkpoint="ckpt")):
+                   dict(zero="on"), dict(elastic=True)):
         with pytest.raises(MXNetError, match="later slice"):
             mod.fit(it, num_epoch=1, **kwargs)
 

@@ -194,10 +194,10 @@ def test_state_from_numpy_keeps_optimizer_structure():
     (dict(zero=None), {"MXNET_ZERO": "3"}),
     (dict(plan="data=2"), {}),
     (dict(), {"MXNET_PLAN": "data=2"}),
-    (dict(health=object()), {}),
-    (dict(remat="full"), {}),
+    (dict(zero="3"), {}),
+    (dict(), {"MXNET_ZERO": "on"}),
     (dict(param_sharding="fsdp"), {}),
-    (dict(), {"MXNET_FP8": "on"}),
+    (dict(param_sharding="tp"), {}),
 ])
 def test_options_outside_the_slice_raise(monkeypatch, kwargs, env):
     for key, value in env.items():

@@ -171,9 +171,20 @@ def test_module_checkpoint_writes_what_module_load_reads(tmp_path):
     want, got = mod.get_params()[0], back.get_params()[0]
     for k in want:
         np.testing.assert_array_equal(got[k].asnumpy(), want[k].asnumpy())
-    with pytest.raises(MXNetError, match="later slice"):
-        tmx.callback.module_checkpoint(mod, prefix,
-                                       save_optimizer_states=True)(0)
+    # with the optimizer states: prefix-0001.states, read back by
+    # Module.load(load_optimizer_states=True) at init_optimizer
+    tmx.callback.module_checkpoint(mod, prefix,
+                                   save_optimizer_states=True)(0)
+    assert (tmp_path / "mlp-0001.states").exists()
+    with tmx.cpu():
+        again = tmx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                    context=tmx.cpu())
+    again.bind([("data", (20, 6))], [("softmax_label", (20,))])
+    again.init_params()
+    again.init_optimizer(optimizer="sgd",
+                         optimizer_params={"learning_rate": 0.1,
+                                           "momentum": 0.9})
+    assert set(again._fused_states) == set(mod._fused_states)
 
 
 def test_progress_bar_logs_the_share_done(caplog):
