@@ -54,13 +54,17 @@ a checkout that holds ``mxnet_tpu_torch/``):
    decode step (S8 T1), a 256-row prefill (S1) and the verify (S8 W5,
    every row's state kept), bit-equal to its plain version (no PyTorch
    call computes it).  fp8 training's kernels: K12, the scaled cast,
-   at an activation (8192x2048), the LM head's weight (32768x2048) and a
-   cotangent (8192x32768: its amax pass and its e5m2 cast), bit-equal to
-   its plain version (no PyTorch call computes it); K11, the fp8 GEMM,
-   at the forward, dx and dw products of the LM's five projection shapes
-   at M = 8192 (bound over the 1,979 TFLOP/s fp8 dense peak), within
-   ``FP8_GEMM_NOTE`` of its plain version and rerun bit-equal, with
-   ``torch._scaled_mm`` over the same codes as the yardstick.  The K2/K3
+   at ``FP8_CAST_CASES`` — activations (8192x2048, the FFN down
+   projection's 8192x8192), weights (the head's 32768x2048, the QKV
+   projection's 6144x2048) and cotangents (8192x32768, 8192x6144: each
+   its amax pass and its e5m2 cast) — bit-equal to its plain version (no
+   PyTorch call computes it); K11, the fp8 GEMM, at the forward, dx and
+   dw products of the LM's five projection shapes at M = 8192 and at two
+   edge cases (33 x 33 tiles, more than the card's SMs; N = 2050, whose
+   bf16 rows are not 16-byte aligned) (bound over the 1,979 TFLOP/s fp8
+   dense peak), within ``FP8_GEMM_NOTE`` of its plain version and rerun
+   bit-equal, with ``torch._scaled_mm`` over the same codes as the
+   yardstick (none at N = 2050, which it refuses).  The K2/K3
    lines add the
    effective bandwidth (the bound's bytes over the kernel's time) beside
    the card's 3.35 TB/s, the kernel's and the library's times in the
@@ -159,17 +163,22 @@ a checkout that holds ``mxnet_tpu_torch/``):
    compute_dtype="bfloat16", health=StepHealth(DynamicLossScaler(
    init_scale=2**15, growth_interval=1000)))`` built under
    ``MXNET_FP8=on``: every FullyConnected and MultiHeadAttention
-   projection runs K12 and K11.  8 steps on one batch: the cross-entropy
-   must fall, the amax history fill one column a step, and K11 and K12
-   launch 3 and 4 times a site a step (steps 2-8; the count of sites
-   comes from one forward probe).  Step ms, tokens/s and TFLOP/s beside
-   the bf16 step's without and with step health, in the same call.  Then
+   projection runs K12 and K11.  13 steps on one batch: the
+   cross-entropy must fall, the amax history fill one column a step, and
+   K11 and K12 launch 3 and 4 times a site a step (steps 2-13; the count
+   of sites comes from one forward probe).  Step ms, tokens/s and TFLOP/s
+   over steps 2-6 and again over steps 7-11 (``*_steady``), beside the
+   bf16 step's without and with step health timed the same way in the
+   same call, and one step of each profiled (``profile_fp8_health``,
+   ``profile_bf16_health``: device time by ``FP8_STEP_GROUPS``, idle
+   share).  Then
    one poisoned batch (a token id at V looks up a NaN row) must be
    skipped with params and Adam states bit-equal and the scale halved
    (and the skip's select timed alone); and two steps with
    ``remat=True`` must give the update of two without, bit for bit, with
    the second step's peak memory over its forward, backward and update,
-   under Adam and under SGD without momentum.  Then ``bench_fit.py``'s MLP through ``Module.fit(
+   under Adam and under SGD without momentum.  Then ``bench_fit.py``'s
+   MLP through ``Module.fit(
    checkpoint=, health="skip", loss_scale="dynamic", step_timeout_s=,
    steps_per_call=4)`` under ``MXNET_FP8=auto`` (K11/K12 inside the
    captured calls): once through, and once preempted by its own SIGTERM
@@ -2615,27 +2624,66 @@ FP8_SHAPES = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
               (2048, 32768))
 
 
-def fp8_gemm_cases(dev, gen, M=8192):
-    """K11's three products at each projection shape, as the training
-    step builds them: (case, a codes, b codes, a kind, b kind, s_a, s_b)
-    from seeded bf16 operands cast by K12 at their amax scales."""
+# K12's cases: (case, rows, cols, kind, outputs) at the LM's operands — an
+# activation (x, and the FFN down projection's input), a weight (the
+# head's, the QKV projection's), a cotangent (the head's, the QKV
+# projection's: its amax pass and its e5m2 cast)
+FP8_CAST_CASES = (
+    ("x-8192x2048-bf16-e4m3", 8192, 2048, 0, "codes"),
+    ("w-32768x2048-bf16-e4m3", 32768, 2048, 0, "codes"),
+    ("g-8192x32768-bf16-e5m2-amax", 8192, 32768, 1, "amax"),
+    ("g-8192x32768-bf16-e5m2", 8192, 32768, 1, "cast"),
+    ("x-8192x8192-bf16-e4m3", 8192, 8192, 0, "codes"),
+    ("w-6144x2048-bf16-e4m3", 6144, 2048, 0, "codes"),
+    ("g-8192x6144-bf16-e5m2-amax", 8192, 6144, 1, "amax"),
+    ("g-8192x6144-bf16-e5m2", 8192, 6144, 1, "cast"))
+FP8_CAST_OUTPUTS = {"codes": dict(codes=True, transposed=True, amax=True),
+                    "amax": dict(codes=False, transposed=False, amax=True),
+                    "cast": dict(codes=True, transposed=True, amax=False)}
+
+
+def fp8_codes(dev, gen, rows, cols, kind, scale_by=1.0):
+    """Seeded bf16 operand (rows, cols) cast by K12 at its amax scale:
+    (codes, transposed codes, scale)."""
     import torch
 
     from mxnet_tpu_torch.ops import fp8_ops as F8
 
-    def codes(rows, cols, kind, scale_by=1.0):
-        x = (torch.randn((rows, cols), generator=gen, device=dev)
-             * scale_by).bfloat16()
-        _, _, amax = F8.fp8_cast(x, None, kind, codes=False)
-        s = amax / torch.full_like(amax, F8.QMAX[kind])
-        c, ct, _ = F8.fp8_cast(x, s, kind, codes=True, transposed=True,
-                               amax=False)
-        return c, ct, s
+    x = (torch.randn((rows, cols), generator=gen, device=dev)
+         * scale_by).bfloat16()
+    _, _, amax = F8.fp8_cast(x, None, kind, codes=False)
+    s = amax / torch.full_like(amax, F8.QMAX[kind])
+    c, ct, _ = F8.fp8_cast(x, s, kind, codes=True, transposed=True,
+                           amax=False)
+    return c, ct, s
+
+
+def fp8_gemm_edge_cases(dev, gen):
+    """K11 off the LM's shapes: 33 x 33 tiles (more than the card's SMs,
+    not a multiple of them: the persistent loop's uneven last round), and
+    a bf16 output whose rows are not 16-byte aligned (N = 2050: the
+    epilogue that stores from registers)."""
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    xc, _, sx = fp8_codes(dev, gen, 4224, 2048, F8.E4M3)
+    wc, _, sw = fp8_codes(dev, gen, 4160, 2048, F8.E4M3, 0.02)
+    yield ("tiles-M4224-C2048-F4160", xc, wc, F8.E4M3, F8.E4M3, sx, sw)
+    del xc, wc
+    gc, _, sg = fp8_codes(dev, gen, 8192, 2048, F8.E5M2, 1e-3)
+    wc, _, sw = fp8_codes(dev, gen, 2050, 2048, F8.E4M3, 0.02)
+    yield ("masked-M8192-C2048-F2050", gc, wc, F8.E5M2, F8.E4M3, sg, sw)
+
+
+def fp8_gemm_cases(dev, gen, M=8192):
+    """K11's three products at each projection shape, as the training
+    step builds them: (case, a codes, b codes, a kind, b kind, s_a, s_b)
+    from seeded bf16 operands cast by K12 at their amax scales."""
+    from mxnet_tpu_torch.ops import fp8_ops as F8
 
     for C, F in FP8_SHAPES:
-        xc, xct, sx = codes(M, C, F8.E4M3)
-        wc, wct, sw = codes(F, C, F8.E4M3, 0.02)
-        gc, gct, sg = codes(M, F, F8.E5M2, 1e-3)
+        xc, xct, sx = fp8_codes(dev, gen, M, C, F8.E4M3)
+        wc, wct, sw = fp8_codes(dev, gen, F, C, F8.E4M3, 0.02)
+        gc, gct, sg = fp8_codes(dev, gen, M, F, F8.E5M2, 1e-3)
         yield ("fwd-M%d-C%d-F%d" % (M, C, F), xc, wc, F8.E4M3, F8.E4M3,
                sx, sw)
         yield ("dx-M%d-C%d-F%d" % (M, C, F), gc, wct, F8.E5M2, F8.E4M3,
@@ -2666,6 +2714,16 @@ def scaled_mm_call(a, b, a_kind, b_kind, sa, sb):
 
 
 ROBUST_SCALER = dict(init_scale=2.0 ** 15, growth_interval=1000)
+# an LM step's kernels by group: K11, K12 (the amax pass too), the amax
+# clears K12's entry puts on the stream, the bf16 attention kernels, the
+# library's GEMMs, step health's select; the rest is "other"
+FP8_STEP_GROUPS = (("fp8_gemm", ("fp8_gemm_kernel",)),
+                   ("fp8_cast", ("fp8_cast_kernel", "fp8_amax_kernel")),
+                   ("memset", ("Memset",)),
+                   ("flash_sm90", ("flash_fwd_sm90", "flash_bwd_sm90")),
+                   ("bf16_gemm", ("gemm", "nvjet", "xmma", "cutlass",
+                                  "sm90_")),
+                   ("select", ("where_kernel",)))
 
 
 class phase_peaks:
@@ -2740,90 +2798,16 @@ def robust_step(dev, cfg, batch, fp8, health, remat=None, optimizer="adam",
     return step, list(state), data
 
 
-class phase_peaks:
-    """Peak device memory (GiB) of one training step, split where the
-    step calls ``torch.autograd.grad``: the forward (up to the call),
-    the backward (the call), the update (after it) and the step (the
-    largest); a measuring wrapper of that function while the block runs.
-    Empty off the card."""
-
-    def __init__(self, cuda):
-        self.cuda = cuda
-        self.peaks = {}
-
-    def __enter__(self):
-        import torch
-
-        if not self.cuda:
-            return self.peaks
-        self._grad = torch.autograd.grad
-        peaks, inner = self.peaks, self._grad
-
-        def grad(*args, **kwargs):
-            torch.cuda.synchronize()
-            peaks["forward"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
-            torch.cuda.reset_peak_memory_stats()
-            out = inner(*args, **kwargs)
-            torch.cuda.synchronize()
-            peaks["backward"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
-            torch.cuda.reset_peak_memory_stats()
-            return out
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        torch.autograd.grad = grad
-        return peaks
-
-    def __exit__(self, *exc):
-        import torch
-
-        if self.cuda:
-            torch.autograd.grad = self._grad
-            torch.cuda.synchronize()
-            self.peaks["update"] = torch.cuda.max_memory_allocated() \
-                / 2.0 ** 30
-            self.peaks["step"] = max(self.peaks.values())
-        return False
-
-
-def robust_step(dev, cfg, batch, fp8, health, remat=None, optimizer="adam",
-                optimizer_params=None):
-    """The optim phase's LM step (Adam with ``ADAM`` unless
-    ``optimizer``/``optimizer_params`` say otherwise, bf16, batch
-    ``batch``, init_state(seed=0)) built under ``MXNET_FP8`` on or off,
-    with ``StepHealth(DynamicLossScaler(**ROBUST_SCALER))`` when
-    ``health`` and ``remat``; returns (step, [params, aux, states],
-    batch)."""
-    from mxnet_tpu_torch import fused
-    from mxnet_tpu_torch.health import DynamicLossScaler, StepHealth
-    from mxnet_tpu_torch.models import transformer
-
-    prev = os.environ.get("MXNET_FP8")
-    os.environ["MXNET_FP8"] = "on" if fp8 else "off"
-    try:
-        step = fused.TrainStep(
-            transformer.get_symbol(**cfg), optimizer=optimizer,
-            optimizer_params=dict(optimizer_params or ADAM,
-                                  rescale_grad=1.0 / batch),
-            compute_dtype="bfloat16", remat=remat, device=dev,
-            health=StepHealth(scaler=DynamicLossScaler(**ROBUST_SCALER))
-            if health else None)
-    finally:
-        if prev is None:
-            os.environ.pop("MXNET_FP8")
-        else:
-            os.environ["MXNET_FP8"] = prev
-    shapes = {"data": (batch, cfg["seq_len"]),
-              "softmax_label": (batch, cfg["seq_len"])}
-    state = list(step.init_state(shapes, seed=0))
-    toks = train_tokens(cfg, batch).to(dev)
-    return step, state, {"data": toks, "softmax_label": toks}
-
-
-def robust_train_phase(dev, cfg, batch=8, total=8, timed=5):
+def robust_train_phase(dev, cfg, batch=8, total=13, timed=5):
     """The LM under fp8 (K11/K12 at every projection), the dynamic loss
-    scaler and step health.  Returns the phase's numbers and the kernel
-    launches of the fp8 run's steps after the first."""
+    scaler and step health.  Each of the bf16, bf16 + health and fp8 +
+    health steps is timed over steps 2 to ``timed`` + 1 (the window
+    earlier runs reported) and again over the next ``timed`` steps
+    (``*_steady``: the allocator and the caches settled).  Returns the
+    phase's numbers and the kernel launches of the fp8 run's steps after
+    the first."""
+    import threading
+
     import torch
 
     from mxnet_tpu_torch import _cuda
@@ -2844,7 +2828,9 @@ def robust_train_phase(dev, cfg, batch=8, total=8, timed=5):
     flops = (6.0 * transformer.count_params(**cfg) * tokens
              + 12.0 * cfg["num_layers"] * batch * cfg["seq_len"] ** 2
              * cfg["d_model"])
-    stats = dict(model="%dL-d%d-h%d-V%d-T%d" % (
+    stats = dict(threads_alive=sorted(th.name
+                                      for th in threading.enumerate()),
+                 model="%dL-d%d-h%d-V%d-T%d" % (
                      cfg["num_layers"], cfg["d_model"], cfg["num_heads"],
                      cfg["vocab_size"], cfg["seq_len"]),
                  optimizer="adam", optimizer_params=ADAM, batch=batch,
@@ -2854,16 +2840,30 @@ def robust_train_phase(dev, cfg, batch=8, total=8, timed=5):
         return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                     achieved_tflops=flops / step_s / 1e12)
 
-    # the bf16 step, without and with step health, timed beside the fp8 one
+    # the bf16 step, without and with step health, timed beside the fp8
+    # one; the latter's next step profiled (on the card)
     for tag, health in (("bf16", False), ("bf16_health", True)):
         step, state, data = robust_step(dev, cfg, batch, False, health)
-        for t in range(1, timed + 2):
-            if t == 2:
-                sync()
-                t0 = time.perf_counter()
-            state[:3] = step(*state, data, None, t=t)[:3]
-        sync()
-        stats[tag] = rates((time.perf_counter() - t0) / timed)
+        state[:3] = step(*state, data, None, t=1)[:3]
+        t = 1
+        for window in (tag, tag + "_steady"):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                t += 1
+                state[:3] = step(*state, data, None, t=t)[:3]
+            sync()
+            stats[window] = rates((time.perf_counter() - t0) / timed)
+        if health and cuda:
+            t0 = time.perf_counter()
+            state[:3] = step(*state, data, None, t=t + 1)[:3]
+            stats["bf16_health_host_enqueue_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+
+            def more():
+                state[:3] = step(*state, data, None, t=t + 2)[:3]
+            stats["profile_bf16_health"] = profiled_window(more,
+                                                           FP8_STEP_GROUPS)
         del step, state, data
         free()
 
@@ -2883,14 +2883,24 @@ def robust_train_phase(dev, cfg, batch=8, total=8, timed=5):
         raise AssertionError("fp8 amax history after one step: %r"
                              % hist1[0])
     _cuda.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    for t in range(2, 2 + timed):
-        one(t)
-    sync()
-    stats["fp8_health"] = rates((time.perf_counter() - t0) / timed)
-    for t in range(2 + timed, total + 1):
-        one(t)
+    for window, first in (("fp8_health", 2), ("fp8_health_steady",
+                                              2 + timed)):
+        sync()
+        t0 = time.perf_counter()
+        for t in range(first, first + timed):
+            one(t)
+        sync()
+        stats[window] = rates((time.perf_counter() - t0) / timed)
+    for t in range(2 + 2 * timed, total + 1):
+        if cuda and t == total:  # the last step profiled
+            stats["profile_fp8_health"] = profiled_window(
+                lambda: one(t), FP8_STEP_GROUPS)
+        else:  # the host's time to enqueue a step, beside its device time
+            sync()
+            t0 = time.perf_counter()
+            one(t)
+            stats["fp8_health_host_enqueue_ms"] = \
+                (time.perf_counter() - t0) * 1e3
     sync()
     launches = dict(_cuda.launches)
     per_step = {k: v / (total - 1) for k, v in launches.items() if v}
@@ -4003,16 +4013,10 @@ def main():
     # torch._scaled_mm on the same codes as the yardstick
     from mxnet_tpu_torch.ops import fp8_ops as F8
 
-    for case, rows_, cols, kind, what in (
-            ("x-8192x2048-bf16-e4m3", 8192, 2048, F8.E4M3, "codes"),
-            ("w-32768x2048-bf16-e4m3", 32768, 2048, F8.E4M3, "codes"),
-            ("g-8192x32768-bf16-e5m2-amax", 8192, 32768, F8.E5M2, "amax"),
-            ("g-8192x32768-bf16-e5m2", 8192, 32768, F8.E5M2, "cast")):
+    for case, rows_, cols, kind, what in FP8_CAST_CASES:
         x = (randn(rows_, cols) * 0.05).bfloat16()
         s8 = torch.full((), 1e-3, device=dev)
-        kw = {"codes": dict(codes=True, transposed=True, amax=True),
-              "amax": dict(codes=False, transposed=False, amax=True),
-              "cast": dict(codes=True, transposed=True, amax=False)}[what]
+        kw = FP8_CAST_OUTPUTS[what]
         got = F8.fp8_cast(x, s8, kind, **kw)
         want = F8.fp8_cast_plain(x, s8, kind, **kw)
         same = all((g is None and w is None) or torch.equal(g, w)
@@ -4024,7 +4028,8 @@ def main():
                lambda: F8.fp8_cast_plain(x, s8, kind, **kw), None,
                nbytes=2 * n + out_bytes, flops=2 * n)
         del x, got, want
-    for case, a, b, ka, kb, sa, sb in fp8_gemm_cases(dev, gen):
+    for case, a, b, ka, kb, sa, sb in itertools.chain(
+            fp8_gemm_cases(dev, gen), fp8_gemm_edge_cases(dev, gen)):
         M, N, Kd = a.shape[0], b.shape[0], a.shape[1]
         got = F8.fp8_gemm(a, b, ka, kb, sa, sb, torch.bfloat16)
         want = F8.fp8_gemm_plain(a, b, ka, kb, sa, sb, torch.float32)

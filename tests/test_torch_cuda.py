@@ -2013,6 +2013,78 @@ def test_fp8_cast_kernel_equals_plain_bitwise(dev, kind, dtype, rows, cols):
                                               codes=False)[2])
 
 
+def _boundary_values(kind, scale):
+    """Values whose quotient by ``scale`` lies on a rounding boundary
+    between two codes of ``kind`` or within two fp32 ulps of one, both
+    signs; qmax and its neighbours, values past it; +-0, +-Inf, NaN of
+    both signs and fp32 subnormals (fp32)."""
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    vals = F8.decode(codes, kind)
+    vals = torch.unique(vals[torch.isfinite(vals) & (vals >= 0)])
+    mids = (vals[1:] + vals[:-1]) / 2  # exact in fp32
+    near = (mids * scale).view(torch.int32)
+    steps = torch.tensor([-2, -1, 0, 1, 2], dtype=torch.int32)
+    around = (near[:, None] + steps).reshape(-1).view(torch.float32)
+    qmax = torch.tensor(F8.QMAX[kind] * scale)
+    edge = (qmax.view(torch.int32) + steps).view(torch.float32)
+    special = torch.tensor([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                            0x7FC00000, 0xFFC00000, 0x00000001, 0x80000001,
+                            0x00400000, 0x807FFFFF], dtype=torch.int64) \
+        .to(torch.int32).view(torch.float32)
+    pos = torch.cat([around, edge, edge * 4.0, mids * scale])
+    return torch.cat([pos, -pos, special])
+
+
+@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols,offset", [(37, 203, 0), (130, 264, 0),
+                                              (1, 5, 0), (67, 256, 1)])
+@pytest.mark.parametrize("scale", [0.5, 0.0371])
+def test_fp8_cast_bit_equal_at_code_boundaries_and_specials(
+        dev, kind, dtype, rows, cols, offset, scale):
+    """K12 against its plain version, bit for bit, on an operand seeded
+    with values at and beside the codes' rounding boundaries (exact ties
+    at a power-of-two scale), qmax, saturation, signed zeros, infinities,
+    NaN of both signs and subnormals; rows and columns off the 8-value
+    run; an operand whose base is off 16 bytes (``offset``: the scalar
+    loads); each output alone and together; the amax with and without a
+    NaN."""
+    from mxnet_tpu_torch.ops import fp8_ops as F8
+
+    dt = getattr(torch, dtype)
+    vals = _boundary_values(kind, scale)
+    n = rows * cols
+    rs = np.random.RandomState(rows + cols + kind)
+    fill = torch.from_numpy(rs.randn(n).astype(np.float32)) * scale * 20
+    idx = torch.from_numpy(rs.permutation(n)[:min(n, vals.numel())])
+    fill[idx] = vals[:idx.numel()]
+    if n < vals.numel():  # a tiny operand still gets a NaN and an Inf
+        fill[:2] = torch.tensor([float("nan"), -float("inf")])
+    flat = torch.zeros(n + offset, dtype=dt, device=dev)
+    flat[offset:] = fill.to(dev).to(dt)
+    x = flat[offset:].view(rows, cols)
+    s = torch.tensor(scale, device=dev)
+    for kw in (dict(codes=True, transposed=True, amax=True),
+               dict(codes=True, transposed=False, amax=False),
+               dict(codes=False, transposed=True, amax=True),
+               dict(codes=False, transposed=False, amax=True)):
+        got = F8.fp8_cast(x, s, kind, **kw)
+        want = F8.fp8_cast_plain(x, s, kind, **kw)
+        for g, w in zip(got[:2], want[:2]):
+            assert (g is None) == (w is None)
+            assert g is None or torch.equal(g, w)
+        if kw["amax"]:  # a NaN's payload is not part of the contract
+            assert got[2].isnan().item() == want[2].isnan().item()
+            assert got[2].isnan().item() or torch.equal(got[2], want[2])
+    # the amax without the NaNs: the exact max
+    x.masked_fill_(torch.isnan(x), 0.0)
+    got = F8.fp8_cast(x, None, kind, codes=False)[2]
+    assert torch.equal(got, F8.fp8_cast_plain(x, None, kind,
+                                              codes=False)[2])
+
+
 def _gemm_case(dev, M, N, K, a_kind, b_kind, seed=0):
     from mxnet_tpu_torch.ops import fp8_ops as F8
 
@@ -2024,9 +2096,17 @@ def _gemm_case(dev, M, N, K, a_kind, b_kind, seed=0):
                                                                device=dev)
 
 
+# K11's shapes: ragged M, N and K (K off the 128-deep stage), M under one
+# tile, more tiles than the card has SMs (33 x 33, 17 x 9: the persistent
+# loop's uneven last round), and N at both epilogues — the TMA store
+# (output rows of a multiple of 16 bytes: N = 2048, 4160, 1000, and N =
+# 260 or 1100 in fp32) and the stores from registers (N = 21, 3, 1030,
+# and N = 260 or 1100 in bf16)
 @pytest.mark.parametrize("a_kind,b_kind", [(0, 0), (1, 0), (0, 1)])
 @pytest.mark.parametrize("M,N,K", [(37, 21, 40), (5, 3, 16),
-                                   (130, 260, 300), (8192, 2048, 2048)])
+                                   (130, 260, 300), (8192, 2048, 2048),
+                                   (4224, 4160, 2048), (2100, 1100, 160),
+                                   (1000, 1030, 272), (100, 1000, 2000)])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_fp8_gemm_kernel_matches_plain_and_reruns_bitwise(
         dev, a_kind, b_kind, M, N, K, out_dtype):

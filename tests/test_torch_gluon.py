@@ -225,55 +225,121 @@ def test_resnet50_v1_has_53_batchnorms():
 
 
 
-def test_resnet_bf16_multi_precision_tracks_fp32():
-    """``cast("bfloat16")`` casts every parameter (BatchNorm's too) and the
-    SGD step keeps fp32 master weights.  Held against the fp32 step from
-    the same state (a tiny ResNetV1, 16x16, batch 4): the bf16 update's
-    mean relative L2 error over the updated tensors stays below 0.15
-    (bf16 keeps 8 bits; measured ~0.05 here), and every parameter stays
-    bf16."""
+@pytest.fixture
+def _keep_global_rng():
+    """Leave the port's, numpy's and torch's global random state as found:
+    later test files in the same worker draw from it."""
+    import torch
+
+    st = tmx.random._get()
+    saved = (st.seed_value, st.counter, np.random.get_state(),
+             torch.random.get_rng_state())
+    yield
+    st.seed_value, st.counter = saved[0], saved[1]
+    np.random.set_state(saved[2])
+    torch.random.set_rng_state(saved[3])
+
+
+# The mean relative L2 error of the bf16 + multi_precision update against
+# the fp32 update from the same weights, for He-normal weights drawn with
+# numpy: the port's over weight seeds 0-29 and the JAX package's own over
+# seeds 0-7 (its eager ResNet takes about a minute to compile on the CPU,
+# too long for this file) come from ``PYTHONPATH=. python
+# tests/test_torch_gluon.py`` run from the repository root
+# (PERF.md, ROADMAP); the bound sits above the port's largest.
+BF16_UPDATE_ERR = 0.4
+
+
+def _he_weights(net, seed):
+    """numpy-seeded weights for every parameter of ``net``: He-normal
+    convolution and dense weights, BatchNorm's gamma and running variance
+    1, betas, biases and running means 0."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for name, p in net.collect_params().items():
+        if name.endswith(("gamma", "running_var")):
+            v = np.ones(p.shape)
+        elif name.endswith(("beta", "bias", "running_mean")):
+            v = np.zeros(p.shape)
+        else:
+            v = rs.randn(*p.shape) * np.sqrt(2.0 / np.prod(p.shape[1:]))
+        out.append(v.astype(np.float32))
+    return out
+
+
+def _bf16_update_errors(mx, vision, seed):
+    """A tiny ResNetV1 (16x16, batch 4) of package ``mx`` from
+    :func:`_he_weights` (``seed``): one SGD step in fp32 and one after
+    ``cast("bfloat16")`` with fp32 master weights; returns the bf16
+    step's relative L2 error of each updated tensor's update and the
+    bf16 net."""
     rs = np.random.RandomState(11)
     x = rs.randn(4, 3, 16, 16).astype("float32")
     y = rs.randint(0, 10, 4).astype("float32")
 
-    def net_and_init():
-        net = tvision.ResNetV1(tvision.BottleneckV1, [1, 1, 1, 1],
-                               [8, 16, 16, 32, 32], classes=10,
-                               thumbnail=True)
-        net.initialize(tmx.init.Xavier(rnd_type="gaussian",
-                                       factor_type="in", magnitude=2))
-        net(tmx.nd.array(x))
+    def net_from(weights):
+        net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                              [8, 16, 16, 32, 32], classes=10,
+                              thumbnail=True)
+        net.initialize()
+        net(mx.nd.array(x))
+        if weights is not None:
+            for p, v in zip(net.collect_params().values(), weights):
+                p.set_data(mx.nd.array(v))
         return net
 
     def step(net, dtype, multi_precision):
-        trainer = tmx.gluon.Trainer(
+        trainer = mx.gluon.Trainer(
             net.collect_params(), "sgd", {"learning_rate": 0.1,
                                           "momentum": 0.9,
                                           "multi_precision": multi_precision})
-        loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
-        with tmx.autograd.record():
-            loss = loss_fn(net(tmx.nd.array(x).astype(dtype))
-                           .astype("float32"), tmx.nd.array(y))
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(x).astype(dtype))
+                           .astype("float32"), mx.nd.array(y))
         loss.backward()
         trainer.step(4)
-        return [p.data().asnumpy().astype(np.float64)
+        return [p.data().astype("float32").asnumpy().astype(np.float64)
                 for p in net.collect_params().values()]
 
-    with tmx.cpu():
-        net = net_and_init()
-        init = [p.data().asnumpy().astype(np.float64)
-                for p in net.collect_params().values()]
-        ref = step(net, "float32", False)
-        net = net_and_init()
-        for p, v in zip(net.collect_params().values(), init):
-            p.set_data(v.astype(np.float32))
-        net.cast("bfloat16")
-        got = step(net, "bfloat16", True)
-    assert all(str(p.data().dtype) == "torch.bfloat16"
-               for p in net.collect_params().values())
+    weights = _he_weights(net_from(None), seed)
+    ref = step(net_from(weights), "float32", False)
+    net = net_from(weights)
+    net.cast("bfloat16")
+    got = step(net, "bfloat16", True)
     errs = []
-    for g, r, i in zip(got, ref, init):
+    for g, r, i in zip(got, ref, weights):
         upd = r - i
         if np.linalg.norm(upd) > 0:
             errs.append(np.linalg.norm((g - i) - upd) / np.linalg.norm(upd))
-    assert len(errs) > 20 and np.mean(errs) < 0.15, np.mean(errs)
+    return errs, net
+
+
+@pytest.mark.usefixtures("_keep_global_rng")
+def test_resnet_bf16_multi_precision_tracks_fp32():
+    """``cast("bfloat16")`` casts every parameter (BatchNorm's too) and the
+    SGD step keeps fp32 master weights.  Held against the fp32 step from
+    the same numpy-seeded weights (seed 11, the data's): the bf16
+    update's mean relative L2 error over the updated tensors stays below
+    BF16_UPDATE_ERR (derived over 30 weight seeds, see there), and every
+    parameter stays bf16.  Nothing here draws from a global random
+    state, so the result does not depend on the tests run before."""
+    with tmx.cpu():
+        errs, net = _bf16_update_errors(tmx, tvision, 11)
+    assert all(str(p.data().dtype) == "torch.bfloat16"
+               for p in net.collect_params().values())
+    assert len(errs) > 20 and np.mean(errs) < BF16_UPDATE_ERR, np.mean(errs)
+
+
+if __name__ == "__main__":
+    # BF16_UPDATE_ERR's derivation: each package's mean error a seed
+    with tmx.cpu():
+        port = [np.mean(_bf16_update_errors(tmx, tvision, s)[0])
+                for s in range(30)]
+    print("port, seeds 0-29: %s; min %.4f max %.4f mean %.4f"
+          % (np.round(port, 4).tolist(), min(port), max(port),
+             np.mean(port)))
+    ref = [np.mean(_bf16_update_errors(jmx, jvision, s)[0])
+           for s in range(8)]
+    print("JAX package, seeds 0-7: %s; port on the same seeds %.4f-%.4f"
+          % (np.round(ref, 4).tolist(), min(port[:8]), max(port[:8])))
