@@ -23,6 +23,39 @@
 // x s_a x s_b (__fmul_rn) and one rounding to the output dtype.  No
 // split-K, so a rerun gives the same bits, and so does any tile order.
 //
+// Its error against the exact sum, derived (the formula is
+// ops/fp8_ops.py::fp8_gemm_error_bound).  Measured on an H100 by
+// testing/fp8_accum.py, whose emulation of it gives this kernel's bits:
+// one m64n128k32 step adds its 32 products and the running sum C (none in
+// a stage's first step) by aligning them to the largest exponent E among
+// them (a product's is the sum of its factors' exponent fields, a
+// subnormal factor's its kind's least normal exponent, -6 for e4m3 and
+// -14 for e5m2; C's its own) and cutting
+// each toward zero to a multiple of u = 2^(E - 13); the cut values add
+// exactly, and a sum that carries to 2^(E + 1) or past is cut toward zero
+// again, 13 bits below its own leading bit.  So a step loses less than u
+// on each of its 32 products and on C, and less than 2^-13 of its sum on
+// the carry; 2^E and the sum are at most A (1 + r), A the stage's sum of
+// |a|_f |b|_f (|x|_f: |x|, or the least normal value for a subnormal
+// code; fp8_gemm_magnitude) and r the stage's relative loss.  A stage
+// makes at most 4 x 32 + 3 + 4 = 135 cuts, so its error is below r A, r =
+// 135 2^-13 / (1 - 135 2^-13) = 1.68e-2.  The fp32 sum of the stages, the
+// two scale multiplies and the plain version's own fp32 sum (any order)
+// add (2 K + stages + 2) 2^-24 of the same magnitude, and a bf16 output
+// one more rounding, 2^-8 of its magnitude.  The cuts' errors add up only
+// where the products share a sign: over random signs they stay near 1e-4
+// to 3e-4 of sum |a b|, largest where K is small (a stage's cuts are
+// relative to its own sum), so 2^-12, a bound fitted to such errors,
+// failed at K = 160 over 2.3 M outputs; the 32-deep tail stage is not the
+// cause (the emulation gives the kernel's bits there, as everywhere it was
+// compared).  A form that keeps the whole K in the wgmma accumulator cuts
+// each product against a running sum that grows with K, and goes over the
+// bound at K = 8192 (testing/fp8_accum.py; PERF.md).  The bound is a worst
+// case: a kernel that drops a stage may still meet it where the products'
+// signs are random, so the card's checks also hold ~300 sampled outputs
+// equal to the emulation (fp8_accum.sample_mismatches), which the
+// no-promotion form fails at every K above one stage.
+//
 // Design: the Hopper GEMM shape (sm90.cuh's building blocks, as K7/K8),
 // persistent.  One CTA an SM walks 128 x 128 output tiles in groups of
 // eight row blocks (neighbouring CTAs share operand rows in L2) with

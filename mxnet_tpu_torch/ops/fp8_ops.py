@@ -31,7 +31,8 @@ from .. import _cuda
 from ..base import MXNetError
 
 __all__ = ["E4M3", "E5M2", "QMAX", "pitch", "decode", "fp8_cast",
-           "fp8_cast_plain", "fp8_gemm", "fp8_gemm_plain"]
+           "fp8_cast_plain", "fp8_gemm", "fp8_gemm_plain",
+           "fp8_gemm_magnitude", "fp8_gemm_error_bound"]
 
 E4M3, E5M2 = 0, 1
 QMAX = {E4M3: 448.0, E5M2: 57344.0}
@@ -129,6 +130,60 @@ def fp8_cast(x, scale, kind, codes=True, transposed=False, amax=True):
                 out_t.data_ptr() if transposed else None, pitch(rows),
                 out_a.data_ptr() if amax else None, _cuda.stream_of(x))
     return out_c, out_t, out_a
+
+
+# K11's error bound, derived in csrc/fp8_gemm.cu's header from how
+# Hopper's fp8 wgmma adds, measured on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W) by testing/fp8_accum.py, whose emulation of it gives K11's bits:
+# a k32 step aligns its 32 products and the running sum to the largest
+# exponent among them (a product's is the sum of its factors' exponent
+# fields, a subnormal factor's its kind's least normal exponent, measured
+# for e4m3 and for e5m2) and cuts each toward zero WGMMA_KEPT_BITS below
+# it; a sum that carries past that bit is cut again, as many bits below
+# its own.  The bound is a worst case; the card's checks also hold a
+# sample of K11's outputs equal to that emulation
+# (testing/fp8_accum.py::sample_mismatches).
+WGMMA_KEPT_BITS = 13
+STAGE_DEPTH = 128  # K11 promotes each 128-deep stage (four k32 steps)
+# what a stage cuts: its 4 x 32 products, the running sum entering steps
+# 2-4, and each step's carry
+STAGE_CUTS = 4 * 32 + 3 + 4
+# the least exponent of a normal value: a subnormal code's exponent field
+MIN_NORMAL_EXP = {E4M3: -6, E5M2: -14}
+
+
+def fp8_gemm_magnitude(a, b, a_kind, b_kind, sa, sb):
+    """``sum_k |a|_f |b|_f s_a s_b`` per output (fp32), the magnitude
+    :func:`fp8_gemm_error_bound` scales: ``|x|_f`` is ``|x|`` for a normal
+    code and the least normal value for a subnormal one (the exponent the
+    tensor cores align it by), so for operands without subnormal codes it
+    is ``sum_k |a b| s_a s_b``."""
+    def field(codes, kind):
+        x = decode(codes, kind).abs()
+        return torch.where(x > 0, x.clamp(min=2.0 ** MIN_NORMAL_EXP[kind]),
+                           x)
+    return (field(a, a_kind) @ field(b, b_kind).t()) * sa * sb
+
+
+def fp8_gemm_error_bound(mag, k, plain=None):
+    """The most K11 may differ from its plain version, per output.
+
+    ``mag`` is :func:`fp8_gemm_magnitude`, ``k`` the contraction's depth.
+    Each cut in a stage loses less than 2^-13 of the step's largest
+    exponent, which is at most the stage's share of ``mag`` grown by the
+    cuts before it: r = STAGE_CUTS 2^-13 of that share, r / (1 - r) with
+    the growth.  Then fp32 roundings, each at most 2^-24 of ``mag``: K11's
+    promotions of its stages and its two scale multiplies, the plain
+    version's own k-term sum (any order), and ``mag``'s.  With ``plain``
+    (the plain version's fp32 values), the bound of a bf16 output: one
+    more rounding, 2^-8 of its magnitude."""
+    stages = -(-int(k) // STAGE_DEPTH)
+    r = STAGE_CUTS * 2.0 ** -WGMMA_KEPT_BITS
+    rel = r / (1.0 - r) + (2 * int(k) + stages + 2) * 2.0 ** -24
+    bound = rel * mag
+    if plain is not None:
+        bound = bound + 2.0 ** -8 * (plain.abs() + bound)
+    return bound
 
 
 def fp8_gemm_plain(a, b, a_kind, b_kind, sa, sb, out_dtype=torch.float32):

@@ -148,6 +148,58 @@ def test_ssm_readout_order_is_lane_partials_then_butterfly():
             np.float32(lanes[0]).view(np.uint32)
 
 
+@pytest.mark.parametrize("lp", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [40, 128])
+def test_ssm_readout_in_k10s_threads_is_the_plain_order(lp, d):
+    """K10 (csrc/ssm_scan.cu) splits a column's readout over 32 / lp
+    threads: thread l0 holds partials l = l0 + (32 / lp) m, adds the
+    tree's levels o = 16 .. 32 / lp itself and leaves one value; one
+    thread adds the levels below over those values.  A thread's rows i
+    >= D (zero q, k and state) are left out of the update and the
+    partial, so an infinite v (column 3) gives the plain version's +inf,
+    where 0 x inf would give a NaN.  Emulated one scalar add at a time,
+    it gives the plain readout's bits."""
+    rs = np.random.RandomState(lp + d)
+    dc = -(-d // 32)
+    nl = 32 // lp
+    g = np.float32(0.96875)
+    qv = np.zeros(32 * dc, np.float32)
+    kv = np.zeros(32 * dc, np.float32)
+    qv[:d] = np.abs(rs.randn(d))
+    kv[:d] = np.abs(rs.randn(d))
+    vv = np.r_[-np.abs(rs.randn(3)), np.inf].astype(np.float32)
+    st = np.zeros((32 * dc, 4), np.float32)
+    st[:d] = rs.randn(d, 4)
+    with np.errstate(invalid="ignore"):  # the padded rows' 0 x inf
+        st = ((g * st).astype(np.float32) + (kv[:, None] * vv[None, :])
+              .astype(np.float32)).astype(np.float32)
+    want = tssm._readout(torch.from_numpy(qv[:d])[None],
+                         torch.from_numpy(st[:d])[None])
+    assert want[0, 3].item() == np.inf
+    for j in range(4):
+        left = []
+        for l0 in range(nl):
+            pm = []
+            for m in range(lp):
+                lane, p = l0 + nl * m, np.float32(0.0)
+                for c in range(dc):
+                    i = lane + 32 * c
+                    if i < d:
+                        p = np.float32(p + np.float32(qv[i] * st[i, j]))
+                pm.append(p)
+            w = lp // 2
+            while w:
+                pm = [np.float32(pm[m] + pm[m + w]) for m in range(w)]
+                w //= 2
+            left.append(pm[0])
+        o = nl // 2
+        while o:
+            left = [np.float32(left[x] + left[x + o]) for x in range(o)]
+            o //= 2
+        assert want[0, j].numpy().view(np.uint32) == \
+            np.float32(left[0]).view(np.uint32)
+
+
 def test_ssm_scan_rejects_bad_shapes():
     q, k, v, state0 = _t(*_inputs(0, 1, 2, 2, 8))
     gamma = tssm.ssm_decay(2)
